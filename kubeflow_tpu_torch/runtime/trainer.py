@@ -1,0 +1,283 @@
+"""The LM training loop on one device (port of kubeflow_tpu/runtime/trainer.py
+for task="lm").
+
+One step: forward through TransformerLM, the loss (chunked over the
+sequence when `xent_chunks` > 1), backward, and an optimizer update whose
+learning rate follows the reference's optax warmup-cosine schedule.
+`fit` keeps the first step (kernel builds, allocator warm-up) out of the
+meter and returns the reference's summary dict.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import time
+from typing import Callable, Iterator
+
+import torch
+import torch.nn.functional as F
+
+from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+from kubeflow_tpu_torch.runtime import metrics as rt_metrics
+from kubeflow_tpu_torch.runtime.data import synthetic_tokens
+
+log = logging.getLogger("kubeflow_tpu_torch.trainer")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Declarative training config: the reference's keys and defaults, so
+    the same JSON/YAML loads. Keys whose feature the port lacks yet raise
+    in Trainer, naming their ROADMAP item."""
+
+    model: str = "resnet50"
+    model_kwargs: dict = dataclasses.field(default_factory=dict)
+    task: str = "classification"
+    global_batch: int = 32
+    image_size: int = 224
+    num_classes: int = 1000
+    seq_len: int = 1024
+    vocab_size: int = 32000
+    mesh: MeshSpec = dataclasses.field(default_factory=MeshSpec)
+    optimizer: str = "sgdm"       # sgdm | adamw
+    learning_rate: float = 0.1
+    weight_decay: float = 1e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    remat: bool = False
+    remat_policy: str = "full"
+    pp_microbatches: int = 4
+    aux_loss_weight: float = 0.01
+    xent_chunks: int = 0
+    grad_accum_steps: int = 0
+    seed: int = 0
+    log_every: int = 20
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0
+    checkpoint_keep: int = 3
+    resume: bool = True
+    data_path: str | None = None
+    shuffle_buffer: int = 0
+    packed_data: bool = False
+    eval_every: int = 0
+    eval_steps: int = 8
+    eval_data_path: str | None = None
+    flash_block_q: int = 0
+    flash_block_k: int = 0
+    profile_dir: str | None = None
+    profile_start_step: int = 2
+    profile_steps: int = 3
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TrainConfig":
+        d = dict(d)
+        if "mesh" in d and not isinstance(d["mesh"], MeshSpec):
+            d["mesh"] = MeshSpec.from_dict(d["mesh"])
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown TrainConfig keys {sorted(unknown)}")
+        return cls(**d)
+
+
+def _unported(cfg: TrainConfig) -> str | None:
+    """The first config feature the port lacks, with its ROADMAP item."""
+    if cfg.task != "lm":
+        return f"task={cfg.task!r} (ROADMAP Queue 1, slice 5)"
+    if cfg.optimizer == "adafactor":
+        return "optimizer='adafactor' (ROADMAP Queue 1, slice 1 follow-up item 1)"
+    if cfg.remat:
+        return "remat (ROADMAP Queue 1, slice 1 follow-up item 2)"
+    if cfg.grad_accum_steps > 1:
+        return "grad_accum_steps > 1 (ROADMAP Queue 1, slice 1 follow-up item 3)"
+    if cfg.checkpoint_dir:
+        return "checkpoint_dir (ROADMAP Queue 1 item 14)"
+    if cfg.data_path or cfg.packed_data:
+        return "data_path / packed_data (ROADMAP Queue 1 item 15)"
+    if cfg.eval_every:
+        return "eval_every (ROADMAP Queue 1 item 15)"
+    if cfg.profile_dir:
+        return "profile_dir (ROADMAP Queue 1 item 15)"
+    return None
+
+
+def warmup_cosine_lr(step: int, cfg: TrainConfig) -> float:
+    """optax.warmup_cosine_decay_schedule(0, lr, warmup, max(total,
+    warmup + 1)) at update count `step` (0 for the first update, which
+    therefore runs at lr 0)."""
+    peak, warmup = cfg.learning_rate, cfg.warmup_steps
+    decay = max(cfg.total_steps, warmup + 1) - warmup
+    if step < warmup:
+        return peak * step / warmup
+    count = min(step - warmup, decay)
+    return peak * 0.5 * (1.0 + math.cos(math.pi * count / decay))
+
+
+def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
+    """adamw: b1 .9, b2 .95, eps 1e-8, decoupled decay on every param
+    (optax.adamw). sgdm: decay added to the gradient, then nesterov
+    momentum .9 (optax add_decayed_weights + sgd). The learning rate is
+    set from warmup_cosine_lr before each update."""
+    params = list(params)
+    if cfg.optimizer == "sgdm":
+        return torch.optim.SGD(params, lr=0.0, momentum=0.9, nesterov=True,
+                               weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.95), eps=1e-8,
+                                 weight_decay=cfg.weight_decay)
+    if cfg.optimizer == "adafactor":
+        raise NotImplementedError(
+            "adafactor is not ported yet (ROADMAP Queue 1, slice 1 follow-up "
+            "item 1)")
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+def _masked_accuracy(pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """argmax hit-rate over valid (non-negative) labels only."""
+    valid = labels >= 0
+    return ((pred == labels) & valid).sum() / valid.sum().clamp_min(1)
+
+
+def _xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Integer-label cross entropy in f32, mean over valid positions;
+    negative labels are ignored."""
+    valid = labels >= 0
+    ce = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                         labels.clamp_min(0).reshape(-1).long(),
+                         reduction="none").view(labels.shape)
+    return (ce * valid).sum() / valid.sum().clamp_min(1)
+
+
+class Trainer:
+    """Builds the model and optimizer from a TrainConfig, on `device`
+    (cuda unless "cpu" is asked for)."""
+
+    def __init__(self, cfg: TrainConfig, device=None):
+        missing = _unported(cfg)
+        if missing:
+            raise NotImplementedError(f"not ported yet: {missing}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        kw = dict(cfg.model_kwargs)
+        if cfg.flash_block_q:
+            kw.setdefault("flash_block_q", cfg.flash_block_q)
+        if cfg.flash_block_k:
+            kw.setdefault("flash_block_k", cfg.flash_block_k)
+        # synthetic targets draw from cfg.vocab_size: the head must match
+        kw.setdefault("vocab_size", cfg.vocab_size)
+        self.model = get_model(cfg.model, device=self.device, seed=cfg.seed,
+                               **kw)
+        self.n_params = sum(p.numel() for p in self.model.parameters())
+        self.opt = make_optimizer(cfg, self.model.parameters())
+        self.step = 0          # optimizer updates applied so far
+
+    def data_iter(self) -> Iterator[dict]:
+        cfg = self.cfg
+        return synthetic_tokens(cfg.global_batch, cfg.seq_len, cfg.vocab_size,
+                                cfg.seed)
+
+    def _device_iter(self, it: Iterator[dict]) -> Iterator[dict]:
+        """Copy each distinct host batch to the device once: the synthetic
+        iterator yields the same arrays every step."""
+        last_key, last_val = None, None
+        for b in it:
+            key = tuple(id(a) for a in b.values())
+            if key != last_key:
+                last_val = {k: torch.from_numpy(a).to(self.device)
+                            for k, a in b.items()}
+                last_key = key
+            yield last_val
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(loss, accuracy) of one batch, differentiable in the loss."""
+        cfg = self.cfg
+        x, y = batch["tokens"], batch["targets"]
+        seg = batch.get("segment_ids")
+        if cfg.xent_chunks > 1:
+            from kubeflow_tpu_torch.ops.xent import chunked_lm_xent
+
+            hidden = self.model(x, segment_ids=seg, return_hidden=True)
+            return chunked_lm_xent(hidden, self.model.lm_head.kernel, y,
+                                   cfg.xent_chunks,
+                                   compute_dtype=self.model.cfg.dtype)
+        logits = self.model(x, segment_ids=seg)
+        return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
+
+    def train_step(self, batch: dict) -> dict:
+        """One update. Returns {"loss", "accuracy"} as device scalars."""
+        self.opt.zero_grad(set_to_none=True)
+        loss, acc = self.loss(batch)
+        loss.backward()
+        lr = warmup_cosine_lr(self.step, self.cfg)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.step += 1
+        return {"loss": loss.detach(), "accuracy": acc.detach()}
+
+    def flops_per_step(self) -> float:
+        """Analytic train-step FLOPs (2 per MAC, train = 3x forward)."""
+        cfg = self.cfg
+        return (self.model.flops_per_token(seq_len=cfg.seq_len)
+                * cfg.global_batch * cfg.seq_len)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, steps: int | None = None,
+            callback: Callable[[int, dict], None] | None = None) -> dict:
+        """Run `steps` updates (default total_steps); return the summary:
+        steps, start_step, step_time_s, examples_per_sec, mfu, final."""
+        cfg = self.cfg
+        steps = steps or cfg.total_steps
+        start_step = self.step
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "")
+        meter = rt_metrics.StepMeter(self.flops_per_step(), kind)
+        data = self._device_iter(self.data_iter())
+        last: dict = {}
+        first_dt = float("nan")
+        self.model.train()
+        for i in range(steps - start_step):
+            batch = next(data)
+            if i == 0:
+                # the first step builds kernels and warms the allocator:
+                # kept out of the meter window
+                t0 = time.perf_counter()
+                m = self.train_step(batch)
+                self._sync()
+                first_dt = time.perf_counter() - t0
+                log.info("first step (incl. kernel build): %.2fs", first_dt)
+                last = {k: float(v) for k, v in m.items()}
+            else:
+                meter.start()
+                m = self.train_step(batch)
+                self._sync()
+                meter.stop()
+                if (i + 1) % cfg.log_every == 0 or i == steps - start_step - 1:
+                    last = {k: float(v) for k, v in m.items()}
+                    log.info("step %d loss=%.4f acc=%.3f %.1f ex/s step=%.1fms",
+                             i + 1, last["loss"], last["accuracy"],
+                             meter.throughput(cfg.global_batch),
+                             meter.step_time * 1e3)
+            if callback:
+                callback(i, m)
+        if meter.steps == 0 and math.isfinite(first_dt):
+            meter._times.append(first_dt)   # single-step run
+
+        def finite(x):
+            return x if x is not None and math.isfinite(x) else None
+
+        return {
+            "steps": steps,
+            "start_step": start_step,
+            "step_time_s": finite(meter.step_time),
+            "examples_per_sec": finite(meter.throughput(cfg.global_batch)),
+            "mfu": finite(meter.mfu),
+            "final": {k: finite(v) for k, v in last.items()},
+        }
