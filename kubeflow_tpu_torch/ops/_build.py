@@ -13,6 +13,7 @@ a machine with no `nvcc`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,21 +53,21 @@ def nvcc_path() -> str:
                        "kernels build from source on first use")
 
 
-def _lib_path(src: str) -> Path:
+def _lib_path(src: str, csrc: Path, out: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in (src, *HEADERS):
-        h.update((CSRC / name).read_bytes())
-    return build_dir() / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
+        h.update((csrc / name).read_bytes())
+    return out / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> dict[str, Path]:
-    """Compile every source whose library is missing, all at once; return
-    the library paths by source. Raises with the compiler's output when a
-    build fails. The compiler log (register and spill counts from
-    -Xptxas -v) lands beside each library as `<name>.log`."""
-    out = build_dir()
+def build(csrc: Path = CSRC, out: Path | None = None) -> dict[str, Path]:
+    """Compile every source of `csrc` whose library is missing, all at
+    once; return the library paths by source. Raises with the compiler's
+    output when a build fails. The compiler log (register and spill
+    counts from -Xptxas -v) lands beside each library as `<name>.log`."""
+    out = out or build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    paths = {src: _lib_path(src) for src in SOURCES}
+    paths = {src: _lib_path(src, csrc, out) for src in SOURCES}
     todo = {src: p for src, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -74,7 +75,7 @@ def build() -> dict[str, Path]:
     procs = {}
     for src, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / src)]
         procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, p)
@@ -92,21 +93,39 @@ def build() -> dict[str, Path]:
     return paths
 
 
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+    if hasattr(lib, "kft_error_string"):
+        lib.kft_error_string.argtypes = [_I]
+        lib.kft_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library(src: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if need be."""
     with _lock:
         if src not in _libs:
-            for name, path in build().items():
-                lib = ctypes.CDLL(str(path))
-                for fn, argtypes in SIGNATURES.items():
-                    if hasattr(lib, fn):
-                        getattr(lib, fn).argtypes = argtypes
-                        getattr(lib, fn).restype = _I
-                if hasattr(lib, "kft_error_string"):
-                    lib.kft_error_string.argtypes = [_I]
-                    lib.kft_error_string.restype = ctypes.c_char_p
-                _libs[name] = lib
+            _libs.update({name: _load(p) for name, p in build().items()})
         return _libs[src]
+
+
+@contextlib.contextmanager
+def using(paths: dict[str, Path]):
+    """Route the kernel wrappers to other builds of the sources (those
+    of `build(csrc=...)` on an altered copy) until the block exits."""
+    with _lock:
+        saved = dict(_libs)
+        _libs.update({name: _load(p) for name, p in paths.items()})
+    try:
+        yield
+    finally:
+        with _lock:
+            _libs.clear()
+            _libs.update(saved)
 
 
 def check(err: int, what: str) -> None:

@@ -2,8 +2,8 @@
 device. Port of kubeflow_tpu/ops/attention.py.
 
 `attention()` routes to the hand-written CUDA flash kernel on a CUDA
-device when the shape and dtype are ones it takes, and to the plain
-`reference_attention` elsewhere. Shapes are [batch, length, heads,
+device for the shapes the reference sends to its flash kernel, and to
+the plain `reference_attention` elsewhere. Shapes are [batch, length, heads,
 head_dim]; grouped-query attention passes fewer kv heads than q heads.
 """
 
@@ -57,15 +57,27 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto",
               segment_ids: torch.Tensor | None = None, block_q: int = 0,
               block_k: int = 0, window: int = 0) -> torch.Tensor:
     """Dispatching attention. impl: auto | flash | reference. `auto` takes
-    the flash kernel on a CUDA device for shapes it supports."""
+    the flash kernel on a CUDA device for the shapes the reference sends
+    to its kernel (`_flash_supported`); of those, the ones the CUDA
+    kernel lacks raise rather than take the [B, H, L, L] reference path.
+    block_q / block_k set the plain version's blocks; the CUDA kernel
+    tiles at its own size."""
     if impl == "reference":
         return reference_attention(q, k, v, causal=causal,
                                    segment_ids=segment_ids, window=window)
     if impl not in ("auto", "flash"):
         raise ValueError(f"unknown attention impl {impl!r} "
                          "(auto|flash|reference)")
-    if impl == "flash" or (q.device.type == "cuda"
-                           and _flash_supported(q, k)):
+    on_card = q.device.type == "cuda"
+    if impl == "auto" and on_card and _flash_supported(q, k) \
+            and not _kernel_takes(q):
+        raise NotImplementedError(
+            f"attention_impl auto: the reference sends {q.dtype} with "
+            f"head_dim {q.shape[-1]} to its flash kernel, but the CUDA "
+            "kernel takes bf16 with head_dim 64 or 128 (ROADMAP Queue 2, "
+            "item 5); pass attention_impl 'reference' to run the plain "
+            "path")
+    if impl == "flash" or (on_card and _flash_supported(q, k)):
         from kubeflow_tpu_torch.ops.flash_attention import (
             DEFAULT_BLOCK_K,
             DEFAULT_BLOCK_Q,
@@ -81,10 +93,14 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto",
 
 
 def _flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
-    # the reference's rule (lengths % 128, head_dim 64/128/256) narrowed
-    # to what the CUDA kernel takes: bf16, head_dim 64 or 128
+    """The reference's rule for taking its flash kernel: lengths % 128,
+    head_dim 64, 128 or 256, any dtype."""
+    return (q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
+            and q.shape[-1] in (64, 128, 256))
+
+
+def _kernel_takes(q: torch.Tensor) -> bool:
+    """What the CUDA kernel takes beyond that: bf16, head_dim 64 or 128."""
     from kubeflow_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
 
-    return (q.shape[1] % 128 == 0 and k.shape[1] % 128 == 0
-            and q.shape[-1] in KERNEL_HEAD_DIMS
-            and q.dtype == k.dtype == torch.bfloat16)
+    return q.dtype == torch.bfloat16 and q.shape[-1] in KERNEL_HEAD_DIMS

@@ -24,6 +24,8 @@ blocks that ran, as on the TPU), never a row that sees a key.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
 from kubeflow_tpu_torch.ops import _build
@@ -365,6 +367,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     kv_segment_ids: torch.Tensor | None = None,
                     window: int = 0) -> torch.Tensor:
     """Fused attention. [B, L, H, D] in and out; GQA via fewer kv heads.
+    block_q / block_k block the plain version; on the card the kernels
+    tile at KERNEL_TILE and other sizes are ignored, with a warning.
 
     window > 0 masks keys further than window-1 positions in the past
     (one-sided). segment_ids [B, L] mask attention across packed
@@ -372,6 +376,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     b, lq, h, d = q.shape
     lk = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
+    if _on_card(q) and not {block_q, block_k} <= {DEFAULT_BLOCK_Q,
+                                                  DEFAULT_BLOCK_K, KERNEL_TILE}:
+        warnings.warn(f"flash attention on {q.device}: block sizes "
+                      f"({block_q}, {block_k}) are ignored, the CUDA kernels "
+                      f"tile at {KERNEL_TILE}", stacklevel=2)
     if h % k.shape[2]:
         raise ValueError(f"{h} q heads not a multiple of {k.shape[2]} kv heads")
     block_q = _fit_block(block_q, lq)

@@ -16,33 +16,43 @@ from torch.utils.checkpoint import checkpoint
 class _HeadProduct(torch.autograd.Function):
     """x @ kernel with both operands rounded to a 16-bit type and f32
     logits out (the reference's preferred_element_type=float32), on the
-    card's bf16 tensor-core GEMM. The kernel's gradient stays f32."""
+    card's tensor-core GEMM. The gradients round as those of
+    `head_logits_plain` do (dx to x's dtype, dkernel to `dtype`, then
+    kernel's), with one difference: the f32 cotangent is rounded to
+    `dtype` too, since the GEMM takes 16-bit operands. chip_smoke.py and
+    tests/test_torch_kernels_cuda.py hold both against each other."""
 
     @staticmethod
     def forward(ctx, x, kernel, dtype):
         xb, wb = x.to(dtype), kernel.to(dtype)
         ctx.save_for_backward(xb, wb)
-        ctx.x_dtype = x.dtype
+        ctx.dtypes = (x.dtype, kernel.dtype)
         return torch.mm(xb, wb, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         xb, wb = ctx.saved_tensors
         gb = g.to(xb.dtype)
-        dx = (gb @ wb.t()).to(ctx.x_dtype)
-        return dx, torch.mm(xb.t(), gb, out_dtype=torch.float32), None
+        x_dtype, k_dtype = ctx.dtypes
+        return (gb @ wb.t()).to(x_dtype), (xb.t() @ gb).to(k_dtype), None
+
+
+def head_logits_plain(x: torch.Tensor, kernel: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The exact products of the rounded operands, summed in f32."""
+    return x.to(dtype).float() @ kernel.to(dtype).float()
 
 
 def head_logits(x: torch.Tensor, kernel: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:
-    """f32 logits of x [..., d] through kernel [d, V], operands in `dtype`."""
+    """f32 logits of x [..., d] through kernel [d, V], operands in `dtype`:
+    a 16-bit GEMM on the card, `head_logits_plain` elsewhere."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and dtype != torch.float32:
         out = _HeadProduct.apply(x2, kernel, dtype)
     else:
-        # exact products of the rounded operands, summed in f32
-        out = x2.to(dtype).float() @ kernel.to(dtype).float()
+        out = head_logits_plain(x2, kernel, dtype)
     return out.reshape(*lead, kernel.shape[-1])
 
 

@@ -156,12 +156,18 @@ def test_dispatch_on_cpu():
 
 
 def test_flash_supported_rule():
+    # the reference's rule, whatever the dtype; the kernel's own is narrower
     bf = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
     assert tattn._flash_supported(bf, bf)
-    assert not tattn._flash_supported(bf.float(), bf.float())
+    assert tattn._flash_supported(bf.float(), bf.float())
     assert not tattn._flash_supported(bf[:, :192], bf[:, :192])
     wide = torch.zeros(1, 256, 2, 256, dtype=torch.bfloat16)
-    assert not tattn._flash_supported(wide, wide)
+    assert tattn._flash_supported(wide, wide)
+    narrow = torch.zeros(1, 256, 2, 32, dtype=torch.bfloat16)
+    assert not tattn._flash_supported(narrow, narrow)
+    assert tattn._kernel_takes(bf)
+    assert not tattn._kernel_takes(bf.float())
+    assert not tattn._kernel_takes(wide)
 
 
 def test_cpu_wrappers_never_launch_kernels():

@@ -3,19 +3,20 @@
 Marked `cuda`: each test skips when torch sees no GPU (decided inside the
 fixture, never at import). Run on an H100 with
     python -m pytest tests/test_torch_kernels_cuda.py -q
-Tolerance: outputs and gradients are bf16, so 3e-2 absolute plus 3e-2
-relative (the reference's bf16 bound); the kernels and the plain version
-differ only in summation order and exp rounding.
+Tolerance: that of chip_smoke.py (`kubeflow_tpu_torch/ops/kernel_check.py`):
+each row's L2 error within 1e-2 of the row's L2 norm (2e-2 for dq),
+lse within 1e-3 absolute plus 1e-3 relative.
 """
 
 import pytest
 import torch
 
+from kubeflow_tpu_torch.ops import attention as attn
 from kubeflow_tpu_torch.ops import flash_attention as fa
+from kubeflow_tpu_torch.ops import kernel_check
+from kubeflow_tpu_torch.ops.xent import head_logits, head_logits_plain
 
 pytestmark = pytest.mark.cuda
-
-TOL = dict(atol=3e-2, rtol=3e-2)
 
 
 @pytest.fixture
@@ -59,26 +60,10 @@ def test_kernels_match_plain(dev, case):
     if segments:
         qseg = _segs(dev, b, lq)
         kseg = qseg if lq == lk else _segs(dev, b, lk)
-    cfg = dict(scale=d ** -0.5, causal=causal, window=window)
-    want, lse_want = fa.flash_fwd_plain(q, k, v, qseg, kseg, block_q=64,
-                                        block_k=64, **cfg)
-    got, lse = fa.flash_fwd_cuda(q, k, v, qseg, kseg, **cfg)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), **TOL)
-    torch.testing.assert_close(lse, lse_want, atol=1e-3, rtol=1e-3)
-
-    dq_w, dk_w, dv_w = fa.flash_bwd_plain(q, k, v, want, lse_want, dout,
-                                          qseg, kseg, block_q=64, block_k=64,
-                                          **cfg)
-    delta = fa.flash_delta(want, dout)
-    dq = fa.flash_bwd_dq_cuda(q, k, v, dout, lse_want, delta, qseg, kseg, **cfg)
-    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, dout, lse_want, delta, qseg, kseg,
-                                   **cfg)
-    torch.cuda.synchronize()
-    for name, a, w in (("dq", dq, dq_w), ("dk", dk, dk_w), ("dv", dv, dv_w)):
-        scale = max(1.0, w.float().abs().max().item())
-        torch.testing.assert_close(a.float() / scale, w.float() / scale,
-                                   **TOL, msg=lambda m: f"{name}: {m}")
+    errs = kernel_check.flash_errors(q, k, v, dout, qseg, kseg,
+                                     scale=d ** -0.5, causal=causal,
+                                     window=window)
+    assert not kernel_check.failures(errs), errs
 
 
 def test_autograd_reaches_kernels(dev):
@@ -99,3 +84,38 @@ def test_kernel_rejects_unsupported_input(dev):
     with pytest.raises(ValueError):
         fa.flash_fwd_cuda(q.float(), k.float(), v.float(), scale=0.125,
                           causal=True)
+
+
+def test_auto_raises_for_shapes_the_kernel_lacks(dev):
+    # the reference sends f32 and head_dim 256 to its flash kernel
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
+        q = torch.zeros(1, 128, 2, d, device=dev, dtype=dtype)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            attn.attention(q, q, q, impl="auto")
+        attn.attention(q, q, q, impl="reference")
+
+
+def test_head_product_matches_plain_formula(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 64, 256, device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randn(256, 1000, device=dev, generator=g) * 0.05
+    cot = torch.randn(2, 64, 1000, device=dev, generator=g)
+    got = {}
+    for name, fn in (("card", head_logits), ("plain", head_logits_plain)):
+        xi, wi = x.detach().requires_grad_(), w.detach().requires_grad_()
+        out = fn(xi, wi, torch.bfloat16)
+        out.backward(cot)
+        got[name] = (out.detach(), xi.grad, wi.grad)
+    for what, a, b in zip(("logits", "dx", "dkernel"), got["card"],
+                          got["plain"]):
+        assert a.dtype == b.dtype, what
+        e = kernel_check.errors(a, b)
+        assert e["max_row_err"] <= kernel_check.ROW_TOL, (what, e)
+
+
+def test_block_sizes_are_ignored_on_card_with_a_warning(dev):
+    q, k, v, _ = _inputs(dev, 1, 256, 256, 2, 2, 64)
+    with pytest.warns(UserWarning, match="ignored"):
+        got = fa.flash_attention(q, k, v, block_q=128, block_k=256)
+    torch.testing.assert_close(got, fa.flash_attention(q, k, v), atol=0,
+                               rtol=0)
