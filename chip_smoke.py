@@ -4,17 +4,21 @@
     python3 chip_smoke.py
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds the
-   CUDA kernels from `kubeflow_tpu_torch/ops/csrc`, timing the build.
+   CUDA kernels from `kubeflow_tpu_torch/ops/csrc`, timing the build and
+   printing each kernel's registers and spills at head_dim 64 and 128.
 2. Kernel phase, at llama-1b attention shapes (q [8, 2048, 32, 64], k/v
    8 heads, bf16, causal): runs each kernel (flash fwd, bwd dq, bwd dk/dv)
-   and holds it against its plain PyTorch version on the same inputs, then
+   and holds it against its plain PyTorch version on the same inputs, the
+   plain version blocked at that kernel's own tiles (`KERNEL_TILES`), then
    again with a sliding window and with packed-sequence segment ids. The
    limit is per row (`kubeflow_tpu_torch/ops/kernel_check.py`): every
    row's L2 error within 1e-2 of that row's L2 norm (2e-2 for dq, whose
    rows cancel), lse within 1e-3.
    Times each kernel, its plain version and the PyTorch library call for
-   the same function (scaled_dot_product_attention, forward / backward)
-   as the median of CUDA-event timings, and works out each kernel's bound.
+   the same function (scaled_dot_product_attention, forward / backward):
+   CUDA events around a run of back-to-back launches, per launch, the
+   median of five such runs, so the host's launch overhead overlaps the
+   device's work. Works out each kernel's bound.
 3. LM-head check: the card's bf16 head GEMM (`ops/xent.py`) against its
    plain f32 formula on the same card tensors, at one main-path chunk:
    logits, dx and dkernel, each within 1e-2 per row.
@@ -41,7 +45,6 @@ import gc
 import io
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -71,25 +74,6 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, n: int = 10, warmup: int = 2) -> float:
-    """Median over n runs of fn's device time, each between CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def check_rows(name: str, got, want, tol: float) -> dict:
     """kernel_check.errors of got against want; fails past tol per row."""
     from kubeflow_tpu_torch.ops import kernel_check
@@ -101,7 +85,7 @@ def check_rows(name: str, got, want, tol: float) -> dict:
     return e
 
 
-def kernel_phase(fa) -> list[dict]:
+def kernel_phase(fa, ptxas: dict) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
@@ -129,25 +113,29 @@ def kernel_phase(fa) -> list[dict]:
             errs.setdefault(name, {})[tag] = {
                 key: max(got[o][key] for o in outs)
                 for key in ("max_abs_err", "max_row_err")}
-    out_p, lse_p = fa.flash_fwd_plain(q, k, v, scale=scale, causal=True,
-                                      block_q=64, block_k=64)
-    delta = fa.flash_delta(out_p, dout)
 
     cfg = dict(scale=scale, causal=True, window=0)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, **cfg,
+                                      **fa.kernel_blocks("flash_fwd"))
+    delta = fa.flash_delta(out_p, dout)
+
+    timed = kernel_check.device_ms
     ms = {
-        "flash_fwd": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, **cfg)),
-        "flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq_cuda(
+        "flash_fwd": timed(lambda: fa.flash_fwd_cuda(q, k, v, **cfg)),
+        "flash_bwd_dq": timed(lambda: fa.flash_bwd_dq_cuda(
             q, k, v, dout, lse_p, delta, **cfg)),
-        "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv_cuda(
+        "flash_bwd_dkv": timed(lambda: fa.flash_bwd_dkv_cuda(
             q, k, v, dout, lse_p, delta, **cfg)),
     }
-    plain_fwd = time_ms(lambda: fa.flash_fwd_plain(
-        q, k, v, block_q=64, block_k=64, **cfg), n=3, warmup=1)
-    plain_bwd = time_ms(lambda: fa.flash_bwd_plain(
-        q, k, v, out_p, lse_p, dout, block_q=64, block_k=64, **cfg),
-        n=3, warmup=1)
-    plain_ms = {"flash_fwd": plain_fwd, "flash_bwd_dq": plain_bwd,
-                "flash_bwd_dkv": plain_bwd}
+    # the plain versions at each kernel's tiles; the plain backward
+    # computes dq, dk and dv together
+    plain_ms = {"flash_fwd": timed(lambda: fa.flash_fwd_plain(
+        q, k, v, **cfg, **fa.kernel_blocks("flash_fwd")), n=1, reps=3,
+        warmup=1)}
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        plain_ms[name] = timed(lambda: fa.flash_bwd_plain(
+            q, k, v, out_p, lse_p, dout, **cfg, **fa.kernel_blocks(name)),
+            n=1, reps=3, warmup=1)
 
     # library yardstick: SDPA on [B, H, L, D], kv heads expanded outside
     # the timed region; its backward computes dq, dk and dv together
@@ -155,10 +143,10 @@ def kernel_phase(fa) -> list[dict]:
     kt = k.repeat_interleave(H // HKV, 2).transpose(1, 2).detach().requires_grad_()
     vt = v.repeat_interleave(H // HKV, 2).transpose(1, 2).detach().requires_grad_()
     gt = dout.transpose(1, 2)
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+    sdpa_fwd = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+    sdpa_bwd = timed(lambda: torch.autograd.grad(
         o, (qt, kt, vt), gt, retain_graph=True))
     library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
                   "flash_bwd_dkv": sdpa_bwd}
@@ -175,7 +163,7 @@ def kernel_phase(fa) -> list[dict]:
     meta = {
         "flash_fwd": ("kubeflow_tpu_torch/ops/csrc/flash_fwd.cu", f"{SRC}:140"),
         "flash_bwd_dq": ("kubeflow_tpu_torch/ops/csrc/flash_bwd.cu", f"{SRC}:305"),
-        "flash_bwd_dkv": ("kubeflow_tpu_torch/ops/csrc/flash_bwd.cu", f"{SRC}:362"),
+        "flash_bwd_dkv": ("kubeflow_tpu_torch/ops/csrc/flash_bwd_dkv.cu", f"{SRC}:362"),
     }
     rows = []
     for name, (flops, nbytes) in work.items():
@@ -183,6 +171,11 @@ def kernel_phase(fa) -> list[dict]:
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": None,
+            "tile": list(fa.KERNEL_TILES[name]),
+            "registers": {d: r.get("registers")
+                          for d, r in sorted(ptxas[name].items())},
+            "spill_bytes": {d: r.get("spill_bytes")
+                            for d, r in sorted(ptxas[name].items())},
             "max_abs_err": errs[name]["causal"]["max_abs_err"],
             "max_row_err": {t: e["max_row_err"] for t, e in errs[name].items()},
             "max_abs_err_window": errs[name]["window"]["max_abs_err"],
@@ -192,7 +185,8 @@ def kernel_phase(fa) -> list[dict]:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms[name],
         })
-        print(f"kernel {name}: {ms[name]:.3f} ms (bound {max(t_ops, t_bytes):.3f}"
+        print(f"kernel {name} {fa.KERNEL_TILES[name]}: {ms[name]:.3f} ms "
+              f"(bound {max(t_ops, t_bytes):.3f}"
               f" ms, plain {plain_ms[name]:.1f} ms, sdpa {library_ms[name]:.3f}"
               f" ms), errors {errs[name]}", flush=True)
     return rows
@@ -376,12 +370,16 @@ def main() -> int:
     paths = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f}s "
           f"({', '.join(p.name for p in paths.values())})", flush=True)
-    for p in paths.values():
-        for line in p.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {p.stem}: {line.strip()}")
+    ptxas = _build.ptxas_report(paths)
+    for name, by_d in sorted(ptxas.items()):
+        for d, r in sorted(by_d.items()):
+            print(f"  {name} head_dim {d}: {r.get('registers')} registers "
+                  f"(ptxas, at launch), {r.get('spill_bytes')} bytes spilled")
+    if set(ptxas) != set(fa.LAUNCHES):
+        fail(f"build log names kernels {sorted(ptxas)}, want "
+             f"{sorted(fa.LAUNCHES)}")
 
-    rows = kernel_phase(fa)
+    rows = kernel_phase(fa, ptxas)
     torch.cuda.empty_cache()
     head_check()
     torch.cuda.empty_cache()

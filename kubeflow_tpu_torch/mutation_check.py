@@ -32,27 +32,34 @@ OLD_TOL = 3e-2
 # name -> (file, text, replacement): each a fault a wrong kernel could have
 FAULTS = {
     "fwd_skips_last_k_tile": (
-        "flash_fwd.cu", "for (int kb = kb_lo; kb < nk; ++kb) {",
-        "for (int kb = kb_lo; kb < nk - 1; ++kb) {"),
+        "flash_fwd.cu", "for (; kb < a.Lk / T::kBK; ++kb)",
+        "for (; kb < a.Lk / T::kBK - 1; ++kb)"),
     "dq_skips_last_k_tile": (
         "flash_bwd.cu", "for (int kb = kb_lo; kb < nk; ++kb) {",
         "for (int kb = kb_lo; kb < nk - 1; ++kb) {"),
     "dkv_skips_last_q_tile": (
-        "flash_bwd.cu", "for (int qb = qb_lo; qb < nq; ++qb) {",
-        "for (int qb = qb_lo; qb < nq - 1; ++qb) {"),
+        "flash_bwd_dkv.cu", "for (; qb < a.Lq / T::kBQ; ++qb)",
+        "for (; qb < a.Lq / T::kBQ - 1; ++qb)"),
     "window_one_key_wider": (
-        "flash_common.cuh", "qpos + offset - kpos >= a.window",
-        "qpos + offset - kpos > a.window"),
+        "flash_sm90.cuh", "return a.window > 0 ? a.window : 1 << 30;",
+        "return a.window > 0 ? a.window + 1 : 1 << 30;"),
     "fwd_scale_2pct_high": (
-        "flash_fwd.cu", "s[n][e] = ok ? s[n][e] * a.scale : kNegInf;",
-        "s[n][e] = ok ? s[n][e] * (a.scale * 1.02f) : kNegInf;"),
+        "flash_fwd.cu", "const float scale2 = a.scale * kLog2e;",
+        "const float scale2 = a.scale * 1.02f * kLog2e;"),
+    # the fwd and dk/dv kernels skip the per-element mask on interior
+    # tiles; one tile too generous a test takes the diagonal as interior
+    "diagonal_tile_taken_as_interior": (
+        "flash_sm90.cuh", "if (a.causal && k_hi > q_lo + offset) return false;",
+        "if (a.causal && k_hi - 128 > q_lo + offset) return false;"),
 }
 
 
-def plant(name: str) -> dict:
-    """An altered copy of the sources, built; its library paths."""
-    fname, old, new = FAULTS[name]
-    root = _build.build_dir() / "mutants" / name
+def plant(name: str, edit: tuple[str, str, str] | None = None,
+          kind: str = "mutants") -> dict:
+    """An altered copy of the sources, built; its library paths. `edit`
+    is (file, text, replacement), by default the fault `name`."""
+    fname, old, new = edit or FAULTS[name]
+    root = _build.build_dir() / kind / name
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(_build.CSRC, root / "csrc")
     path = root / "csrc" / fname

@@ -17,14 +17,15 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
-HEADERS = ("flash_common.cuh",)
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu")
+HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -91,6 +92,32 @@ def build(csrc: Path = CSRC, out: Path | None = None) -> dict[str, Path]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_report(paths: dict[str, Path]) -> dict[str, dict[int, dict]]:
+    """Registers and spill bytes of each kernel, by kernel name (the
+    `__global__` function's name without `_kernel`) and head dim, from
+    the `-Xptxas -v` logs of `build`. Registers are ptxas's count at
+    launch; a kernel that moves registers between warpgroups with
+    setmaxnreg runs its consumers above it."""
+    report: dict[str, dict[int, dict]] = {}
+    for p in paths.values():
+        entry = None
+        for line in p.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '\S*?(flash_\w+?)_kernel"
+                          r"ILi(\d+)E", line)
+            if m:
+                entry = report.setdefault(m.group(1), {}).setdefault(
+                    int(m.group(2)), {})
+            elif entry is not None:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m:
+                    entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+                m = re.search(r"Used (\d+) registers", line)
+                if m:
+                    entry["registers"] = int(m.group(1))
+    return report
 
 
 def _load(path: Path) -> ctypes.CDLL:

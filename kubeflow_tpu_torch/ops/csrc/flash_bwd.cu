@@ -1,22 +1,18 @@
-// Flash-attention backward for Hopper (sm_90a): dq, and dk/dv.
+// Flash-attention backward for Hopper (sm_90a): dq.
 //
-// Replaces the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
-// (kubeflow_tpu/ops/flash_attention.py, launched from _flash_bwd_pallas).
-// Both recompute p = exp(s - lse) from the forward's saved lse and form
+// Replaces the Pallas TPU kernel `_bwd_dq_kernel` (kubeflow_tpu/ops/
+// flash_attention.py, launched from _flash_bwd_pallas). It recomputes
+// p = exp(s - lse) from the forward's saved lse and forms
 // ds = p * (dp - delta) * scale (`_recompute_p_ds`), with
-// delta = rowsum(dO * O) computed by the caller, as on the TPU.
+// delta = rowsum(dO * O) computed by the caller, as on the TPU. The dk/dv
+// kernel is flash_bwd_dkv.cu.
 //
 // dq: one CTA per (64-row q tile, q head, batch row), walking the k/v
 // tiles the mask lets it see; dq accumulates in registers.
-// dk/dv: one CTA per (64-row k tile, kv head, batch row), walking every
-// q head of its group and the q tiles that can see it; dk and dv sum
-// over the group in registers, so grouped-query attention needs no
-// repeated k/v and no second reduction pass.
 //
-// Bound: five products of L^2.D/2 MACs each per (batch, head) under the
-// causal mask (2.5x the forward) over ~9.L.D bytes: tensor-core bound,
-// as the forward. mma.sync with plain staging, no overlap; see
-// flash_fwd.cu.
+// Bound: three products of L^2.D/2 MACs each per (batch, head) under the
+// causal mask (1.5x the forward) over ~5.L.D bytes: tensor-core bound,
+// as the forward. mma.sync with plain staging, no overlap.
 #include "flash_common.cuh"
 
 namespace kft {
@@ -108,106 +104,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const FlashArgs a) {
-  constexpr int LD = D + kPad;
-  __shared__ __align__(16) bf16 qs[kTile * LD];
-  __shared__ __align__(16) bf16 gs[kTile * LD];
-  __shared__ float lse_s[kTile], delta_s[kTile];
-  __shared__ int qseg_s[kTile];
-
-  const int kb = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int group = a.H / a.Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int offset = a.Lk - a.Lq;
-  const size_t q_ld = static_cast<size_t>(a.H) * D;
-  const size_t kv_ld = static_cast<size_t>(a.Hkv) * D;
-  const int r0 = warp * 16 + g;
-  const int kpos[2] = {kb * kTile + r0, kb * kTile + r0 + 8};
-  const size_t kv_off =
-      (static_cast<size_t>(b) * a.Lk + kb * kTile) * kv_ld + hk * D;
-
-  // k and v fragments of this warp's 16 key rows, staged through qs / gs
-  load_tile<D>(qs, a.k + kv_off, kv_ld);
-  load_tile<D>(gs, a.v + kv_off, kv_ld);
-  __syncthreads();
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_frags<D>(ka, qs, r0, t);
-  load_frags<D>(va, gs, r0, t);
-  int kseg[2] = {0, 0};
-  if (a.kseg) {
-    kseg[0] = a.kseg[static_cast<size_t>(b) * a.Lk + kpos[0]];
-    kseg[1] = a.kseg[static_cast<size_t>(b) * a.Lk + kpos[1]];
-  }
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
-  }
-
-  const int nq = a.Lq / kTile;
-  // _qb_lo: under the causal mask no q tile before this one sees kb
-  const int qb_lo =
-      a.causal ? max(0, floor_div(kb * kTile - offset, kTile)) : 0;
-  for (int j = 0; j < group; ++j) {
-    const int h = hk * group + j;
-    for (int qb = qb_lo; qb < nq; ++qb) {
-      if (!block_runs(a, qb, kb, offset)) continue;
-      const size_t q_off =
-          (static_cast<size_t>(b) * a.Lq + qb * kTile) * q_ld + h * D;
-      __syncthreads();
-      load_tile<D>(qs, a.q + q_off, q_ld);
-      load_tile<D>(gs, a.dout + q_off, q_ld);
-      if (threadIdx.x < kTile) {
-        const size_t row =
-            (static_cast<size_t>(b) * a.H + h) * a.Lq + qb * kTile + threadIdx.x;
-        lse_s[threadIdx.x] = a.lse[row];
-        delta_s[threadIdx.x] = a.delta[row];
-        if (a.qseg)
-          qseg_s[threadIdx.x] =
-              a.qseg[static_cast<size_t>(b) * a.Lq + qb * kTile + threadIdx.x];
-      }
-      __syncthreads();
-
-      // transposed blocks: rows are this warp's keys, columns the q tile
-      float p[kTile / 8][4], dp[kTile / 8][4];
-      mma_rows<D>(p, ka, qs, g, t);   // k . q^T  = s^T
-      mma_rows<D>(dp, va, gs, g, t);  // v . dO^T = dp^T
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, col = n * 8 + t * 2 + (e & 1);
-          const bool ok =
-              pair_valid(a, qb * kTile + col, kpos[i], offset) &&
-              (!a.qseg || qseg_s[col] == kseg[i]);
-          p[n][e] = __expf((ok ? p[n][e] * a.scale : kNegInf) - lse_s[col]);
-          dp[n][e] = p[n][e] * (dp[n][e] - delta_s[col]) * a.scale;  // ds^T
-        }
-      }
-      mma_cols<D>(dv, p, gs, g, t);   // dv += p^T . dO
-      mma_cols<D>(dk, dp, qs, g, t);  // dk += ds^T . q
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const size_t off =
-        (static_cast<size_t>(b) * a.Lk + kpos[i]) * kv_ld + hk * D + t * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(a.out + off + n * 8) =
-          __floats2bfloat162_rn(dk[n][2 * i], dk[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(a.out2 + off + n * 8) =
-          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
-    }
-  }
-}
-
 static FlashArgs bwd_args(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse, const void* delta,
                           const void* qseg, const void* kseg, int B, int H,
@@ -231,7 +127,7 @@ static FlashArgs bwd_args(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Each returns a cudaError_t: the launch's own error, 0 when accepted.
+// Returns a cudaError_t: the launch's own error, 0 when it was accepted.
 int kft_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* qseg, const void* kseg, void* dq, int B,
@@ -247,27 +143,6 @@ int kft_flash_bwd_dq(const void* q, const void* k, const void* v,
     flash_bwd_dq_kernel<64><<<grid, kThreads, 0, st>>>(a);
   else if (D == 128)
     flash_bwd_dq_kernel<128><<<grid, kThreads, 0, st>>>(a);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int kft_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      const void* qseg, const void* kseg, void* dk, void* dv,
-                      int B, int H, int Hkv, int Lq, int Lk, int D,
-                      float scale, int causal, int window, void* stream) {
-  using namespace kft;
-  FlashArgs a = bwd_args(q, k, v, dout, lse, delta, qseg, kseg, B, H, Hkv, Lq,
-                         Lk, scale, causal, window);
-  a.out = static_cast<bf16*>(dk);
-  a.out2 = static_cast<bf16*>(dv);
-  const dim3 grid(Lk / kTile, Hkv, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    flash_bwd_dkv_kernel<64><<<grid, kThreads, 0, st>>>(a);
-  else if (D == 128)
-    flash_bwd_dkv_kernel<128><<<grid, kThreads, 0, st>>>(a);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -1,14 +1,14 @@
-// Shared pieces of the flash-attention kernels for Hopper (sm_90a).
+// Shared pieces of the flash-attention dq kernel for Hopper (sm_90a)
+// (flash_bwd.cu); the forward and dk/dv kernels build on flash_sm90.cuh.
 //
 // Layout: q/out/dq are [B, Lq, H, D] and k/v/dk/dv are [B, Lk, Hkv, D],
 // contiguous, bf16; lse/delta are [B, H, Lq] f32; segment ids are
 // [B, L] int32. Grouped-query attention reads kv head h / (H / Hkv).
 //
-// Tiling: one CTA of 4 warps owns a 64-row tile (q rows in the forward
-// and dq kernels, key rows in the dk/dv kernel); each warp owns 16 of
-// those rows and keeps its products in mma.sync m16n8k16 accumulators.
-// The other operand streams through shared memory 64 rows at a time.
-// The mask and block-skip rules are those of the TPU kernels
+// Tiling: one CTA of 4 warps owns a 64-row tile of q rows; each warp owns
+// 16 of those rows and keeps its products in mma.sync m16n8k16
+// accumulators. The k/v tiles stream through shared memory 64 rows at a
+// time. The mask and block-skip rules are those of the TPU kernels
 // (kubeflow_tpu/ops/flash_attention.py: _block_mask, _block_runs), with
 // the same -1e30 fill, so a row no key may attend comes out exactly as
 // the plain version computes it.

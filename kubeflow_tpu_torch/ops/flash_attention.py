@@ -2,7 +2,7 @@
 
 Port of kubeflow_tpu/ops/flash_attention.py. The three Pallas TPU
 kernels become three hand-written CUDA kernels (`csrc/flash_fwd.cu`,
-`csrc/flash_bwd.cu`, built by `_build.py`):
+`csrc/flash_bwd.cu`, `csrc/flash_bwd_dkv.cu`, built by `_build.py`):
 
 - forward: out and the row logsumexp `lse`, online softmax over k/v tiles;
 - backward dq, and backward dk/dv, both recomputing p from `lse`, with
@@ -16,10 +16,10 @@ head h // (H / Hkv) instead of repeating k/v.
 On a CPU tensor every entry point runs the plain blockwise version
 (`flash_fwd_plain`, `flash_bwd_plain`), which uses the TPU kernels' mask
 and block-skip rules at the requested block sizes. On a CUDA tensor it
-launches the kernel or raises; nothing falls back. The kernels tile at
-`KERNEL_TILE` whatever block sizes are asked: blocking changes only the
-output of a row that no key may attend (it averages the keys of the
-blocks that ran, as on the TPU), never a row that sees a key.
+launches the kernel or raises; nothing falls back. Each kernel tiles at
+its own `KERNEL_TILES` entry whatever block sizes are asked: blocking
+changes only the output of a row that no key may attend (it averages the
+keys of the blocks that ran, as on the TPU), never a row that sees a key.
 """
 
 from __future__ import annotations
@@ -31,10 +31,21 @@ import torch
 from kubeflow_tpu_torch.ops import _build
 
 # The plain version's default blocking: that of the reference, so the
-# CPU tests compare like with like. The CUDA kernels tile at 64.
+# CPU tests compare like with like.
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-KERNEL_TILE = 64
+# (block_q, block_k) of each CUDA kernel, as its source fixes them
+# (FwdTile in csrc/flash_fwd.cu, kTile in csrc/flash_common.cuh, DkvTile
+# in csrc/flash_bwd_dkv.cu)
+KERNEL_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (64, 64),
+                "flash_bwd_dkv": (64, 128)}
+KERNEL_LENGTH = max(max(t) for t in KERNEL_TILES.values())
+
+
+def kernel_blocks(name: str) -> dict[str, int]:
+    """The plain version's block sizes that match kernel `name`'s tiles."""
+    block_q, block_k = KERNEL_TILES[name]
+    return dict(block_q=block_q, block_k=block_k)
 KERNEL_HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 
@@ -209,18 +220,19 @@ def _check_kernel_inputs(q, k, v, *rest, segs=()):
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
                          f"got {d}")
-    if lq % KERNEL_TILE or lk % KERNEL_TILE:
+    if lq % KERNEL_LENGTH or lk % KERNEL_LENGTH:
         raise ValueError(f"flash kernel needs lengths ({lq}, {lk}) that are "
-                         f"multiples of {KERNEL_TILE}")
+                         f"multiples of {KERNEL_LENGTH}")
     if h % hkv or v.shape[:3] != k.shape[:3] or k.shape[0] != b:
         raise ValueError(f"flash kernel: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     for x, n in segs:
         if x is not None and (x.dtype != torch.int32 or not x.is_contiguous()
                               or x.device != q.device
-                              or tuple(x.shape) != (b, n)):
-            raise ValueError("flash kernel: segment ids must be contiguous "
-                             f"int32 [B, L] on {q.device}")
+                              or tuple(x.shape) != (b, n)
+                              or x.data_ptr() % 16):
+            raise ValueError("flash kernel: segment ids must be contiguous, "
+                             f"16-byte aligned int32 [B, L] on {q.device}")
 
 
 def flash_fwd_cuda(q, k, v, qseg=None, kseg=None, *, scale, causal,
@@ -252,9 +264,11 @@ def _check_rows(q, *rows):
     want = (q.shape[0], q.shape[2], q.shape[1])
     for x in rows:
         if (x.dtype != torch.float32 or not x.is_contiguous()
-                or x.device != q.device or tuple(x.shape) != want):
-            raise ValueError(f"flash kernel: lse/delta must be contiguous "
-                             f"f32 {list(want)} on {q.device}")
+                or x.device != q.device or tuple(x.shape) != want
+                or x.data_ptr() % 16):
+            raise ValueError(f"flash kernel: lse/delta must be contiguous, "
+                             f"16-byte aligned f32 {list(want)} on "
+                             f"{q.device}")
 
 
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, qseg=None, kseg=None, *,
@@ -287,7 +301,7 @@ def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, qseg=None, kseg=None, *,
     lk, hkv = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.library("flash_bwd.cu")
+    lib = _build.library("flash_bwd_dkv.cu")
     with torch.cuda.device(q.device):
         err = lib.kft_flash_bwd_dkv(
             *_bwd_args(q, k, v, g, lse, delta, qseg, kseg), _ptr(dk),
@@ -367,8 +381,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     kv_segment_ids: torch.Tensor | None = None,
                     window: int = 0) -> torch.Tensor:
     """Fused attention. [B, L, H, D] in and out; GQA via fewer kv heads.
-    block_q / block_k block the plain version; on the card the kernels
-    tile at KERNEL_TILE and other sizes are ignored, with a warning.
+    block_q / block_k block the plain version; on the card each kernel
+    tiles at its KERNEL_TILES entry and other sizes are ignored, with a
+    warning.
 
     window > 0 masks keys further than window-1 positions in the past
     (one-sided). segment_ids [B, L] mask attention across packed
@@ -376,11 +391,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     b, lq, h, d = q.shape
     lk = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
-    if _on_card(q) and not {block_q, block_k} <= {DEFAULT_BLOCK_Q,
-                                                  DEFAULT_BLOCK_K, KERNEL_TILE}:
+    if _on_card(q) and (block_q, block_k) not in {
+            (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), *KERNEL_TILES.values()}:
         warnings.warn(f"flash attention on {q.device}: block sizes "
                       f"({block_q}, {block_k}) are ignored, the CUDA kernels "
-                      f"tile at {KERNEL_TILE}", stacklevel=2)
+                      f"tile at (block_q, block_k) {KERNEL_TILES}",
+                      stacklevel=2)
     if h % k.shape[2]:
         raise ValueError(f"{h} q heads not a multiple of {k.shape[2]} kv heads")
     block_q = _fit_block(block_q, lq)

@@ -27,6 +27,7 @@ planted faults these limits catch.
 from __future__ import annotations
 
 import math
+import statistics
 
 import torch
 
@@ -36,6 +37,27 @@ ROW_TOL = 1e-2
 OUTPUT_TOL = {"dq": 2e-2}              # by output name; else ROW_TOL
 FLOOR = 1e-3
 LSE_TOL = dict(atol=1e-3, rtol=1e-3)   # f32 lse, 2,048-term sums
+
+
+def device_ms(fn, n: int = 20, reps: int = 5, warmup: int = 2) -> float:
+    """fn's device time per call: CUDA events around n back-to-back calls,
+    divided by n; the median of reps such runs. Back to back, the host's
+    work of one call (argument checks, tensor maps, the launch) overlaps
+    the device's work of the one before, as on the main path."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
 
 
 def errors(got: torch.Tensor, want: torch.Tensor) -> dict[str, float]:
@@ -59,15 +81,19 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> dict[str, float]:
 
 def flash_errors(q, k, v, dout, qseg=None, kseg=None, *, scale, causal,
                  window=0) -> dict[str, dict[str, float]]:
-    """Run the three flash kernels and their plain versions (at the
-    kernels' tile) on the same card tensors; return `errors` for each of
-    out, lse, dq, dk and dv. The backward kernels take the plain
+    """Run the three flash kernels and their plain versions on the same
+    card tensors, each plain version at its kernel's tiles
+    (`KERNEL_TILES`); return `errors` for each of out, lse, dq, dk and
+    dv. The backward kernels and both plain backward runs take the plain
     forward's lse and delta, so each kernel is held on its own."""
     cfg = dict(scale=scale, causal=causal, window=window)
-    tile = dict(block_q=fa.KERNEL_TILE, block_k=fa.KERNEL_TILE)
-    out_p, lse_p = fa.flash_fwd_plain(q, k, v, qseg, kseg, **cfg, **tile)
-    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, out_p, lse_p, dout, qseg,
-                                          kseg, **cfg, **tile)
+    out_p, lse_p = fa.flash_fwd_plain(q, k, v, qseg, kseg, **cfg,
+                                      **fa.kernel_blocks("flash_fwd"))
+    dq_p, _, _ = fa.flash_bwd_plain(q, k, v, out_p, lse_p, dout, qseg, kseg,
+                                    **cfg, **fa.kernel_blocks("flash_bwd_dq"))
+    _, dk_p, dv_p = fa.flash_bwd_plain(
+        q, k, v, out_p, lse_p, dout, qseg, kseg, **cfg,
+        **fa.kernel_blocks("flash_bwd_dkv"))
     out, lse = fa.flash_fwd_cuda(q, k, v, qseg, kseg, **cfg)
     delta = fa.flash_delta(out_p, dout)
     dq = fa.flash_bwd_dq_cuda(q, k, v, dout, lse_p, delta, qseg, kseg, **cfg)

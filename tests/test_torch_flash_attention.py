@@ -52,36 +52,55 @@ CASES = {
 }
 
 
-def _run_jax(q, k, v, g, seg, causal, window):
+# The block pairs the plain version runs at: the reference's 64 x 64 and
+# each CUDA kernel's own tiles, which the card holds the kernels against.
+BLOCKS = sorted({(64, 64), *tflash.KERNEL_TILES.values()})
+# At 128-row or 128-key blocks a length must be a multiple of 128 (or
+# shorter than the block): these cases keep their offsets at such lengths.
+LONG = {"lq_lt_lk": (1, 128, 384, 2, 1, 32, True, 0, False),
+        "lq_gt_lk": (1, 384, 128, 2, 2, 32, True, 0, False)}
+
+
+def _case(name, block_q, block_k):
+    if (block_q, block_k) != (64, 64) and name in LONG:
+        return LONG[name]
+    return CASES[name]
+
+
+def _run_jax(q, k, v, g, seg, causal, window, block_q=64, block_k=64):
     q, k, v, g = _jax(jnp.float32, q, k, v, g)
     seg = None if seg is None else jnp.asarray(seg)
 
     def f(q, k, v):
-        return jflash.flash_attention(q, k, v, causal=causal, block_q=64,
-                                      block_k=64, segment_ids=seg,
+        return jflash.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                      block_k=block_k, segment_ids=seg,
                                       window=window)
 
     out, vjp = jax.vjp(f, q, k, v)
     return [np.asarray(x) for x in (out, *vjp(g))]
 
 
-def _run_torch(q, k, v, g, seg, causal, window, dtype=torch.float32):
-    q, k, v, g = _torch(dtype, q, k, v, g)
+def _run_torch(q, k, v, g, seg, causal, window, block_q=64, block_k=64):
+    q, k, v, g = _torch(torch.float32, q, k, v, g)
     seg = None if seg is None else torch.tensor(seg)
     for x in (q, k, v):
         x.requires_grad_()
-    out = tflash.flash_attention(q, k, v, causal=causal, block_q=64,
-                                 block_k=64, segment_ids=seg, window=window)
+    out = tflash.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                                 block_k=block_k, segment_ids=seg,
+                                 window=window)
     out.backward(g)
     return [x.detach().float().numpy() for x in (out, q.grad, k.grad, v.grad)]
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_flash_matches_jax(name):
-    b, lq, lk, h, hk, d, causal, window, segments = CASES[name]
+@pytest.mark.parametrize("name,block_q,block_k", [
+    pytest.param(n, bq, bk, id=n if (bq, bk) == (64, 64) else f"{n}-{bq}x{bk}")
+    for bq, bk in BLOCKS for n in sorted(CASES)])
+def test_flash_matches_jax(name, block_q, block_k):
+    b, lq, lk, h, hk, d, causal, window, segments = _case(name, block_q,
+                                                          block_k)
     q, k, v, g, seg = _inputs(b, lq, lk, h, hk, d, segments=segments)
-    want = _run_jax(q, k, v, g, seg, causal, window)
-    got = _run_torch(q, k, v, g, seg, causal, window)
+    want = _run_jax(q, k, v, g, seg, causal, window, block_q, block_k)
+    got = _run_torch(q, k, v, g, seg, causal, window, block_q, block_k)
     np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=2e-5)
     for a, w, n in zip(got[1:], want[1:], "qkv"):
         np.testing.assert_allclose(a, w, atol=5e-4, rtol=5e-4,

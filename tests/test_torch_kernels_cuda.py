@@ -49,6 +49,26 @@ CASES = [
     (2, 256, 256, 4, 2, 64, True, 0, True),
     (1, 256, 256, 4, 4, 128, True, 0, False),
     (1, 256, 256, 2, 1, 128, True, 80, True),
+    # at the edges of the 128-row and 128-key tiles: an odd number of
+    # tiles; lq > lk and lq < lk by one and two tiles (rows that see no
+    # key); windows that are not a multiple of the tile; GQA groups of 1,
+    # 4 and 8; head_dim 128 with segments; a key length of one tile, so
+    # the k/v ring is deeper than the tiles a CTA walks
+    (2, 384, 384, 4, 2, 64, True, 0, False),
+    (1, 384, 384, 2, 1, 128, False, 0, False),
+    (1, 384, 256, 4, 2, 64, True, 0, False),
+    (1, 512, 256, 4, 2, 64, True, 0, False),
+    (1, 256, 384, 4, 2, 64, True, 0, False),
+    (1, 256, 512, 4, 2, 128, True, 0, False),
+    (2, 512, 512, 4, 2, 64, True, 200, False),
+    (1, 384, 512, 4, 1, 64, True, 96, False),
+    (1, 512, 512, 2, 2, 64, False, 200, False),
+    (2, 256, 256, 4, 1, 64, True, 0, False),
+    (1, 384, 384, 8, 1, 64, True, 0, True),
+    (2, 384, 384, 4, 2, 128, True, 0, True),
+    (2, 128, 128, 4, 2, 64, True, 0, False),
+    (1, 512, 128, 4, 1, 128, False, 0, False),
+    (1, 128, 128, 8, 1, 64, True, 64, True),
 ]
 
 
