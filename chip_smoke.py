@@ -7,9 +7,13 @@
    CUDA kernels from `kubeflow_tpu_torch/ops/csrc`, timing the build and
    printing each kernel's registers and spills at head_dim 64 and 128.
 2. Kernel phase, at llama-1b attention shapes (q [8, 2048, 32, 64], k/v
-   8 heads, bf16, causal): runs each kernel (flash fwd, bwd dq, bwd dk/dv)
-   and holds it against its plain PyTorch version on the same inputs, the
-   plain version blocked at that kernel's own tiles (`KERNEL_TILES`), then
+   8 heads, bf16, causal): runs each kernel (flash fwd, bwd dq, bwd dk/dv;
+   all three warp-specialised sm_90a kernels: a TMA producer thread
+   feeding an mbarrier ring, two consumer warpgroups running wgmma; dq
+   keeps its 128-row Q and dO tiles resident and streams 128-key K/V
+   tiles, S and dP as SS wgmma, dQ += dS.K as RS wgmma) and holds it
+   against its plain PyTorch version on the same inputs, the plain
+   version blocked at that kernel's own tiles (`KERNEL_TILES`), then
    again with a sliding window and with packed-sequence segment ids. The
    limit is per row (`kubeflow_tpu_torch/ops/kernel_check.py`): every
    row's L2 error within 1e-2 of that row's L2 norm (2e-2 for dq, whose
@@ -116,7 +120,7 @@ def kernel_phase(fa, ptxas: dict) -> list[dict]:
 
     cfg = dict(scale=scale, causal=True, window=0)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, **cfg,
-                                      **fa.kernel_blocks("flash_fwd"))
+                                      **fa.kernel_blocks("flash_fwd", D))
     delta = fa.flash_delta(out_p, dout)
 
     timed = kernel_check.device_ms
@@ -130,11 +134,11 @@ def kernel_phase(fa, ptxas: dict) -> list[dict]:
     # the plain versions at each kernel's tiles; the plain backward
     # computes dq, dk and dv together
     plain_ms = {"flash_fwd": timed(lambda: fa.flash_fwd_plain(
-        q, k, v, **cfg, **fa.kernel_blocks("flash_fwd")), n=1, reps=3,
+        q, k, v, **cfg, **fa.kernel_blocks("flash_fwd", D)), n=1, reps=3,
         warmup=1)}
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         plain_ms[name] = timed(lambda: fa.flash_bwd_plain(
-            q, k, v, out_p, lse_p, dout, **cfg, **fa.kernel_blocks(name)),
+            q, k, v, out_p, lse_p, dout, **cfg, **fa.kernel_blocks(name, D)),
             n=1, reps=3, warmup=1)
 
     # library yardstick: SDPA on [B, H, L, D], kv heads expanded outside
@@ -171,7 +175,7 @@ def kernel_phase(fa, ptxas: dict) -> list[dict]:
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1], "launches": None,
-            "tile": list(fa.KERNEL_TILES[name]),
+            "tile": {d: list(t) for d, t in fa.KERNEL_TILES[name].items()},
             "registers": {d: r.get("registers")
                           for d, r in sorted(ptxas[name].items())},
             "spill_bytes": {d: r.get("spill_bytes")
@@ -185,10 +189,13 @@ def kernel_phase(fa, ptxas: dict) -> list[dict]:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms[name],
         })
-        print(f"kernel {name} {fa.KERNEL_TILES[name]}: {ms[name]:.3f} ms "
+        print(f"kernel {name} {fa.KERNEL_TILES[name][D]}: {ms[name]:.3f} ms "
               f"(bound {max(t_ops, t_bytes):.3f}"
               f" ms, plain {plain_ms[name]:.1f} ms, sdpa {library_ms[name]:.3f}"
               f" ms), errors {errs[name]}", flush=True)
+    bwd = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
+    print(f"backward: dq + dk/dv {bwd:.3f} ms against sdpa's whole backward "
+          f"{sdpa_bwd:.3f} ms ({bwd / sdpa_bwd:.2f}x)", flush=True)
     return rows
 
 

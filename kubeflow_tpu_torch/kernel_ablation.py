@@ -61,6 +61,22 @@ ABLATIONS = {
     "dkv_no_exp_interior": ("flash_bwd_dkv", (
         "flash_bwd_dkv.cu", "x = ex2(fmaf(x, scale2, -lse2[e & 1]));",
         "x = fmaf(x, scale2, -lse2[e & 1]);")),
+    "dq_no_s_product": ("flash_bwd_dq", (
+        "flash_bwd.cu", "        wgmma_ss<kBK>(s, desc_k(",
+        "        if constexpr (D == 0) wgmma_ss<kBK>(s, desc_k(")),
+    "dq_no_dp_product": ("flash_bwd_dq", (
+        "flash_bwd.cu", "        wgmma_ss<kBK>(dp, desc_k(",
+        "        if constexpr (D == 0) wgmma_ss<kBK>(dp, desc_k(")),
+    "dq_no_dq_product": ("flash_bwd_dq", (
+        "flash_bwd.cu", "      dq_grad<D>(dq, dsa, ks);",
+        "      if constexpr (D == 0) dq_grad<D>(dq, dsa, ks);")),
+    "dq_no_exp_interior": ("flash_bwd_dq", (
+        "flash_bwd.cu", "x = ex2(fmaf(x, scale2, -lse2[r]));",
+        "x = fmaf(x, scale2, -lse2[r]);")),
+    "dq_no_mask": ("flash_bwd_dq", (
+        "flash_bwd.cu",
+        "if (tile_interior(a, r_lo, r_lo + 63, k0, k0 + kBK - 1, offset))",
+        "if (true)")),
 }
 
 
@@ -85,6 +101,8 @@ def main() -> int:
     out, lse = fa.flash_fwd_cuda(q, k, v, **cfg)
     delta = fa.flash_delta(out, dout)
     run = {"flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **cfg),
+           "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
+               q, k, v, dout, lse, delta, **cfg),
            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
                q, k, v, dout, lse, delta, **cfg)}
 

@@ -35,8 +35,13 @@ FAULTS = {
         "flash_fwd.cu", "for (; kb < a.Lk / T::kBK; ++kb)",
         "for (; kb < a.Lk / T::kBK - 1; ++kb)"),
     "dq_skips_last_k_tile": (
-        "flash_bwd.cu", "for (int kb = kb_lo; kb < nk; ++kb) {",
-        "for (int kb = kb_lo; kb < nk - 1; ++kb) {"),
+        "flash_bwd.cu", "for (; kb < a.Lk / T::kBK; ++kb)",
+        "for (; kb < a.Lk / T::kBK - 1; ++kb)"),
+    # ds = p * dp * scale: the delta term dropped (a 2% scale error would
+    # sit at dq's own limit, so that fault would not show the check)
+    "dq_ds_without_delta": (
+        "flash_bwd.cu", "dsc[r] = rs[kBQ + row0 + 8 * r] * a.scale;",
+        "dsc[r] = 0.f;"),
     "dkv_skips_last_q_tile": (
         "flash_bwd_dkv.cu", "for (; qb < a.Lq / T::kBQ; ++qb)",
         "for (; qb < a.Lq / T::kBQ - 1; ++qb)"),
@@ -46,8 +51,8 @@ FAULTS = {
     "fwd_scale_2pct_high": (
         "flash_fwd.cu", "const float scale2 = a.scale * kLog2e;",
         "const float scale2 = a.scale * 1.02f * kLog2e;"),
-    # the fwd and dk/dv kernels skip the per-element mask on interior
-    # tiles; one tile too generous a test takes the diagonal as interior
+    # every kernel skips the per-element mask on interior tiles; one tile
+    # too generous a test takes the diagonal as interior
     "diagonal_tile_taken_as_interior": (
         "flash_sm90.cuh", "if (a.causal && k_hi > q_lo + offset) return false;",
         "if (a.causal && k_hi - 128 > q_lo + offset) return false;"),
@@ -89,7 +94,8 @@ def cases():
 
 
 def run_cases(data) -> dict:
-    """{case: {"failures": [...], "old_check_fails": bool, "errors": ...}}"""
+    """{case: {"failures": [...], "old_check_fails": bool,
+    "max_row_err": {output: err}, "lse_max_abs_err": err}}"""
     report = {}
     for case, (args, kw) in data.items():
         errs = kernel_check.flash_errors(*args, scale=D ** -0.5, causal=True,
@@ -126,7 +132,12 @@ def main() -> int:
         want = name != "clean"
         ok &= caught == want
         worst = max(max(r["max_row_err"].values()) for r in rep.values())
+        # the outputs that miss their limit in some case, so a fault in
+        # shared code shows which kernels it reaches
+        missed = sorted({f.split(":")[0] for r in rep.values()
+                         for f in r["failures"]})
         print(f"{name}: {'FAILS' if caught else 'passes'} the check "
+              f"{'in ' + ', '.join(missed) + ' ' if missed else ''}"
               f"(worst row err {worst:.4g}, limits {kernel_check.ROW_TOL}, "
               f"{kernel_check.OUTPUT_TOL}); "
               f"the max-scaled check {'fails' if old else 'passes'} it"

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu")
-HEADERS = ("flash_common.cuh", "flash_sm90.cuh")
+HEADERS = ("flash_sm90.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

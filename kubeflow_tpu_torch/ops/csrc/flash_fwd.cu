@@ -41,17 +41,6 @@ struct FwdTile {
   static constexpr int kSmem = kBarOff + (2 * kStages + 4) * 8 + 1024;
 };
 
-// A work item of the persistent grid: one (q tile, head, batch row), the
-// heaviest causal q tiles first.
-struct FwdItem {
-  int qb, h, b;
-};
-template <int D>
-__device__ __forceinline__ FwdItem fwd_item(const Args& a, int w) {
-  const int hb = a.H * a.B, r = w % hb;
-  return {a.Lq / FwdTile<D>::kBQ - 1 - w / hb, r % a.H, r / a.H};
-}
-
 // The first k tile at or after kb that _block_runs lets the q tile at q0
 // see, or -1. Producer and consumers walk the same tiles through it.
 template <int D>
@@ -61,14 +50,6 @@ __device__ __forceinline__ int fwd_k_tile(const Args& a, int q0, int kb,
   for (; kb < a.Lk / T::kBK; ++kb)
     if (block_runs(a, q0, T::kBQ, kb * T::kBK, T::kBK, offset)) return kb;
   return -1;
-}
-
-// _kb_lo: no k tile left of the window's reach can run
-template <int D>
-__device__ __forceinline__ int fwd_kb_lo(const Args& a, int q0, int offset) {
-  return (a.causal && a.window > 0)
-             ? max(0, floor_div(q0 + offset - (a.window - 1), FwdTile<D>::kBK))
-             : 0;
 }
 
 // O += P.V for one k tile: P (64 x 128, bf16) in registers, the V tile
@@ -129,7 +110,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == kConsumers) {
       int i = 0, n = 0;
       for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
-        const FwdItem it = fwd_item<D>(a, w);
+        const QItem it = q_item(a, w, kBQ);
         const int q0 = it.qb * kBQ, hk = it.h / group;
         bf16* qs = qbufs + (n & 1) * kBQ * D;
         if (n >= 2) mbar_wait(&qempty[n & 1], (n / 2 + 1) & 1);
@@ -137,7 +118,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int c = 0; c < D / kCols; ++c)
           tma_load(qs + c * kBQ * kCols, &tm_q, &qfull[n & 1], c * kCols,
                    it.h, q0, it.b);
-        for (int kb = fwd_k_tile<D>(a, q0, fwd_kb_lo<D>(a, q0, offset), offset);
+        for (int kb = fwd_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
              kb >= 0; kb = fwd_k_tile<D>(a, q0, kb + 1, offset), ++i) {
           const int s = i % kS;
           if (i >= kS) mbar_wait(&empty[s], (i / kS + 1) & 1);
@@ -173,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   int i = 0, n = 0;
   for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
-    const FwdItem it = fwd_item<D>(a, w);
+    const QItem it = q_item(a, w, kBQ);
     const int q0 = it.qb * kBQ, r_lo = q0 + 64 * c;
     const int qpos[2] = {r_lo + 16 * warp + g, r_lo + 16 * warp + g + 8};
     int qseg[2] = {0, 0};
@@ -191,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bf16* qs = qbufs + (n & 1) * kBQ * D;
     mbar_wait(&qfull[n & 1], (n / 2) & 1);
 
-    for (int kb = fwd_k_tile<D>(a, q0, fwd_kb_lo<D>(a, q0, offset), offset);
+    for (int kb = fwd_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
          kb >= 0; kb = fwd_k_tile<D>(a, q0, kb + 1, offset), ++i) {
       const int s = i % kS;
       const bf16* ks = kv + s * 2 * kBK * D;

@@ -1,11 +1,11 @@
-// Hopper (sm_90a) building blocks of the flash-attention forward and dk/dv
-// kernels (flash_fwd.cu, flash_bwd_dkv.cu): TMA tile loads into a ring of
-// shared-memory stages guarded by mbarriers, wgmma on 128B-swizzled tiles,
-// setmaxnreg, and the TPU kernels' mask and block-skip rules
-// (kubeflow_tpu/ops/flash_attention.py: _block_mask, _block_runs) at any
-// tile, with the same -1e30 fill.
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu): TMA tile loads into a
+// ring of shared-memory stages guarded by mbarriers, wgmma on
+// 128B-swizzled tiles, setmaxnreg, and the TPU kernels' mask and
+// block-skip rules (kubeflow_tpu/ops/flash_attention.py: _block_mask,
+// _block_runs) at any tile, with the same -1e30 fill.
 //
-// Layout: q/out/dO are [B, Lq, H, D] and k/v/dk/dv [B, Lk, Hkv, D],
+// Layout: q/out/dO/dq are [B, Lq, H, D] and k/v/dk/dv [B, Lk, Hkv, D],
 // contiguous, bf16; lse/delta are [B, H, Lq] f32; segment ids [B, L]
 // int32. A tensor map describes one such tensor as 4-D (D, heads, L, B)
 // and copies boxes of 64 columns x 1 head x `rows` rows: a [rows, D] tile
@@ -34,11 +34,11 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
-  const float* lse;    // dk/dv: the forward's row logsumexp
-  const float* delta;  // dk/dv: rowsum(dO * O)
+  const float* lse;    // backward: the forward's row logsumexp
+  const float* delta;  // backward: rowsum(dO * O)
   const int* qseg;     // optional
   const int* kseg;     // optional
-  bf16* out;           // forward: out; dk/dv: dk
+  bf16* out;           // forward: out; dq: dq; dk/dv: dk
   bf16* out2;          // dk/dv: dv
   float* lse_out;      // forward: lse
   int B, H, Hkv, Lq, Lk;
@@ -249,6 +249,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x N, f32) = A . B^T (+ d if accumulate), N 64 or 128, as above.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, a, b, accumulate);
+  else
+    wgmma_ss_n64(d, a, b, accumulate);
+}
+
 // d (64 x 64, f32) += A . B: A (64 x 16, bf16) in registers in the
 // accumulator layout (pack_p), B (16 x 64) MN-major (N contiguous), bf16,
 // in 128B-swizzled shared memory, given by its descriptor.
@@ -299,6 +310,25 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[N],
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
+}
+
+// A work item of the persistent fwd and dq grids: one (bq-row q tile,
+// q head, batch row), the heaviest causal q tiles first.
+struct QItem {
+  int qb, h, b;
+};
+__device__ __forceinline__ QItem q_item(const Args& a, int w, int bq) {
+  const int hb = a.H * a.B, r = w % hb;
+  return {a.Lq / bq - 1 - w / hb, r % a.H, r / a.H};
+}
+
+// _kb_lo: no bk-key tile left of the window's reach can run for the q
+// tile at q0
+__device__ __forceinline__ int kb_lo(const Args& a, int q0, int bk,
+                                     int offset) {
+  return (a.causal && a.window > 0)
+             ? max(0, floor_div(q0 + offset - (a.window - 1), bk))
+             : 0;
 }
 
 // _block_runs: can the tile of q rows [q_lo, q_lo + bq) and keys

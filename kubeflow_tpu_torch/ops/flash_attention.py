@@ -1,8 +1,9 @@
 """Flash attention: CUDA kernels for Hopper, and their plain versions.
 
 Port of kubeflow_tpu/ops/flash_attention.py. The three Pallas TPU
-kernels become three hand-written CUDA kernels (`csrc/flash_fwd.cu`,
-`csrc/flash_bwd.cu`, `csrc/flash_bwd_dkv.cu`, built by `_build.py`):
+kernels become three hand-written CUDA kernels for sm_90a (TMA and
+wgmma: `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu` (dq),
+`csrc/flash_bwd_dkv.cu`, built by `_build.py`):
 
 - forward: out and the row logsumexp `lse`, online softmax over k/v tiles;
 - backward dq, and backward dk/dv, both recomputing p from `lse`, with
@@ -34,19 +35,27 @@ from kubeflow_tpu_torch.ops import _build
 # CPU tests compare like with like.
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-# (block_q, block_k) of each CUDA kernel, as its source fixes them
-# (FwdTile in csrc/flash_fwd.cu, kTile in csrc/flash_common.cuh, DkvTile
-# in csrc/flash_bwd_dkv.cu)
-KERNEL_TILES = {"flash_fwd": (128, 128), "flash_bwd_dq": (64, 64),
-                "flash_bwd_dkv": (64, 128)}
-KERNEL_LENGTH = max(max(t) for t in KERNEL_TILES.values())
-
-
-def kernel_blocks(name: str) -> dict[str, int]:
-    """The plain version's block sizes that match kernel `name`'s tiles."""
-    block_q, block_k = KERNEL_TILES[name]
-    return dict(block_q=block_q, block_k=block_k)
 KERNEL_HEAD_DIMS = (64, 128)
+# (block_q, block_k) of each CUDA kernel by head dim, as its source fixes
+# them (FwdTile in csrc/flash_fwd.cu, DqTile in csrc/flash_bwd.cu, DkvTile
+# in csrc/flash_bwd_dkv.cu)
+KERNEL_TILES = {
+    "flash_fwd": {64: (128, 128), 128: (128, 128)},
+    "flash_bwd_dq": {64: (128, 128), 128: (128, 64)},
+    "flash_bwd_dkv": {64: (64, 128), 128: (64, 128)},
+}
+ALL_KERNEL_TILES = sorted({t for by_d in KERNEL_TILES.values()
+                           for t in by_d.values()})
+KERNEL_LENGTH = max(max(t) for t in ALL_KERNEL_TILES)
+
+
+def kernel_blocks(name: str, head_dim: int) -> dict[str, int]:
+    """The plain version's block sizes that match kernel `name`'s tiles at
+    `head_dim`."""
+    block_q, block_k = KERNEL_TILES[name][head_dim]
+    return dict(block_q=block_q, block_k=block_k)
+
+
 NEG_INF = -1e30
 
 # Launches of each CUDA kernel, counted where the wrapper launches it.
@@ -392,7 +401,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     lk = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
     if _on_card(q) and (block_q, block_k) not in {
-            (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), *KERNEL_TILES.values()}:
+            (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), *ALL_KERNEL_TILES}:
         warnings.warn(f"flash attention on {q.device}: block sizes "
                       f"({block_q}, {block_k}) are ignored, the CUDA kernels "
                       f"tile at (block_q, block_k) {KERNEL_TILES}",

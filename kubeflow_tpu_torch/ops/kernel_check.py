@@ -83,17 +83,20 @@ def flash_errors(q, k, v, dout, qseg=None, kseg=None, *, scale, causal,
                  window=0) -> dict[str, dict[str, float]]:
     """Run the three flash kernels and their plain versions on the same
     card tensors, each plain version at its kernel's tiles
-    (`KERNEL_TILES`); return `errors` for each of out, lse, dq, dk and
-    dv. The backward kernels and both plain backward runs take the plain
-    forward's lse and delta, so each kernel is held on its own."""
+    (`KERNEL_TILES` at q's head dim); return `errors` for each of out,
+    lse, dq, dk and dv. The backward kernels and both plain backward runs
+    take the plain forward's lse and delta, so each kernel is held on its
+    own."""
     cfg = dict(scale=scale, causal=causal, window=window)
+    d = q.shape[-1]
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, qseg, kseg, **cfg,
-                                      **fa.kernel_blocks("flash_fwd"))
+                                      **fa.kernel_blocks("flash_fwd", d))
     dq_p, _, _ = fa.flash_bwd_plain(q, k, v, out_p, lse_p, dout, qseg, kseg,
-                                    **cfg, **fa.kernel_blocks("flash_bwd_dq"))
+                                    **cfg,
+                                    **fa.kernel_blocks("flash_bwd_dq", d))
     _, dk_p, dv_p = fa.flash_bwd_plain(
         q, k, v, out_p, lse_p, dout, qseg, kseg, **cfg,
-        **fa.kernel_blocks("flash_bwd_dkv"))
+        **fa.kernel_blocks("flash_bwd_dkv", d))
     out, lse = fa.flash_fwd_cuda(q, k, v, qseg, kseg, **cfg)
     delta = fa.flash_delta(out_p, dout)
     dq = fa.flash_bwd_dq_cuda(q, k, v, dout, lse_p, delta, qseg, kseg, **cfg)

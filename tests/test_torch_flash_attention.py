@@ -53,8 +53,9 @@ CASES = {
 
 
 # The block pairs the plain version runs at: the reference's 64 x 64 and
-# each CUDA kernel's own tiles, which the card holds the kernels against.
-BLOCKS = sorted({(64, 64), *tflash.KERNEL_TILES.values()})
+# each CUDA kernel's own tiles at every head dim, which the card holds the
+# kernels against.
+BLOCKS = sorted({(64, 64), *tflash.ALL_KERNEL_TILES})
 # At 128-row or 128-key blocks a length must be a multiple of 128 (or
 # shorter than the block): these cases keep their offsets at such lengths.
 LONG = {"lq_lt_lk": (1, 128, 384, 2, 1, 32, True, 0, False),

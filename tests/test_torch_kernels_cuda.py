@@ -69,6 +69,18 @@ CASES = [
     (2, 128, 128, 4, 2, 64, True, 0, False),
     (1, 512, 128, 4, 1, 128, False, 0, False),
     (1, 128, 128, 8, 1, 64, True, 64, True),
+    # at the edges of dq's 64-key tile at head_dim 128: a key length of
+    # two such tiles, lq > lk and lq < lk by two of them (rows that see
+    # no key), windows of 1.5 and 3.5 of them, GQA 8 with segments
+    (1, 128, 128, 4, 2, 128, True, 0, False),
+    (1, 256, 128, 4, 2, 128, True, 0, False),
+    (2, 256, 384, 4, 1, 128, True, 0, False),
+    (2, 256, 256, 4, 2, 128, True, 96, False),
+    (1, 384, 384, 2, 2, 128, False, 224, False),
+    (1, 256, 256, 8, 1, 128, True, 0, True),
+    # head_dim 128 at the main path's full shape (llama-1b widths: 16
+    # heads of 128, 4 kv heads, batch 8, seq 2048)
+    (8, 2048, 2048, 16, 4, 128, True, 0, False),
 ]
 
 
