@@ -29,16 +29,33 @@
 4. Small reference check: a 2-layer llama-1b-width model gives the same
    logits through the flash kernel as through reference attention, each
    token's logits within 2e-2 per row (two layers of bf16 activations).
-5. Main path: the port launcher trains llama-1b (seq 2048, batch 8, adamw,
-   8 xent chunks, attention_impl auto) for 5 steps. Every kernel must run
-   16 times a step (one per layer) and the loss must be finite.
-6. Profile: two more warm-up steps of the same config, then three under
-   torch.profiler; prints the device time by kind of kernel and the
-   device's busy share of the step, so the breakdown and the main path's
+5. Remat check: a 2-layer llama-1b-width bf16 model, one batch [8, 2048],
+   8 xent chunks. Under each remat policy (full, dots, mlp, slim,
+   slim@1) the loss and every parameter gradient are held against no
+   remat, per row within 1e-2 (the largest difference is printed; it
+   should be 0), and the flash forward must launch twice per layer under
+   full, which replays it, and once under the others.
+6. Main paths, each through the port launcher for 5 steps at llama-1b,
+   seq 2048, batch 8, 8 xent chunks, attention_impl auto; each must
+   launch every kernel 16 times a step (one per layer) with a finite
+   loss: (a) the first slices' adamw with no remat; (b) the operating
+   point `tools/lm_best.json` pins for the reference: adafactor, slim
+   remat, with `bench.py run_lm`'s lr 3e-4, warmup 5 and weight_decay
+   1e-4. Under slim, 16 forward launches a step are the proof that no
+   flash forward replays.
+7. Gradient accumulation: the pinned config at 4 layers with
+   grad_accum_steps 2, 2 steps: every kernel launches 2 x 4 times a
+   step, and the loss is finite.
+8. Profile: the pinned config, then the adamw one: two warm-up steps,
+   then three under torch.profiler; prints the device time by kind of
+   kernel, the device's busy share of the step and the peak device
+   memory, then the optimizer update's own kernel time (three updates
+   profiled by themselves), so the breakdowns and the main paths'
    numbers come from one run.
 
 Any failure exits non-zero. The lines before the last hold the
-`{"kernels": [...]}` record and the card; the last line is
+`{"kernels": [...]}` record (`launches`: the pinned main path's count,
+`launches_by_path`: each main path's) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc` and no network.
 """
 
@@ -62,15 +79,25 @@ PEAK_BF16 = 989e12         # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 SRC = "kubeflow_tpu/ops/flash_attention.py"
 # the main path: llama-1b at the operating point tools/lm_best.json pins
-# on the TPU, with adamw and no remat (adafactor and remat are not ported)
+# for the reference (adafactor, slim remat, 8 xent chunks), with bench.py
+# run_lm's lr 3e-4, warmup 5 and weight_decay 1e-4 (adafactor adds the
+# decay unscaled by the learning rate: 0.1 would shrink the weights 10%
+# a step)
 MAIN_PATH = {
     "model": "llama-1b", "task": "lm",
     "model_kwargs": {"attention_impl": "auto"},
     "global_batch": B, "seq_len": L, "vocab_size": 32000,
-    "optimizer": "adamw", "learning_rate": 3e-4, "weight_decay": 0.1,
-    "warmup_steps": 2, "total_steps": STEPS, "xent_chunks": 8,
-    "seed": 0, "log_every": 1,
+    "optimizer": "adafactor", "learning_rate": 3e-4, "weight_decay": 1e-4,
+    "warmup_steps": 5, "total_steps": STEPS, "remat": True,
+    "remat_policy": "slim", "xent_chunks": 8, "seed": 0, "log_every": 1,
 }
+# the first slices' main path, kept beside it: adamw, no remat
+ADAMW_PATH = {
+    **MAIN_PATH, "optimizer": "adamw", "weight_decay": 0.1,
+    "warmup_steps": 2, "remat": False,
+}
+REMAT_POLICIES = ("full", "dots", "mlp", "slim", "slim@1")
+ACCUM_LAYERS, ACCUM_STEPS = 4, 2
 
 
 def fail(msg: str) -> None:
@@ -258,11 +285,68 @@ def reference_check() -> None:
           f"{e['max_abs_err']:.4g}", flush=True)
 
 
-def main_path(fa, _build) -> dict:
+def remat_check(fa) -> None:
+    """2 layers at llama-1b width, bf16, one batch [B, L], 8 xent chunks:
+    the loss and every gradient under each remat policy against no
+    remat, and the flash launches each policy makes."""
+    import torch
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import kernel_check
+    from kubeflow_tpu_torch.ops.xent import chunked_lm_xent
+
+    layers = 2
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tok = torch.randint(0, 32000, (B, L + 1), device="cuda", generator=gen)
+    want = None
+    for policy in (None, *REMAT_POLICIES):
+        kw = {} if policy is None else {"remat": True, "remat_policy": policy}
+        model = get_model("llama-1b", device="cuda", seed=0, n_layers=layers,
+                          **kw)
+        fa.reset_launches()
+        hidden = model(tok[:, :-1], return_hidden=True)
+        loss, _ = chunked_lm_xent(hidden, model.lm_head.kernel, tok[:, 1:], 8,
+                                  compute_dtype=model.cfg.dtype)
+        del hidden
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = dict(fa.LAUNCHES)
+        got = {"loss": loss.detach().reshape(1, 1),
+               **{n: p.grad for n, p in model.named_parameters()}}
+        del model, loss
+        if not torch.isfinite(got["loss"]).all():
+            fail(f"remat {policy}: loss {got['loss'].item()}")
+        fwd = (2 if policy == "full" else 1) * layers
+        if launches != {"flash_fwd": fwd, "flash_bwd_dq": layers,
+                        "flash_bwd_dkv": layers}:
+            fail(f"remat {policy}: launches {launches}, want {fwd} forward "
+                 f"and {layers} of each backward kernel")
+        if want is None:
+            want = got
+            continue
+        worst_row = worst_abs = 0.0
+        for name, g in got.items():
+            row = g.shape[-1]
+            e = check_rows(f"remat {policy}: {name}", g.reshape(-1, row),
+                           want[name].reshape(-1, row), kernel_check.ROW_TOL)
+            worst_row = max(worst_row, e["max_row_err"])
+            worst_abs = max(worst_abs, e["max_abs_err"])
+        print(f"remat check {policy}: loss and {len(got) - 1} gradients vs no "
+              f"remat, max row err {worst_row:.3g}, max abs diff "
+              f"{worst_abs:.3g}; launches {launches}", flush=True)
+        del got
+    del want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def main_path(fa, _build, cfg: dict, tag: str) -> dict:
+    """Train `cfg` through the port launcher; every kernel must launch
+    once per layer per step and the loss be finite."""
     from kubeflow_tpu_torch.runtime import launcher
 
-    path = _build.build_dir() / "chip_smoke_llama1b.json"
-    path.write_text(json.dumps(MAIN_PATH))
+    path = _build.build_dir() / f"chip_smoke_{tag}.json"
+    path.write_text(json.dumps(cfg))
     buf = io.StringIO()
     fa.reset_launches()
     t0 = time.perf_counter()
@@ -283,12 +367,37 @@ def main_path(fa, _build) -> dict:
                  f"{LAYERS * STEPS}: the main path did not run the kernel")
     tokens_s = summary["examples_per_sec"] * L
     mfu = summary["mfu"]
-    print(f"main path: llama-1b seq {L} batch {B}, {STEPS} steps in "
-          f"{wall:.1f}s; step {summary['step_time_s'] * 1e3:.1f} ms, "
-          f"{tokens_s:.0f} tokens/s, mfu "
-          f"{'n/a' if mfu is None else f'{mfu:.4f}'}, final loss {loss:.4f}, "
-          f"launches {launches}", flush=True)
+    print(f"main path {tag} ({cfg['optimizer']}, remat "
+          f"{cfg.get('remat') and cfg['remat_policy']}): llama-1b seq {L} "
+          f"batch {B}, {STEPS} steps in {wall:.1f}s; step "
+          f"{summary['step_time_s'] * 1e3:.1f} ms, {tokens_s:.0f} tokens/s, "
+          f"mfu {'n/a' if mfu is None else f'{mfu:.4f}'}, final loss "
+          f"{loss:.4f}, launches {launches}", flush=True)
     return launches
+
+
+def grad_accum_check(fa) -> None:
+    """The pinned config at ACCUM_LAYERS layers, grad_accum_steps 2:
+    each kernel launches once per layer per microbatch."""
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig.from_dict({
+        **MAIN_PATH, "grad_accum_steps": 2, "total_steps": ACCUM_STEPS,
+        "model_kwargs": {**MAIN_PATH["model_kwargs"],
+                         "n_layers": ACCUM_LAYERS}})
+    trainer = Trainer(cfg, device="cuda")
+    fa.reset_launches()
+    summary = trainer.fit()
+    launches = dict(fa.LAUNCHES)
+    loss = summary["final"].get("loss")
+    if loss is None or not math.isfinite(loss):
+        fail(f"grad accumulation: loss {loss}")
+    want = 2 * ACCUM_LAYERS * ACCUM_STEPS
+    if set(launches.values()) != {want}:
+        fail(f"grad accumulation: launches {launches}, want {want} each")
+    print(f"grad accumulation: {ACCUM_LAYERS} layers, 2 microbatches of "
+          f"{B // 2}, {ACCUM_STEPS} steps, final loss {loss:.4f}, launches "
+          f"{launches}", flush=True)
 
 
 KINDS = (  # profile phase: kernel name -> kind, first match wins
@@ -302,27 +411,10 @@ KINDS = (  # profile phase: kernel name -> kind, first match wins
 )
 
 
-def profile_phase(steps: int = 3) -> None:
-    """Device time of a main-path step by kind of kernel, under
-    torch.profiler, and the device's busy share of the step (the rest is
-    the device idle, waiting on the host)."""
+def _kernel_ms(prof, steps: int) -> dict[str, float]:
+    """Device time per step of each kernel a torch.profiler run saw."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
-
-    trainer = Trainer(TrainConfig.from_dict(MAIN_PATH), device="cuda")
-    batch = next(trainer._device_iter(trainer.data_iter()))
-    for _ in range(2):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(batch)
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels: dict[str, float] = {}
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", 0.0)
@@ -331,23 +423,68 @@ def profile_phase(steps: int = 3) -> None:
         if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / steps
+    return kernels
+
+
+def profile_phase(cfg: dict, tag: str, steps: int = 3) -> None:
+    """Device time of a step of `cfg` by kind of kernel, under
+    torch.profiler, the device's busy share of the step (the rest is the
+    device idle, waiting on the host) and the peak device memory of the
+    warm-up and profiled steps; then the optimizer update alone: `steps`
+    updates from one step's gradients, profiled by themselves (device
+    time of their kernels, and the host clock around each update)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(TrainConfig.from_dict(cfg), device="cuda")
+    batch = next(trainer._device_iter(trainer.data_iter()))
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = _kernel_ms(prof, steps)
     device_ms = sum(kernels.values())
     if device_ms == 0:
         fail("the profiler saw no device time")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=activities) as prof_opt:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.opt.step()
+            torch.cuda.synchronize()
+        opt_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    optimizer_ms = sum(_kernel_ms(prof_opt, steps).values())
     by_kind: dict[str, float] = {}
     for name, ms in kernels.items():
         kind = next((k for k, keys in KINDS
                      if any(key in name.lower() for key in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
-    print("profile: one main-path step, top kernels:")
+    print(f"profile {tag} ({cfg['optimizer']}, remat "
+          f"{cfg.get('remat') and cfg['remat_policy']}): one step, top "
+          "kernels:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {ms:9.3f} ms  {name[:110]}")
     for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f} ms  [{kind}] {100 * ms / device_ms:.1f}%")
-    print("profile: " + json.dumps({
+    print(f"  optimizer update alone: {optimizer_ms:.3f} ms of kernels, "
+          f"{opt_wall_ms:.3f} ms on the host clock")
+    print(f"profile {tag}: " + json.dumps({
         "step_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms, "by_kind_ms": by_kind,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+        "optimizer_ms": optimizer_ms, "optimizer_wall_ms": opt_wall_ms,
+        "peak_mem_gb": peak_gb}), flush=True)
+    del trainer, batch, prof, prof_opt
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -392,12 +529,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     reference_check()
     torch.cuda.empty_cache()
-    launches = main_path(fa, _build)
+    remat_check(fa)
+    launches = {}
+    for tag, cfg in (("adamw", ADAMW_PATH), ("pinned", MAIN_PATH)):
+        launches[tag] = main_path(fa, _build, cfg, tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+    grad_accum_check(fa)
     gc.collect()
     torch.cuda.empty_cache()
-    profile_phase()
+    for tag, cfg in (("pinned", MAIN_PATH), ("adamw", ADAMW_PATH)):
+        profile_phase(cfg, tag)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches["pinned"][row["name"]]
+        row["launches_by_path"] = {t: n[row["name"]]
+                                   for t, n in launches.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ Layouts of the reference tree (kubeflow_tpu/models/transformer.py):
 - `layer_i/ln_{attn,mlp}/scale`, `ln_f/scale` [d] f32;
 - `embedding` [V, d] f32; `lm_head/kernel` [d, V] f32.
 torch Linear weights are [out, in], so every projection is transposed;
-the embedding and the head kernel keep their layout.
+the embedding and the head kernel keep their layout. `flax_layout` is
+the inverse rule: it shows a port parameter in its flax shape, which is
+what the optimizer's factoring follows (runtime/optim.py).
 """
 
 from __future__ import annotations
@@ -44,3 +46,27 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             name = ".".join(parts)
         out[name] = torch.tensor(a)
     return out
+
+
+def flax_layout(name: str, shape, head_dim: int
+                ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """(view, perm) such that `p.view(view).permute(perm)` is port
+    parameter `name` of `shape` in the flax tree's layout: q/k/v weights
+    [H*D, d] -> [d, H, D], the o weight [d, H*D] -> [H, D, d], the other
+    projections [out, in] -> [in, out]; the rest as they are."""
+    shape = tuple(shape)
+    parts = name.split(".")
+    if parts[-1] != "weight":
+        return shape, tuple(range(len(shape)))
+    n_out, n_in = shape
+    if parts[-3:-1] in (["attn", "q"], ["attn", "k"], ["attn", "v"]):
+        return (n_out // head_dim, head_dim, n_in), (2, 0, 1)
+    if parts[-3:-1] == ["attn", "o"]:
+        return (n_out, n_in // head_dim, head_dim), (1, 2, 0)
+    return shape, (1, 0)
+
+
+def flax_shape(name: str, shape, head_dim: int) -> tuple[int, ...]:
+    """The shape port parameter `name` has in the flax tree."""
+    view, perm = flax_layout(name, shape, head_dim)
+    return tuple(view[i] for i in perm)

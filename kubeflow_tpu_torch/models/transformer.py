@@ -7,9 +7,11 @@ cast to the model dtype at use, as flax's `DenseGeneral(dtype=...)` does;
 module and parameter names follow the flax tree (`layer_3.attn.q`,
 `lm_head.kernel`), so `convert.py` maps one onto the other.
 
-The decode branches, ring/Ulysses attention, MoE, pipeline stages and
-remat are not ported yet and raise NotImplementedError naming their
-ROADMAP item.
+`remat` rematerializes per block under the reference's policies (full,
+dots, mlp, slim, and `<policy>@K` for the first K blocks); see
+`Block.forward`. The decode branches, ring/Ulysses attention, MoE and
+pipeline stages are not ported yet and raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,9 +22,15 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import register_model
+from kubeflow_tpu_torch.ops import flash_attention
 from kubeflow_tpu_torch.ops.attention import attention
 from kubeflow_tpu_torch.ops.xent import head_logits
 
@@ -35,6 +43,23 @@ def as_dtype(dtype: Any) -> torch.dtype:
     if not isinstance(got, torch.dtype):
         raise ValueError(f"unknown dtype {dtype!r}")
     return got
+
+
+REMAT_POLICIES = ("full", "dots", "mlp", "slim")
+
+
+def _split_policy(policy: str) -> tuple[str, int | None]:
+    """'slim@12' -> ('slim', 12): the named policy on the first 12 blocks,
+    everything saved on the rest; a plain name -> (name, None), every
+    block (the reference's _split_policy)."""
+    if "@" in policy:
+        name, k = policy.split("@", 1)
+        if not name or not k.isdigit():
+            raise ValueError(
+                f"malformed remat_policy {policy!r}: expected "
+                "'<dots|full|mlp|slim>@<layer count>' (e.g. slim@12)")
+        return name, int(k)
+    return policy, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +99,16 @@ class TransformerConfig:
     def __post_init__(self) -> None:
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
         if self.remat:
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP Queue 1, slice 1 "
-                "follow-up item 2)")
+            # the reference's checks, in its order and with its messages
+            name, k = _split_policy(self.remat_policy)
+            if k is not None and not 0 < k <= self.n_layers:
+                raise ValueError(
+                    f"remat_policy {self.remat_policy!r}: layer count "
+                    f"must be in 1..{self.n_layers}")
+            if name not in REMAT_POLICIES:
+                raise ValueError(
+                    f"unknown remat_policy {self.remat_policy!r} "
+                    "(full|dots|mlp|slim)")
         if self.moe_every:
             raise NotImplementedError(
                 "MoE blocks are not ported yet (ROADMAP Queue 1 item 18)")
@@ -181,6 +213,30 @@ class LMHead(nn.Module):
         return head_logits(x, self.kernel, self.dtype)
 
 
+def _save_dots(ctx, func, *args, **kwargs):
+    """The `dots` policy: matmul outputs without batch dims, and the flash
+    forward's (out, lse), which the reference names `attn_flash` so that
+    its dots policy saves them too."""
+    if func in (torch.ops.aten.mm.default,
+                flash_attention.flash_fwd._opoverload):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _replayed(fn, *args):
+    """fn(*args), saving only args: its intermediates are recomputed in
+    the backward."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _direct(fn, *args):
+    return fn(*args)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
@@ -189,9 +245,40 @@ class Block(nn.Module):
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = SwiGLU(cfg, device)
 
-    def forward(self, x, positions, segment_ids=None):
-        x = x + self.attn(self.ln_attn(x), positions, segment_ids)
-        return x + self.mlp(self.ln_mlp(x))
+    def forward(self, x, positions, segment_ids=None, remat=None):
+        """One block; `remat` names the policy that decides what the
+        backward keeps (None: whatever autograd saves). Each keeps the
+        block's input x, and:
+        - full: nothing else. The block replays, the flash forward
+          included.
+        - dots: the matmul outputs and the flash forward's (out, lse),
+          by selective checkpointing; the elementwise work replays.
+        - mlp: all but the d_ff-wide work (an op with an input whose
+          last dim is d_ff): gate, up and their product replay from the
+          saved ln_mlp output.
+        - slim: the reference's anchors: the two norm outputs
+          (block_norm), q, k and v after rope (attn_qkv), the attention
+          output before o (attn_ctx) and the flash (out, lse)
+          (attn_flash). They are the inputs of checkpointed sub-regions:
+          each norm replays from its input (x, and the stream after
+          attention), the SwiGLU from ln_mlp, and the attention half
+          saves what its backward needs (the anchors, the bf16 weights,
+          rope's cos/sin), so neither the flash forward nor a q/k/v/o
+          matmul replays.
+        A replay stops once it has rebuilt what the backward needs, so
+        the down projection never replays. Remat changes what is saved,
+        never a value."""
+        if remat in ("full", "dots"):
+            extra = {"context_fn": _dots_contexts} if remat == "dots" else {}
+            return checkpoint(self._body, x, positions, segment_ids, None,
+                              use_reentrant=False, **extra)
+        return self._body(x, positions, segment_ids, remat)
+
+    def _body(self, x, positions, segment_ids, remat):
+        norm = _replayed if remat == "slim" else _direct
+        mlp = _replayed if remat in ("mlp", "slim") else _direct
+        x = x + self.attn(norm(self.ln_attn, x), positions, segment_ids)
+        return x + mlp(self.mlp, norm(self.ln_mlp, x))
 
 
 class TransformerLM(nn.Module):
@@ -209,6 +296,8 @@ class TransformerLM(nn.Module):
             self.add_module(f"layer_{i}", Block(cfg, dev))
         self.ln_f = RMSNorm(cfg.d_model, cfg.dtype, dev)
         self.lm_head = LMHead(cfg, dev)
+        if dev.type == "meta":          # shapes only: nothing to draw
+            return
         gen = torch.Generator(device=dev).manual_seed(seed)
         with torch.no_grad():
             for name, p in self.named_parameters():
@@ -232,8 +321,12 @@ class TransformerLM(nn.Module):
         x = F.embedding(tokens, self.embedding.to(cfg.dtype))
         positions = torch.arange(tokens.shape[1], device=tokens.device
                                  ).expand(tokens.shape)
-        for blk in self.blocks():
-            x = blk(x, positions, segment_ids)
+        policy, k_mix = (_split_policy(cfg.remat_policy) if cfg.remat
+                         else (None, None))
+        for i, blk in enumerate(self.blocks()):
+            # policy@K: the first K blocks remat, the rest save everything
+            remat = policy if k_mix is None or i < k_mix else None
+            x = blk(x, positions, segment_ids, remat)
         x = self.ln_f(x)
         if return_hidden:
             return x

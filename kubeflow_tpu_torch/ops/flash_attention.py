@@ -26,6 +26,7 @@ keys of the blocks that ran, as on the TPU), never a row that sees a key.
 from __future__ import annotations
 
 import warnings
+from typing import Optional
 
 import torch
 
@@ -327,8 +328,93 @@ def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# autograd and the public entry point
+# the dispatcher ops and the public entry point
 # --------------------------------------------------------------------------
+#
+# The forward and backward are `torch.library` custom ops (`kftpu::
+# flash_fwd`, `kftpu::flash_bwd`): the plain version is their CPU kernel
+# and the CUDA launch their CUDA kernel, so a CUDA tensor never reaches
+# the plain version. As dispatcher ops they are visible to selective
+# activation checkpointing, which keys on ops: a remat policy can save
+# the forward's (out, lse) as the reference names them `attn_flash`
+# (kubeflow_tpu/ops/flash_attention.py, _flash_vjp_fwd), where a kernel
+# launched inside an autograd.Function would be invisible to it.
+
+
+@torch.library.custom_op("kftpu::flash_fwd", mutates_args=(),
+                         device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+              scale: float, causal: bool, block_q: int, block_k: int,
+              window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of flash attention. block_q / block_k block the plain
+    version; the CUDA kernels tile at KERNEL_TILES."""
+    return flash_fwd_plain(q, k, v, qseg, kseg, scale=scale, causal=causal,
+                           block_q=block_q, block_k=block_k, window=window)
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda_op(q, k, v, qseg, kseg, scale, causal, block_q, block_k,
+                       window):
+    return flash_fwd_cuda(q, k, v, qseg, kseg, scale=scale, causal=causal,
+                          window=window)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, qseg, kseg, scale, causal, block_q, block_k,
+                    window):
+    b, lq, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, lq), dtype=torch.float32)
+
+
+@torch.library.custom_op("kftpu::flash_bwd", mutates_args=(),
+                         device_types="cpu")
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+              qseg: Optional[torch.Tensor], kseg: Optional[torch.Tensor],
+              scale: float, causal: bool, block_q: int, block_k: int,
+              window: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's out and lse and the cotangent g."""
+    return flash_bwd_plain(q, k, v, out, lse, g, qseg, kseg, scale=scale,
+                           causal=causal, block_q=block_q, block_k=block_k,
+                           window=window)
+
+
+@flash_bwd.register_kernel("cuda")
+def _flash_bwd_cuda_op(q, k, v, out, lse, g, qseg, kseg, scale, causal,
+                       block_q, block_k, window):
+    cfg = dict(scale=scale, causal=causal, window=window)
+    delta = flash_delta(out, g)
+    dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, qseg, kseg, **cfg)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, qseg, kseg, **cfg)
+    return dq, dk, dv
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, out, lse, g, qseg, kseg, scale, causal,
+                    block_q, block_k, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    """Twin of the JAX custom_vjp's residuals (_flash_vjp_fwd): q, k, v,
+    out and lse; segment ids take no gradient, nor does lse."""
+    q, k, v, qseg, kseg, *args = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
+    ctx.args = args
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, g, _g_lse):
+    q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
+    dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(), qseg, kseg,
+                           *ctx.args)
+    return dq, dk, dv, None, None, None, None, None, None, None
+
+
+flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
+
 
 def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
@@ -336,41 +422,6 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"flash attention runs on cuda or cpu, not {x.device}")
-
-
-class _Flash(torch.autograd.Function):
-    """Twin of the JAX custom_vjp (_flash, _flash_vjp_fwd/_bwd): the
-    residuals are q, k, v, out and lse; segment ids take no gradient."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, scale, causal, block_q, block_k,
-                window):
-        if _on_card(q):
-            out, lse = flash_fwd_cuda(q, k, v, qseg, kseg, scale=scale,
-                                      causal=causal, window=window)
-        else:
-            out, lse = flash_fwd_plain(q, k, v, qseg, kseg, scale=scale,
-                                       causal=causal, block_q=block_q,
-                                       block_k=block_k, window=window)
-        ctx.save_for_backward(q, k, v, out, lse, qseg, kseg)
-        ctx.cfg = dict(scale=scale, causal=causal, window=window)
-        ctx.blocks = dict(block_q=block_q, block_k=block_k)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse, qseg, kseg = ctx.saved_tensors
-        g = g.contiguous()
-        if _on_card(q):
-            delta = flash_delta(out, g)
-            dq = flash_bwd_dq_cuda(q, k, v, g, lse, delta, qseg, kseg,
-                                   **ctx.cfg)
-            dk, dv = flash_bwd_dkv_cuda(q, k, v, g, lse, delta, qseg, kseg,
-                                        **ctx.cfg)
-        else:
-            dq, dk, dv = flash_bwd_plain(q, k, v, out, lse, g, qseg, kseg,
-                                         **ctx.cfg, **ctx.blocks)
-        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _fit_block(block: int, length: int) -> int:
@@ -424,6 +475,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
             kv_segment_ids = segment_ids
         qseg = segment_ids.to(torch.int32).contiguous()
         kseg = kv_segment_ids.to(torch.int32).contiguous()
-    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(), qseg,
-                        kseg, float(scale), bool(causal), block_q, block_k,
-                        int(window))
+    out, _ = flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), qseg,
+                       kseg, float(scale), bool(causal), block_q, block_k,
+                       int(window))
+    return out

@@ -1,9 +1,11 @@
 """The LM training loop on one device (port of kubeflow_tpu/runtime/trainer.py
 for task="lm").
 
-One step: forward through TransformerLM, the loss (chunked over the
-sequence when `xent_chunks` > 1), backward, and an optimizer update whose
-learning rate follows the reference's optax warmup-cosine schedule.
+One step: forward through TransformerLM (rematerialized per block under
+`remat`), the loss (chunked over the sequence when `xent_chunks` > 1),
+backward (over `grad_accum_steps` microbatches when > 1), and an
+optimizer update whose learning rate follows the reference's optax
+warmup-cosine schedule.
 `fit` keeps the first step (kernel builds, allocator warm-up) out of the
 meter and returns the reference's summary dict.
 """
@@ -19,11 +21,13 @@ from typing import Callable, Iterator
 import torch
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.convert import flax_layout
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.parallel.mesh import MeshSpec
 from kubeflow_tpu_torch.runtime import metrics as rt_metrics
 from kubeflow_tpu_torch.runtime.data import synthetic_tokens
+from kubeflow_tpu_torch.runtime.optim import Adafactor
 
 log = logging.getLogger("kubeflow_tpu_torch.trainer")
 
@@ -43,7 +47,7 @@ class TrainConfig:
     seq_len: int = 1024
     vocab_size: int = 32000
     mesh: MeshSpec = dataclasses.field(default_factory=MeshSpec)
-    optimizer: str = "sgdm"       # sgdm | adamw
+    optimizer: str = "sgdm"       # sgdm | adamw | adafactor
     learning_rate: float = 0.1
     weight_decay: float = 1e-4
     warmup_steps: int = 100
@@ -88,12 +92,6 @@ def _unported(cfg: TrainConfig) -> str | None:
     """The first config feature the port lacks, with its ROADMAP item."""
     if cfg.task != "lm":
         return f"task={cfg.task!r} (ROADMAP Queue 1, slice 5)"
-    if cfg.optimizer == "adafactor":
-        return "optimizer='adafactor' (ROADMAP Queue 1, slice 1 follow-up item 1)"
-    if cfg.remat:
-        return "remat (ROADMAP Queue 1, slice 1 follow-up item 2)"
-    if cfg.grad_accum_steps > 1:
-        return "grad_accum_steps > 1 (ROADMAP Queue 1, slice 1 follow-up item 3)"
     if cfg.checkpoint_dir:
         return "checkpoint_dir (ROADMAP Queue 1 item 14)"
     if cfg.data_path or cfg.packed_data:
@@ -117,11 +115,15 @@ def warmup_cosine_lr(step: int, cfg: TrainConfig) -> float:
     return peak * 0.5 * (1.0 + math.cos(math.pi * count / decay))
 
 
-def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
+def make_optimizer(cfg: TrainConfig, params,
+                   layouts=None) -> torch.optim.Optimizer:
     """adamw: b1 .9, b2 .95, eps 1e-8, decoupled decay on every param
     (optax.adamw). sgdm: decay added to the gradient, then nesterov
-    momentum .9 (optax add_decayed_weights + sgd). The learning rate is
-    set from warmup_cosine_lr before each update."""
+    momentum .9 (optax add_decayed_weights + sgd). adafactor: optax's, as
+    the reference builds it (runtime/optim.py), factoring each parameter
+    in its reference shape, which `layouts` (one (view, perm) per
+    parameter, `convert.flax_layout`) gives. The learning rate is set
+    from warmup_cosine_lr before each update."""
     params = list(params)
     if cfg.optimizer == "sgdm":
         return torch.optim.SGD(params, lr=0.0, momentum=0.9, nesterov=True,
@@ -130,9 +132,8 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
         return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.95), eps=1e-8,
                                  weight_decay=cfg.weight_decay)
     if cfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            "adafactor is not ported yet (ROADMAP Queue 1, slice 1 follow-up "
-            "item 1)")
+        return Adafactor(params, layouts=layouts,
+                         weight_decay=cfg.weight_decay or None)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
@@ -160,9 +161,19 @@ class Trainer:
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(f"not ported yet: {missing}")
+        self.accum = max(1, cfg.grad_accum_steps)
+        if cfg.global_batch % self.accum:
+            raise ValueError(
+                f"global_batch {cfg.global_batch} not divisible by "
+                f"grad_accum_steps {self.accum}")
         self.cfg = cfg
         self.device = resolve_device(device)
         kw = dict(cfg.model_kwargs)
+        # the model remats per block (models/transformer.py), as the
+        # reference's LM does
+        if cfg.remat:
+            kw.setdefault("remat", True)
+            kw.setdefault("remat_policy", cfg.remat_policy)
         if cfg.flash_block_q:
             kw.setdefault("flash_block_q", cfg.flash_block_q)
         if cfg.flash_block_k:
@@ -172,7 +183,11 @@ class Trainer:
         self.model = get_model(cfg.model, device=self.device, seed=cfg.seed,
                                **kw)
         self.n_params = sum(p.numel() for p in self.model.parameters())
-        self.opt = make_optimizer(cfg, self.model.parameters())
+        head_dim = self.model.cfg.head_dim
+        named = list(self.model.named_parameters())
+        self.opt = make_optimizer(
+            cfg, [p for _, p in named],
+            layouts=[flax_layout(n, p.shape, head_dim) for n, p in named])
         self.step = 0          # optimizer updates applied so far
 
     def data_iter(self) -> Iterator[dict]:
@@ -210,14 +225,40 @@ class Trainer:
     def train_step(self, batch: dict) -> dict:
         """One update. Returns {"loss", "accuracy"} as device scalars."""
         self.opt.zero_grad(set_to_none=True)
-        loss, acc = self.loss(batch)
-        loss.backward()
+        if self.accum > 1:
+            loss, acc = self._accumulate(batch)
+        else:
+            loss, acc = self.loss(batch)
+            loss.backward()
         lr = warmup_cosine_lr(self.step, self.cfg)
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
         self.step += 1
         return {"loss": loss.detach(), "accuracy": acc.detach()}
+
+    def _accumulate(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """The gradients of `accum` microbatches in the parameters' .grad,
+        as the reference's train_step_accum combines them: row r goes to
+        microbatch r % accum; each microbatch's loss is the mean over its
+        valid (>= 0) targets and weighs by its valid count n_i, so grads =
+        sum(g_i n_i) / max(sum(n_i), 1), the full batch's token-weighted
+        mean however unevenly the targets are masked. Returns the loss and
+        accuracy combined with the same weights."""
+        loss_sum = acc_sum = n_sum = 0.0
+        for m in range(self.accum):
+            micro = {k: v[m::self.accum] for k, v in batch.items()}
+            loss, acc = self.loss(micro)
+            n = (micro["targets"] >= 0).sum().float()
+            (loss * n).backward()
+            loss_sum = loss_sum + loss.detach() * n
+            acc_sum = acc_sum + acc.detach() * n
+            n_sum = n_sum + n
+        n = n_sum.clamp_min(1.0)
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad = (p.grad / n).to(p.dtype)
+        return loss_sum / n, acc_sum / n
 
     def flops_per_step(self) -> float:
         """Analytic train-step FLOPs (2 per MAC, train = 3x forward)."""

@@ -196,3 +196,22 @@ def test_cpu_wrappers_never_launch_kernels():
     q.requires_grad_()
     tflash.flash_attention(q, k, v).backward(g)
     assert set(tflash.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_custom_ops_pass_opcheck(segments):
+    """kftpu::flash_fwd (with its autograd) and kftpu::flash_bwd on CPU
+    inputs: schema, fake tensors, autograd registration, AOT dispatch."""
+    q, k, v, g, seg = _torch(torch.float32,
+                             *_inputs(1, 128, 128, 4, 2, 32,
+                                      segments=segments))
+    seg = None if seg is None else seg.to(torch.int32)
+    for x in (q, k, v):
+        x.requires_grad_()
+    args = (q, k, v, seg, seg, 32 ** -0.5, True, 64, 64, 0)
+    torch.library.opcheck(torch.ops.kftpu.flash_fwd.default, args)
+    out, lse = torch.ops.kftpu.flash_fwd(*args)
+    assert not lse.requires_grad            # lse takes no gradient
+    torch.library.opcheck(torch.ops.kftpu.flash_bwd.default, (
+        q.detach(), k.detach(), v.detach(), out.detach(), lse, g, seg, seg,
+        32 ** -0.5, True, 64, 64, 0))

@@ -151,3 +151,50 @@ def test_block_sizes_are_ignored_on_card_with_a_warning(dev):
         got = fa.flash_attention(q, k, v, block_q=128, block_k=256)
     torch.testing.assert_close(got, fa.flash_attention(q, k, v), atol=0,
                                rtol=0)
+
+
+def test_custom_ops_launch_the_kernels(dev, monkeypatch):
+    """kftpu::flash_fwd / flash_bwd on CUDA tensors launch the CUDA
+    kernels and never the plain version."""
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", plain)
+    monkeypatch.setattr(fa, "flash_bwd_plain", plain)
+    q, k, v, dout = _inputs(dev, 1, 256, 256, 4, 2, 64)
+    before = dict(fa.LAUNCHES)
+    out, lse = torch.ops.kftpu.flash_fwd(q, k, v, None, None, 0.125, True,
+                                         512, 512, 0)
+    torch.ops.kftpu.flash_bwd(q, k, v, out, lse, dout, None, None, 0.125,
+                              True, 512, 512, 0)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    with pytest.raises(ValueError):          # shapes the kernel lacks raise
+        torch.ops.kftpu.flash_fwd(q[:, :100], k[:, :100], v[:, :100], None,
+                                  None, 0.125, True, 512, 512, 0)
+
+
+@pytest.mark.parametrize("policy,fwd_per_layer", [
+    ("slim", 1), ("dots", 1), ("mlp", 1), ("full", 2)])
+def test_remat_step_launches(dev, policy, fwd_per_layer):
+    """A 2-layer bf16 step at head_dim 64: the flash forward launches once
+    per layer, twice under full remat, which replays it; each backward
+    kernel once per layer."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops.xent import chunked_lm_xent
+
+    model = get_model("transformer-test", device=dev, d_model=256,
+                      n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+                      remat=True, remat_policy=policy)
+    tok = torch.randint(0, 256, (2, 256), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    fa.reset_launches()
+    hidden = model(tok, return_hidden=True)
+    loss, _ = chunked_lm_xent(hidden, model.lm_head.kernel, tok.roll(-1, 1),
+                              2, compute_dtype=model.cfg.dtype)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dict(fa.LAUNCHES) == {"flash_fwd": 2 * fwd_per_layer,
+                                 "flash_bwd_dq": 2, "flash_bwd_dkv": 2}

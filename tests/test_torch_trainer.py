@@ -98,7 +98,6 @@ def test_train_config_rejects_unknown_keys():
 
 
 @pytest.mark.parametrize("kw", [
-    {"optimizer": "adafactor"}, {"remat": True}, {"grad_accum_steps": 2},
     {"task": "classification"}, {"checkpoint_dir": "ckpt"},
     {"data_path": "shards-*"}, {"eval_every": 5}])
 def test_unported_config_raises(kw):

@@ -96,7 +96,7 @@ def test_registry_names_cover_the_reference_dense_configs():
 
 
 def test_unported_paths_raise():
-    for kw in (dict(remat=True), dict(moe_every=2),
+    for kw in (dict(moe_every=2),
                dict(attention_impl="ring"), dict(pipeline_stages=2)):
         with pytest.raises(NotImplementedError):
             T.TransformerConfig(**kw)
