@@ -52,10 +52,37 @@
    memory, then the optimizer update's own kernel time (three updates
    profiled by themselves), so the breakdowns and the main paths'
    numbers come from one run.
+9. Serving, (a) correctness: gpt-350m width, 4 layers, f32, TF32 off,
+   8 ragged prompts (a shared-prefix pair among them): the slot
+   decoder's greedy tokens, dense and paged (page size 16), equal
+   generate()'s; chunked prefill equals the per-token oracle, logits
+   within 1e-4 per row; the page allocator checks clean and every page
+   is free for admission at the end; an int8 KV-cache run agrees with
+   the f32 run on >= 75% of generated tokens and int8 weights give
+   prompt logits that correlate with f32's above 0.99 (the reference's
+   bars, tests/test_quant.py); the int8-weight run's share of equal
+   generated tokens is printed: one flipped token changes the rest of
+   its row, and on a random model of this width the reference's own
+   share is as low (tests/test_torch_quant.py). At bf16: chunked prefill
+   against the oracle within 2e-2 per row; the bf16-vs-f32 logits row
+   error and the share of identical tokens are printed, not held.
+10. Serving, (b) the pinned point (`tools/serve_best.json` with
+   prompt_len 512): gpt-350m at full depth, bf16, int8 weights, the
+   continuous decoder with 16 slots, vocab 32000, random weights from
+   seed 0, behind the port's ModelServer on 127.0.0.1: a warm-up, then
+   32 requests at concurrency 16 over HTTP; every response must hold 64
+   ids in range. Prints tokens/s, requests/s, p50/p95/p99, peak memory
+   and the cache's bytes; then 16 ticks of the same decoder with every
+   slot busy, timed on the host clock, and 8 more under torch.profiler:
+   device time per tick by kind (projection GEMMs, attention bmm,
+   sampling, the rest: elementwise, casts and dequantization) against
+   the host time per tick, and 16 ticks with the weights dequantized
+   once up front (what dequantizing at every tick costs).
 
 Any failure exits non-zero. The lines before the last hold the
 `{"kernels": [...]}` record (`launches`: the pinned main path's count,
-`launches_by_path`: each main path's) and the card; the last line is
+`launches_by_path`: each main path's, and the serving path's, which
+runs none of them) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc` and no network.
 """
 
@@ -66,6 +93,7 @@ import gc
 import io
 import json
 import math
+import random
 import subprocess
 import sys
 import time
@@ -98,6 +126,15 @@ ADAMW_PATH = {
 }
 REMAT_POLICIES = ("full", "dots", "mlp", "slim", "slim@1")
 ACCUM_LAYERS, ACCUM_STEPS = 4, 2
+# serving: the point tools/serve_best.json pins for the reference, with
+# tools/serve_bench.py's default prompt_len 512
+SERVE = {"model": "gpt-350m", "vocab": 32000, "prompt_len": 512,
+         "max_new": 64, "slots": 16, "concurrency": 16, "requests": 32,
+         "param_dtype": "int8"}
+CHECK_LAYERS, CHECK_P, CHECK_N, CHECK_PAGE = 4, 64, 16, 16
+PREFILL_ROW_TOL = 1e-4     # f32 chunked prefill vs the per-token oracle
+QUANT_AGREE = 0.75         # int8 cache vs f32, generated tokens
+QUANT_CORR = 0.99          # int8-weight vs f32 logits, same tokens
 
 
 def fail(msg: str) -> None:
@@ -487,6 +524,331 @@ def profile_phase(cfg: dict, tag: str, steps: int = 3) -> None:
     torch.cuda.empty_cache()
 
 
+def _left_padded(prompts: list[list[int]], p: int):
+    import torch
+
+    rows = [[0] * (p - len(r)) + r for r in prompts]
+    pads = [p - len(r) for r in prompts]
+    return (torch.tensor(rows, device="cuda"),
+            torch.tensor(pads, device="cuda"))
+
+
+def _decode_all(dec, prompts: list[list[int]]) -> list[list[int]]:
+    """Every prompt through a SlotDecoder at once, one thread each."""
+    import threading
+
+    outs: list = [None] * len(prompts)
+
+    def go(i: int) -> None:
+        try:
+            outs[i] = dec.submit(prompts[i])
+        except Exception as e:  # noqa: BLE001 - reported below
+            outs[i] = e
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    bad = [o for o in outs if not isinstance(o, list)]
+    if bad:
+        fail(f"slot decoder: {bad[0]!r}")
+    return outs
+
+
+def serving_check() -> None:
+    """Phase 9: decode and the slot decoder against generate() and the
+    prefill oracle, in f32 at gpt-350m width and CHECK_LAYERS layers;
+    the quantized runs against the f32 run; then the same at bf16."""
+    import torch
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import kernel_check
+    from kubeflow_tpu_torch.runtime.generate import (
+        generate, init_cache, prefill_per_token, prefill_scan)
+    from kubeflow_tpu_torch.serving.continuous import SlotDecoder
+    from kubeflow_tpu_torch.serving.quant import QuantizedModel, quantize_params
+
+    p, n = CHECK_P, CHECK_N
+    rng = random.Random(1)
+    ragged = [[rng.randrange(1, SERVE["vocab"]) for _ in range(k)]
+              for k in (5, p // 4 + 1, p // 2 + 1, p, 3 * p // 4, 1)]
+    shared = [rng.randrange(1, SERVE["vocab"]) for _ in range(p)]
+    prompts = ragged + [shared, shared]      # full hit, then copy-on-write
+
+    def model(dtype="float32", **kw):
+        m = get_model(SERVE["model"], device="cuda", seed=0,
+                      n_layers=CHECK_LAYERS, vocab_size=SERVE["vocab"],
+                      max_seq_len=p + n, dtype=dtype, **kw)
+        m.load_state_dict(weights)
+        return m
+
+    weights = get_model(SERVE["model"], device="cuda", seed=0,
+                        n_layers=CHECK_LAYERS, vocab_size=SERVE["vocab"],
+                        max_seq_len=p + n, dtype="float32").state_dict()
+    toks, pads = _left_padded(prompts, p)
+
+    def tokens(m, params=None):
+        with torch.no_grad():
+            return generate(m, params, toks, max_new_tokens=n,
+                            pad_len=pads)[:, p:].tolist()
+
+    def agree(a, b) -> float:
+        pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+        return sum(x == y for x, y in pairs) / len(pairs)
+
+    base = model()
+    want = tokens(base)
+    dec = SlotDecoder(base, None, slots=4, prompt_len=p, max_new_tokens=n)
+    try:
+        got = _decode_all(dec, prompts)
+    finally:
+        dec.close()
+    if got != want:
+        fail(f"dense slot decoder vs generate: {agree(got, want):.3f} of "
+             "tokens equal, want all (f32)")
+    pages = 4 * -(-(p + n) // CHECK_PAGE) + 2 * p // CHECK_PAGE + 1
+    paged = model(kv_pages=pages, kv_page_size=CHECK_PAGE)
+    dec = SlotDecoder(paged, None, slots=4, prompt_len=p, max_new_tokens=n)
+    try:
+        got = _decode_all(dec, ragged)
+        got += [dec.submit(shared), dec.submit(shared)]
+        st = dec.stats()
+        dec.alloc.check()
+        free = dec.alloc.available()
+    finally:
+        dec.close()
+    if got != want:
+        fail(f"paged slot decoder vs generate: {agree(got, want):.3f} of "
+             "tokens equal, want all (f32)")
+    if st["prefix_hit_pages"] < p // CHECK_PAGE or st["cow_clones"] < 1:
+        fail(f"paged: prefix reuse or copy-on-write did not run: {st}")
+    if free != pages - 1:
+        fail(f"paged: {free} of {pages - 1} pages free for admission at "
+             "the end")
+    with torch.no_grad():
+        logits = {}
+        for dtype in ("float32", "bfloat16"):
+            m = base if dtype == "float32" else model(dtype)
+            for name, fn in (("chunked", prefill_scan),
+                             ("per_token", prefill_per_token)):
+                _, logits[dtype, name] = fn(m, None, init_cache(m, len(prompts)),
+                                            toks, pads)
+    e32 = check_rows("f32 chunked prefill vs per-token", logits["float32", "chunked"],
+                     logits["float32", "per_token"], PREFILL_ROW_TOL)
+    e16 = check_rows("bf16 chunked prefill vs per-token",
+                     logits["bfloat16", "chunked"],
+                     logits["bfloat16", "per_token"], REF_ROW_TOL)
+    mixed = kernel_check.errors(logits["bfloat16", "chunked"],
+                                logits["float32", "chunked"])
+    kv8 = agree(tokens(model(kv_cache_dtype="int8")), want)
+    if kv8 < QUANT_AGREE:
+        fail(f"the int8-cache run agrees with f32 on {kv8:.3f} of tokens, "
+             f"want >= {QUANT_AGREE}")
+    qm = QuantizedModel(base)
+    qp = quantize_params(base.state_dict(), base.cfg.head_dim)
+    w8 = agree(tokens(qm, qp), want)
+    with torch.no_grad():
+        full = base.apply(None, toks, decode_index=0, pad_len=pads,
+                          cache=init_cache(base, len(prompts)))
+        quant = qm.apply(qp, toks, decode_index=0, pad_len=pads,
+                         cache=init_cache(base, len(prompts)))
+    corr = torch.corrcoef(torch.stack([full.flatten(), quant.flatten()]))[
+        0, 1].item()
+    del full, quant
+    if not corr > QUANT_CORR:
+        fail(f"int8-weight logits correlate with f32 at {corr:.5f}, want > "
+             f"{QUANT_CORR}")
+    bf = model("bfloat16")
+    want16 = tokens(bf)
+    dec = SlotDecoder(bf, None, slots=4, prompt_len=p, max_new_tokens=n)
+    try:
+        got16 = _decode_all(dec, prompts)
+    finally:
+        dec.close()
+    print(f"serving check ({SERVE['model']} width, {CHECK_LAYERS} layers, "
+          f"{len(prompts)} prompts, P {p}, N {n}): f32 slot decoder dense "
+          f"and paged == generate; paged {st['prefix_hit_pages']} prefix "
+          f"pages hit, {st['cow_clones']} copy-on-write; prefill chunked vs "
+          f"per-token row err f32 {e32['max_row_err']:.3g}, bf16 "
+          f"{e16['max_row_err']:.3g}; generated tokens equal to f32's: "
+          f"int8 cache {kv8:.3f}, int8 weights {w8:.3f} (not held; their "
+          f"prompt logits correlate at {corr:.5f}); bf16 vs f32 logits row err "
+          f"{mixed['max_row_err']:.3g}, bf16 tokens equal to f32's "
+          f"{agree(want16, want):.3f}, bf16 slot decoder equal to bf16 "
+          f"generate {agree(got16, want16):.3f}", flush=True)
+    del base, paged, bf, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+SERVE_OPS = (  # tick profile: CPU op -> kind (device time of its kernels)
+    ("projection GEMMs and LM head", ("aten::mm", "aten::addmm")),
+    ("attention bmm (scores, probs x values)", ("aten::bmm",)),
+    ("sampling", ("aten::argmax", "aten::multinomial", "aten::sort")),
+)
+
+
+def tick_profile(dec, ticks: int = 8, timed: int = 16) -> dict:
+    """Every slot of `dec` busy (prefilled at the serving prompt
+    length), then `timed` ticks back to back on the host clock and
+    `ticks` more under torch.profiler: device time per tick by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.serve_bench import bench_prompts
+    from kubeflow_tpu_torch.serving.quant import (
+        QuantizedModel, dequantize_params)
+
+    s, p = dec.S, dec.P
+    prompts = bench_prompts(s, p, SERVE["vocab"])
+    toks, pads = _left_padded(prompts, p)
+    with torch.no_grad():
+        st = dec._fresh_state()
+        cache_k, logits_k = dec._prefill(dec._params, toks, pads)
+        slots = torch.arange(s, device="cuda")
+        st = dec._install(st, cache_k, logits_k, slots, pads,
+                          torch.full((s,), dec.N, device="cuda"))
+        del cache_k
+        for _ in range(2):
+            st = dec._tick(dec._params, st)
+
+        def host_ms(params, n):
+            nonlocal st
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                st = dec._tick(params, st)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        tick_ms = host_ms(dec._params, timed)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ticks):
+                st = dec._tick(dec._params, st)
+            torch.cuda.synchronize()
+        # the same ticks with the weights dequantized once, up front:
+        # what the per-tick dequantization costs
+        plain_ms = None
+        if isinstance(dec.model, QuantizedModel):
+            quantized, dec.model = dec.model, dec.model._model
+            try:
+                plain_ms = host_ms(dequantize_params(dec._params), timed)
+            finally:
+                dec.model = quantized
+    kernels = _kernel_ms(prof, ticks)
+    device_ms = sum(kernels.values())
+    if device_ms == 0:
+        fail("the profiler saw no device time in the decode ticks")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  {ms:9.3f} ms/tick  {name[:110]}")
+    by_kind = {}
+    for evt in prof.key_averages():
+        for kind, names in SERVE_OPS:
+            if evt.key in names:
+                by_kind[kind] = by_kind.get(kind, 0.0) + getattr(
+                    evt, "device_time_total", 0.0) / 1e3 / ticks
+    by_kind["elementwise, casts, dequantization, gathers, softmax"] = (
+        device_ms - sum(by_kind.values()))
+    active = int((st.remaining > 0).sum())
+    if active != s:
+        fail(f"tick profile: {active} of {s} slots active")
+    return {"host_ms_per_tick": tick_ms, "device_ms_per_tick": device_ms,
+            "device_busy_share": device_ms / tick_ms, "by_kind_ms": by_kind,
+            "host_ms_per_tick_weights_dequantized_once": plain_ms,
+            "launches_per_tick": sum(
+                evt.count for evt in prof.key_averages()
+                if evt.device_type == torch.autograd.DeviceType.CUDA
+                and getattr(evt, "self_device_time_total", 0) > 0) / ticks}
+
+
+def serving_pinned(card: str) -> dict:
+    """Phase 10: the pinned serving point behind the ModelServer, over
+    HTTP on 127.0.0.1."""
+    import urllib.request
+
+    import torch
+
+    from kubeflow_tpu_torch.serve_bench import (
+        bench_prompts, closed_loop, warm_up)
+    from kubeflow_tpu_torch.serving.server import (
+        ModelServer, serve_lm_generator)
+
+    sv = SERVE
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_lm_generator(
+        "chat", sv["model"], prompt_len=sv["prompt_len"],
+        max_new_tokens=sv["max_new"], continuous_batching=True,
+        decode_slots=sv["slots"], param_dtype=sv["param_dtype"],
+        vocab_size=sv["vocab"], seed=0, device="cuda")
+    server = ModelServer()
+    server.register(served)
+    svc = server.serve(host="127.0.0.1", port=0).serve_background()
+    url = f"http://127.0.0.1:{svc.port}/v1/models/chat:predict"
+
+    def post(instances: list) -> list:
+        req = urllib.request.Request(
+            url, data=json.dumps({"instances": instances}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())["predictions"]
+
+    try:
+        prompts = bench_prompts(sv["requests"], sv["prompt_len"], sv["vocab"])
+        warm_up(post, prompts, sv["concurrency"])
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        latencies, outs, wall = closed_loop(
+            lambda pr: post([{"tokens": pr}])[0], prompts, sv["concurrency"])
+        for out in outs:
+            if len(out) != sv["max_new"] or not all(
+                    isinstance(t, int) and 0 <= t < sv["vocab"] for t in out):
+                fail(f"pinned serving: bad response {out}")
+        dec = served.decoder()
+        stats = dec.stats()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+
+        def pct(q: float) -> float:
+            return latencies[min(len(latencies) - 1, int(q * len(latencies)))]
+
+        result = {
+            "mode": "continuous", "model": sv["model"],
+            "param_dtype": sv["param_dtype"], "slots": sv["slots"],
+            "concurrency": sv["concurrency"], "requests": sv["requests"],
+            "prompt_len": sv["prompt_len"], "max_new_tokens": sv["max_new"],
+            "tokens_per_sec": sv["requests"] * sv["max_new"] / wall,
+            "requests_per_sec": sv["requests"] / wall,
+            "p50_ms": pct(0.50) * 1e3, "p95_ms": pct(0.95) * 1e3,
+            "p99_ms": pct(0.99) * 1e3, "wall_s": wall,
+            "setup_and_warmup_s": setup_s, "peak_mem_gb": peak,
+            "cache_bytes": stats["cache_bytes"],
+            "completed": stats["completed"], "card": card,
+        }
+        print("pinned serving: " + json.dumps(result), flush=True)
+        prof = tick_profile(dec)
+        print(f"pinned serving ticks ({sv['slots']} slots busy): host "
+              f"{prof['host_ms_per_tick']:.2f} ms/tick, device "
+              f"{prof['device_ms_per_tick']:.2f} ms/tick (busy "
+              f"{100 * prof['device_busy_share']:.0f}%), "
+              f"{prof['launches_per_tick']:.0f} kernel launches/tick; host "
+              f"{prof['host_ms_per_tick_weights_dequantized_once']:.2f} "
+              "ms/tick with the weights dequantized once")
+        for kind, ms in sorted(prof["by_kind_ms"].items(),
+                               key=lambda kv: -kv[1]):
+            print(f"  {ms:9.3f} ms  [{kind}]")
+        print("pinned serving ticks: " + json.dumps(prof), flush=True)
+    finally:
+        svc.shutdown()
+        server.close()
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     try:
         import torch
@@ -540,6 +902,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     for tag, cfg in (("pinned", MAIN_PATH), ("adamw", ADAMW_PATH)):
         profile_phase(cfg, tag)
+    serving_check()
+    # the serving path runs no flash kernel (decode attends by bmm over
+    # the cache); its counts are read like every path's
+    fa.reset_launches()
+    serving_pinned(card)
+    launches["serving"] = dict(fa.LAUNCHES)
     for row in rows:
         row["launches"] = launches["pinned"][row["name"]]
         row["launches_by_path"] = {t: n[row["name"]]

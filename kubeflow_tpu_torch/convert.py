@@ -70,3 +70,61 @@ def flax_shape(name: str, shape, head_dim: int) -> tuple[int, ...]:
     """The shape port parameter `name` has in the flax tree."""
     view, perm = flax_layout(name, shape, head_dim)
     return tuple(view[i] for i in perm)
+
+
+def flax_name(name: str) -> str:
+    """The flax path of port parameter `name`: `layer_0.attn.q.weight`
+    -> `layer_0/attn/q/kernel`; `lm_head.kernel`, `embedding` and the
+    norm scales keep their leaf name."""
+    parts = name.split(".")
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join(parts)
+
+
+def _to_torch(a) -> torch.Tensor:
+    """An array (bf16 from ml_dtypes included) as a CPU tensor of the
+    same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(a)
+
+
+def flax_cache_to_port(cache: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax decode-cache tree (`cache` of the reference's
+    init_cache / init_paged_cache, or of a mutated apply) as the port's
+    flat cache dict: `layer_0/attn/cached_key` -> tensor, dtypes kept.
+    The layouts are the same ([B, S, Hkv, D] rows, [NP, PS, Hkv, D]
+    pools)."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            key = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, Mapping):
+                walk(v, key)
+            else:
+                out[key] = _to_torch(v)
+
+    walk(cache, "")
+    return out
+
+
+def quantized_to_flax(params: Mapping[str, Any], head_dim: int
+                      ) -> dict[str, np.ndarray]:
+    """The port's quantized params (serving/quant.py quantize_params) as
+    the flat leaves of the reference's quantized tree: a QTensor under
+    `<flax path>/int8` or `/int4` (codes) and `/scale`; any other
+    parameter under its flax path, in f32. All in the flax layout."""
+    out: dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        path = flax_name(name)
+        if hasattr(p, "flax_codes"):
+            out[f"{path}/{p.kind}"] = p.flax_codes().cpu().numpy()
+            out[f"{path}/scale"] = p.flax_scale().cpu().numpy()
+        else:
+            view, perm = flax_layout(name, p.shape, head_dim)
+            out[path] = p.detach().cpu().float().reshape(view).permute(
+                perm).numpy()
+    return out

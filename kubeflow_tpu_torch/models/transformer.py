@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, training path (port of
+"""Decoder-only transformer LM, training and decode (port of
 kubeflow_tpu/models/transformer.py).
 
 Pre-RMSNorm, rotary embeddings (half-split), grouped-query attention,
@@ -9,9 +9,17 @@ module and parameter names follow the flax tree (`layer_3.attn.q`,
 
 `remat` rematerializes per block under the reference's policies (full,
 dots, mlp, slim, and `<policy>@K` for the first K blocks); see
-`Block.forward`. The decode branches, ring/Ulysses attention, MoE and
-pipeline stages are not ported yet and raise NotImplementedError naming
-their ROADMAP item.
+`Block.forward`.
+
+Decode (`forward(..., decode_index=, cache=)`) runs the reference's
+KV-cache paths: the dense cache (scalar, per-row and per-row chunk
+writes), its int8 variant with the scales applied to the scores and
+folded into the probabilities, and the paged pool with page 0 as the
+trash page. The cache is explicit state, a flat dict of per-layer
+tensors under the flax names (`layer_3/attn/cached_key`), written in
+place. The rolling-window cache, ring/Ulysses attention, MoE and
+pipeline stages are not ported yet and raise NotImplementedError
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ from torch.utils.checkpoint import (
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops import flash_attention
-from kubeflow_tpu_torch.ops.attention import attention
+from kubeflow_tpu_torch.ops.attention import NEG_FILL, attention
+from kubeflow_tpu_torch.ops.quantize import symmetric_int8
 from kubeflow_tpu_torch.ops.xent import head_logits
 
 
@@ -162,17 +171,143 @@ class Dense(nn.Module):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
+@dataclasses.dataclass
+class Decode:
+    """One decode call's arguments, shared by every layer. `index` is a
+    Python int (the whole batch starts there) or a [B] long tensor (one
+    start per row); `cache` is the flat dict the layers write into."""
+
+    index: int | torch.Tensor
+    pad_len: torch.Tensor | None
+    page_table: torch.Tensor | None
+    cache: dict[str, torch.Tensor]
+
+
+def decode_cache_shapes(cfg: TransformerConfig, batch: int
+                        ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """Shape and dtype of each dense decode-cache tensor, by flax name:
+    [B, max_seq, Hkv, D] keys and values in the model dtype, or int8
+    codes plus f32 [B, max_seq, Hkv, 1] scales under kv_cache_dtype
+    int8."""
+    if cfg.rolling_kv_cache:
+        raise NotImplementedError(
+            "the rolling-window KV cache is not ported yet (ROADMAP Queue "
+            "1, slice 2, item 7)")
+    if cfg.kv_cache_dtype not in ("auto", "int8"):
+        raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r} "
+                         "(auto|int8)")
+    quant = cfg.kv_cache_dtype == "int8"
+    kv = (batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    leaves = {"cached_key": (kv, torch.int8 if quant else cfg.dtype),
+              "cached_value": (kv, torch.int8 if quant else cfg.dtype)}
+    if quant:
+        sc = (batch, cfg.max_seq_len, cfg.n_kv_heads, 1)
+        leaves.update(cached_key_scale=(sc, torch.float32),
+                      cached_value_scale=(sc, torch.float32))
+    return {f"layer_{i}/attn/{k}": v for i in range(cfg.n_layers)
+            for k, v in leaves.items()}
+
+
+def paged_cache_shapes(cfg: TransformerConfig
+                       ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The paged pool: [kv_pages, kv_page_size, Hkv, D] keys and values
+    per layer, in the model dtype."""
+    if not (cfg.kv_pages and cfg.kv_page_size):
+        raise ValueError("the model was built without kv_pages/kv_page_size")
+    pool = ((cfg.kv_pages, cfg.kv_page_size, cfg.n_kv_heads, cfg.head_dim),
+            cfg.dtype)
+    return {f"layer_{i}/attn/{k}": pool for i in range(cfg.n_layers)
+            for k in ("key_pages", "value_pages")}
+
+
+def _kv_scale_rows(s: torch.Tensor) -> torch.Tensor:
+    """[B, S, Hkv, 1] int8-cache scales -> [B, Hkv, 1, 1, S], which
+    broadcasts against the [B, Hkv, G, Lq, S] scores and probabilities."""
+    return s[..., 0].transpose(1, 2)[:, :, None, None, :]
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b batched with f32 out (the reference's
+    preferred_element_type=float32): a 16-bit GEMM with f32 output on the
+    card, the exact products of the operands summed in f32 elsewhere."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx) -> None:
+    """Write the chunk `new` [B, Lq, ...] into `buf` [B, S, ...] at
+    positions idx.. in place, with the reference's out-of-range rules:
+    a scalar start is shifted so the chunk fits (dynamic_update_slice);
+    a per-row position past the end is dropped (its one-hot matches no
+    column)."""
+    s, lq = buf.shape[1], new.shape[1]
+    if isinstance(idx, int):
+        start = min(max(idx, 0), s - lq)
+        buf[:, start:start + lq] = new
+        return
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    if lq == 1:
+        at = idx.clamp(0, s - 1)
+        valid = ((idx >= 0) & (idx < s)).view(-1, *[1] * (new.ndim - 2))
+        buf[rows, at] = torch.where(valid, new[:, 0], buf[rows, at])
+        return
+    # per-row chunk: column s takes chunk row s - idx[b] where that row
+    # exists (the rows of one slot land at distinct columns)
+    c = torch.arange(s, device=buf.device)[None, :] - idx[:, None]
+    hit = (c >= 0) & (c < lq)
+    pick = c.clamp(0, lq - 1).view(*c.shape, *[1] * (new.ndim - 2))
+    upd = torch.gather(new, 1, pick.expand(-1, -1, *new.shape[2:]))
+    hit = hit.view(*hit.shape, *[1] * (new.ndim - 2))
+    buf.copy_(torch.where(hit, upd, buf))
+
+
+def cache_attention(q, k_all, v_all, qpos, pad_len, window: int,
+                    dtype: torch.dtype, k_scale=None, v_scale=None):
+    """Masked attention of q [B, Lq, H, D] over a cache view k_all/v_all
+    [B, S, Hkv, D]. The query heads are grouped per kv head (k and v are
+    never repeated); scores are f32; `qpos` [B or 1, Lq] is each query's
+    absolute position, and a key at position s is seen where s <= qpos,
+    s > qpos - window (window > 0) and s >= pad_len. The fill is -1e30.
+    With an int8 cache, k_scale/v_scale ([B, Hkv, 1, 1, S]) multiply
+    the scores and fold into the probabilities."""
+    b, lq, h, d = q.shape
+    s, hkv = k_all.shape[1], k_all.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, lq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b * hkv, g * lq, d)
+    kt = k_all.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
+    logits = _bmm_f32(qg, kt).view(b, hkv, g, lq, s) * (d ** -0.5)
+    if k_scale is not None:
+        logits = logits * k_scale
+    pos = torch.arange(s, device=q.device)
+    qp = qpos[:, None, None, :, None]
+    mask = pos <= qp
+    if window:
+        mask = mask & (pos > qp - window)
+    if pad_len is not None:
+        mask = mask & (pos >= pad_len[:, None, None, None, None])
+    probs = torch.softmax(torch.where(mask, logits, NEG_FILL), dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale
+    vt = v_all.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    out = torch.bmm(probs.to(dtype).reshape(b * hkv, g * lq, s), vt)
+    return out.view(b, hkv, g, lq, d).permute(0, 3, 1, 2, 4).reshape(
+        b, lq, h, d)
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, cache_prefix: str = ""):
         super().__init__()
         self.cfg = cfg
+        self.cache_prefix = cache_prefix     # "layer_3/attn/"
         d, hd, dt = cfg.d_model, cfg.head_dim, cfg.dtype
         self.q = Dense(d, cfg.n_heads * hd, dt, device)
         self.k = Dense(d, cfg.n_kv_heads * hd, dt, device)
         self.v = Dense(d, cfg.n_kv_heads * hd, dt, device)
         self.o = Dense(cfg.n_heads * hd, d, dt, device)
 
-    def forward(self, x, positions, segment_ids=None):
+    def forward(self, x, positions, segment_ids=None, decode=None):
         cfg = self.cfg
         b, l, _ = x.shape
         q = rope(self.q(x).view(b, l, cfg.n_heads, cfg.head_dim), positions,
@@ -180,11 +315,95 @@ class Attention(nn.Module):
         k = rope(self.k(x).view(b, l, cfg.n_kv_heads, cfg.head_dim),
                  positions, cfg.rope_theta)
         v = self.v(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
-        out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                        segment_ids=segment_ids, block_q=cfg.flash_block_q,
-                        block_k=cfg.flash_block_k,
-                        window=cfg.attention_window)
+        if decode is not None:
+            out = self._decode(q, k, v, decode)
+        else:
+            out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                            segment_ids=segment_ids,
+                            block_q=cfg.flash_block_q,
+                            block_k=cfg.flash_block_k,
+                            window=cfg.attention_window)
         return self.o(out.reshape(b, l, cfg.n_heads * cfg.head_dim))
+
+    def _decode(self, q, k, v, dec: Decode):
+        """Write this chunk's k/v into the cache, then attend over it
+        (the reference's `Attention.__call__` decode branches)."""
+        cfg = self.cfg
+        if dec.page_table is not None:
+            if not (cfg.kv_pages and cfg.kv_page_size):
+                raise ValueError(
+                    "page_table passed but the model was built without "
+                    "kv_pages/kv_page_size")
+            if cfg.rolling_kv_cache:
+                raise ValueError(
+                    "paged decode is exclusive with rolling_kv_cache "
+                    "(the page pool already bounds cache memory)")
+            if cfg.kv_cache_dtype != "auto":
+                raise ValueError(
+                    "paged decode supports kv_cache_dtype='auto' only "
+                    "(int8 page pools are not composed yet)")
+            return self._decode_paged(q, k, v, dec)
+        if cfg.rolling_kv_cache:
+            raise NotImplementedError(
+                "the rolling-window KV cache is not ported yet (ROADMAP "
+                "Queue 1, slice 2, item 7)")
+        if cfg.kv_cache_dtype not in ("auto", "int8"):
+            raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r} "
+                             "(auto|int8)")
+        p, cache = self.cache_prefix, dec.cache
+        ck, cv = cache[p + "cached_key"], cache[p + "cached_value"]
+        quant = cfg.kv_cache_dtype == "int8"
+        if quant:
+            k_w, ks_w = symmetric_int8(k, -1)     # per (position, head)
+            v_w, vs_w = symmetric_int8(v, -1)
+            cks = cache[p + "cached_key_scale"]
+            cvs = cache[p + "cached_value_scale"]
+            writes = ((ck, k_w), (cv, v_w), (cks, ks_w), (cvs, vs_w))
+        else:
+            writes = ((ck, k.to(cfg.dtype)), (cv, v.to(cfg.dtype)))
+        for buf, new in writes:
+            _write_rows(buf, new, dec.index)
+        lq = q.shape[1]
+        offs = torch.arange(lq, device=q.device)
+        qpos = ((dec.index + offs)[None, :] if isinstance(dec.index, int)
+                else dec.index[:, None] + offs[None, :])
+        if quant:
+            # int8 -> model dtype is exact for [-127, 127]; the scales
+            # factor out of the head_dim contraction
+            return cache_attention(
+                q, ck.to(cfg.dtype), cv.to(cfg.dtype), qpos, dec.pad_len,
+                cfg.attention_window, cfg.dtype, _kv_scale_rows(cks),
+                _kv_scale_rows(cvs))
+        return cache_attention(q, ck, cv, qpos, dec.pad_len,
+                               cfg.attention_window, cfg.dtype)
+
+    def _decode_paged(self, q, k, v, dec: Decode):
+        """Scatter the chunk to (table[pos // PS], pos % PS), then gather
+        each row's pages into a logical [B, MP * PS] view and attend as
+        the dense path does. A position one past the table (an idle
+        lockstep slot) clamps to the last entry, as the reference's
+        gather does; a freed slot's row is all trash page."""
+        cfg = self.cfg
+        b, lq = q.shape[:2]
+        hkv, hd, ps = cfg.n_kv_heads, cfg.head_dim, cfg.kv_page_size
+        table = dec.page_table
+        mp = table.shape[1]
+        idx = dec.index
+        if isinstance(idx, int):
+            idx = torch.full((b,), idx, dtype=torch.long, device=q.device)
+        pos_q = idx[:, None] + torch.arange(lq, device=q.device)[None, :]
+        flat = pos_q.reshape(-1)
+        rows = torch.arange(b, device=q.device).repeat_interleave(lq)
+        pages = table[rows, (flat // ps).clamp(0, mp - 1)]
+        offs = flat % ps
+        p = self.cache_prefix
+        ck, cv = dec.cache[p + "key_pages"], dec.cache[p + "value_pages"]
+        ck[pages, offs] = k.to(cfg.dtype).reshape(b * lq, hkv, hd)
+        cv[pages, offs] = v.to(cfg.dtype).reshape(b * lq, hkv, hd)
+        k_all = ck[table].reshape(b, mp * ps, hkv, hd)
+        v_all = cv[table].reshape(b, mp * ps, hkv, hd)
+        return cache_attention(q, k_all, v_all, pos_q, dec.pad_len,
+                               cfg.attention_window, cfg.dtype)
 
 
 class SwiGLU(nn.Module):
@@ -238,15 +457,16 @@ def _direct(fn, *args):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device):
+    def __init__(self, cfg: TransformerConfig, device, name: str = ""):
         super().__init__()
         self.ln_attn = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, f"{name}/attn/")
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = SwiGLU(cfg, device)
 
-    def forward(self, x, positions, segment_ids=None, remat=None):
-        """One block; `remat` names the policy that decides what the
+    def forward(self, x, positions, segment_ids=None, remat=None,
+                decode=None):
+        """One block (a decode step when `decode` is given); `remat` names the policy that decides what the
         backward keeps (None: whatever autograd saves). Each keeps the
         block's input x, and:
         - full: nothing else. The block replays, the flash forward
@@ -268,6 +488,9 @@ class Block(nn.Module):
         A replay stops once it has rebuilt what the backward needs, so
         the down projection never replays. Remat changes what is saved,
         never a value."""
+        if decode is not None:
+            x = x + self.attn(self.ln_attn(x), positions, decode=decode)
+            return x + self.mlp(self.ln_mlp(x))
         if remat in ("full", "dots"):
             extra = {"context_fn": _dots_contexts} if remat == "dots" else {}
             return checkpoint(self._body, x, positions, segment_ids, None,
@@ -293,7 +516,7 @@ class TransformerLM(nn.Module):
         self.embedding = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, device=dev))
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg, dev))
+            self.add_module(f"layer_{i}", Block(cfg, dev, f"layer_{i}"))
         self.ln_f = RMSNorm(cfg.d_model, cfg.dtype, dev)
         self.lm_head = LMHead(cfg, dev)
         if dev.type == "meta":          # shapes only: nothing to draw
@@ -309,16 +532,50 @@ class TransformerLM(nn.Module):
     def blocks(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
 
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.device
+
+    def apply(self, params, *args, **kwargs):
+        """forward with `params` (a name -> tensor dict, e.g. weights cast
+        or dequantized for serving) in place of the module's own; None
+        runs on the module's own parameters."""
+        if params is None:
+            return self(*args, **kwargs)
+        return torch.func.functional_call(self, params, args, kwargs)
+
     def forward(self, tokens, segment_ids=None, decode_index=None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, pad_len=None, page_table=None,
+                cache=None):
         """tokens [B, L] -> f32 logits [B, L, V], or the final-norm hidden
-        states [B, L, d] with return_hidden (the chunked-loss path)."""
-        if decode_index is not None:
-            raise NotImplementedError(
-                "KV-cache decode is not ported yet (ROADMAP Queue 1, "
-                "slice 2, item 7)")
+        states [B, L, d] with return_hidden (the chunked-loss path).
+
+        Decode: with `decode_index` (an int, or a [B] tensor of per-row
+        starts) and `cache` (`runtime/generate.py` init_cache, or
+        `runtime/kvcache.py` init_paged_cache with a [B, MP] `page_table`),
+        token row r of the chunk sits at position decode_index + r; its
+        k/v are written into `cache` in place before it attends.
+        `pad_len` [B] masks each row's left padding."""
         cfg = self.cfg
         x = F.embedding(tokens, self.embedding.to(cfg.dtype))
+        if decode_index is not None:
+            if cache is None:
+                raise ValueError("decode needs cache= (init_cache or "
+                                 "init_paged_cache)")
+            idx = decode_index
+            if isinstance(idx, torch.Tensor):
+                idx = (int(idx) if idx.ndim == 0
+                       else idx.to(device=tokens.device, dtype=torch.long))
+            offs = torch.arange(tokens.shape[1], device=tokens.device)
+            positions = ((idx + offs).expand(tokens.shape)
+                         if isinstance(idx, int) else idx[:, None] + offs)
+            if page_table is not None:
+                page_table = page_table.to(device=tokens.device,
+                                           dtype=torch.long)
+            dec = Decode(idx, pad_len, page_table, cache)
+            for blk in self.blocks():
+                x = blk(x, positions, decode=dec)
+            return self.lm_head(self.ln_f(x))
         positions = torch.arange(tokens.shape[1], device=tokens.device
                                  ).expand(tokens.shape)
         policy, k_mix = (_split_policy(cfg.remat_policy) if cfg.remat

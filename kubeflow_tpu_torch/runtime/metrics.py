@@ -1,12 +1,21 @@
-"""Step metering: step time, throughput and MFU over a sliding window.
+"""Step metering and the metrics registry (port of
+kubeflow_tpu/runtime/metrics.py).
 
-Port of StepMeter in kubeflow_tpu/runtime/metrics.py with the port's own
-peak table. A device not in the table gets no MFU (None): there is no
-default peak, so an unknown card is never measured against another's.
+StepMeter: step time, throughput and MFU over a sliding window, with the
+port's own peak table. A device not in the table gets no MFU (None):
+there is no default peak, so an unknown card is never measured against
+another's.
+
+MetricsRegistry / REGISTRY: a minimal Prometheus registry (gauges,
+counters, histograms; text format 0.0.4) that the serving and decode
+meters publish into and `GET /metrics` renders. The reference mirrors
+the same signals into prometheus_client as well; the port does not
+(the card's machine has no prometheus_client).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 
@@ -65,3 +74,117 @@ class StepMeter:
     @property
     def mfu(self) -> float | None:
         return self.achieved_flops / self.peak if self.peak else None
+
+
+# Default latency buckets (seconds) — controller-runtime's reconcile
+# histogram range: sub-ms reconciles up to minute-scale stalls.
+DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                   1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+
+class _Histogram:
+    """Cumulative-bucket histogram state for one label set."""
+
+    __slots__ = ("buckets", "counts", "sum", "count")
+
+    def __init__(self, buckets):
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        self.counts = [0] * len(self.buckets)
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float) -> None:
+        for i, le in enumerate(self.buckets):
+            if value <= le:
+                self.counts[i] += 1
+                break
+        self.sum += value
+        self.count += 1
+
+
+def _escape_label(value) -> str:
+    """Prometheus text-format label-value escaping: backslash, quote and
+    newline must be escaped or the exposition is unscrapeable."""
+    return (str(value).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(text: str) -> str:
+    return text.replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def _label_str(key: tuple, extra: tuple = ()) -> str:
+    return ",".join(f'{k}="{_escape_label(v)}"' for k, v in (*key, *extra))
+
+
+class MetricsRegistry:
+    """Minimal Prometheus registry: gauges, counters and native
+    histograms, text format 0.0.4."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: dict[str, tuple[str, str, dict[tuple, object]]] = {}
+
+    def _set(self, kind: str, name: str, help_: str, value: float, labels: dict | None):
+        key = tuple(sorted((labels or {}).items()))
+        with self._lock:
+            _, _, series = self._metrics.setdefault(name, (kind, help_, {}))
+            series[key] = value
+
+    def gauge(self, name: str, value: float, help_: str = "", **labels) -> None:
+        self._set("gauge", name, help_, value, labels)
+
+    def counter_inc(self, name: str, help_: str = "", by: float = 1.0, **labels) -> None:
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            _, _, series = self._metrics.setdefault(name, ("counter", help_, {}))
+            series[key] = series.get(key, 0.0) + by
+
+    def histogram(self, name: str, value: float, help_: str = "",
+                  buckets=DEFAULT_BUCKETS, **labels) -> None:
+        """Observe ``value`` into a cumulative-bucket histogram. Renders
+        as ``name_bucket{le=...}`` / ``name_sum`` / ``name_count`` —
+        the native type the scheduler's hand-rolled ``_sum``/``_count``
+        counter pair predated."""
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            _, _, series = self._metrics.setdefault(
+                name, ("histogram", help_, {}))
+            hist = series.get(key)
+            if not isinstance(hist, _Histogram):
+                hist = series[key] = _Histogram(buckets)
+            hist.observe(float(value))
+
+    @staticmethod
+    def _render_histogram(out: list, name: str, key: tuple,
+                          hist: _Histogram) -> None:
+        cum = 0
+        for le, n in zip(hist.buckets, hist.counts):
+            cum += n
+            out.append(f"{name}_bucket{{"
+                       f"{_label_str(key, (('le', le),))}}} {cum}")
+        out.append(f"{name}_bucket{{{_label_str(key, (('le', '+Inf'),))}}} "
+                   f"{hist.count}")
+        suffix = f"{{{_label_str(key)}}}" if key else ""
+        out.append(f"{name}_sum{suffix} {hist.sum}")
+        out.append(f"{name}_count{suffix} {hist.count}")
+
+    def render(self) -> str:
+        out = []
+        with self._lock:
+            for name, (kind, help_, series) in sorted(self._metrics.items()):
+                if help_:
+                    out.append(f"# HELP {name} {_escape_help(help_)}")
+                out.append(f"# TYPE {name} {kind}")
+                for key in sorted(series):
+                    value = series[key]
+                    if isinstance(value, _Histogram):
+                        self._render_histogram(out, name, key, value)
+                    elif key:
+                        out.append(f"{name}{{{_label_str(key)}}} {value}")
+                    else:
+                        out.append(f"{name} {value}")
+        return "\n".join(out) + "\n"
+
+
+REGISTRY = MetricsRegistry()
