@@ -77,12 +77,52 @@
    device time per tick by kind (projection GEMMs, attention bmm,
    sampling, the rest: elementwise, casts and dequantization) against
    the host time per tick, and 16 ticks with the weights dequantized
-   once up front (what dequantizing at every tick costs).
+   once up front (what dequantizing at every tick costs). The dense
+   cache must hold 905,969,664 bytes.
+11. Entry (run after phase 4): `kubeflow_tpu_torch.entry.entry()` on
+   the card (gpt-125m widths, 4 layers, vocab 8192, zero params, tokens
+   ones [2, 256], bf16): logits [2, 256, 8192], finite, and 4 flash
+   forward launches (one per layer); the flash forward against its
+   plain version at that shape ([2, 256, 12, 64], 12 kv heads) per
+   row, timed with its plain version and SDPA; then random weights
+   (seed 0) at the same config, flash against reference attention,
+   within 2e-2 per row.
+12. Rolling cache: (a) gpt-350m width, 4 layers, f32, window 16,
+   prompts of up to 24 tokens and 24 new (the cache wraps twice): the
+   rolling cache's greedy tokens equal the full cache's under the same
+   window, for generate() and the slot decoder, dense and int8 cache,
+   and its tensors are W-sized; (b) phase 10's point with window 256
+   and the rolling cache (prompts up to 511 tokens wrap it at
+   prefill): the cache must hold exactly 402,653,184 bytes; the same
+   figures and tick profile as phase 10.
+13. Speculative decoding: (a) 4 layers, f32: speculative_generate and
+   the lockstep slot decoder, dense and paged target, equal greedy
+   generate(), with the target's own weights as the draft (accepted ==
+   drafted) and with an independent draft; (b) phase 10's point with
+   a gpt-125m draft (int8, random from seed 1) and k 4, 16 requests:
+   acceptance rate, rounds, tokens/s, p50/p95, peak memory; in bf16
+   the share of tokens equal to phase 10's plain greedy is printed,
+   not held, beside a witness of why rows differ: for each row, at its
+   first differing token, the bf16 target's top-1 minus top-2 logit
+   margin on that row's prefix, against the margins of the steps
+   before it, and whether the two runs' tokens are that forward's top
+   two; (c) the same point computed in f32 (TF32 off), 16 requests
+   through the speculative server and a plain one: tokens equal token
+   for token (16 busy slots, prompts of up to 511 tokens left-padded
+   to 512, int8 target and draft).
+14. Router: two ModelServer replicas on the card (gpt-350m width, 4
+   layers, f32, continuous batching, paged cache) behind the port's
+   RouterFrontend over HttpTransport, 16 concurrent predicts: both
+   replicas serve, every response equals a direct replica call, and
+   router_queue_depth returns to 0.
+Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
 `{"kernels": [...]}` record (`launches`: the pinned main path's count,
-`launches_by_path`: each main path's, and the serving path's, which
-runs none of them) and the card; the last line is
+`launches_by_path`: each path's: the training paths, entry, and the
+serving, rolling, speculative and router paths, which must run none of
+them; the flash forward's row also holds its figures at the entry
+shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc` and no network.
 """
 
@@ -132,6 +172,15 @@ SERVE = {"model": "gpt-350m", "vocab": 32000, "prompt_len": 512,
          "max_new": 64, "slots": 16, "concurrency": 16, "requests": 32,
          "param_dtype": "int8"}
 CHECK_LAYERS, CHECK_P, CHECK_N, CHECK_PAGE = 4, 64, 16, 16
+# the pinned point's dense cache, and the rolling one at window 256:
+# layers x (k, v) x slots x positions x kv heads x head_dim x bf16 bytes
+DENSE_CACHE_BYTES = 24 * 2 * 16 * 576 * 16 * 64 * 2       # 905,969,664
+ROLLING_WINDOW = 256
+ROLLING_CACHE_BYTES = 24 * 2 * 16 * ROLLING_WINDOW * 16 * 64 * 2  # 402,653,184
+ROLL_W, ROLL_P, ROLL_N = 16, 24, 24   # the rolling check wraps W twice
+SPEC_K, SPEC_REQUESTS = 4, 16
+SPEC_DRAFT = "gpt-125m"
+ROUTER_P, ROUTER_N, ROUTER_REQUESTS = 64, 16, 16
 PREFILL_ROW_TOL = 1e-4     # f32 chunked prefill vs the per-token oracle
 QUANT_AGREE = 0.75         # int8 cache vs f32, generated tokens
 QUANT_CORR = 0.99          # int8-weight vs f32 logits, same tokens
@@ -764,15 +813,23 @@ def tick_profile(dec, ticks: int = 8, timed: int = 16) -> dict:
                 and getattr(evt, "self_device_time_total", 0) > 0) / ticks}
 
 
-def serving_pinned(card: str) -> dict:
-    """Phase 10: the pinned serving point behind the ModelServer, over
-    HTTP on 127.0.0.1."""
+def serving_pinned(card: str, tag: str = "pinned serving",
+                   requests: int = SERVE["requests"], warm: bool = True,
+                   profile: bool = True, cache_bytes: int | None = None,
+                   **extra) -> tuple[dict, list]:
+    """The pinned serving point behind the ModelServer, over HTTP on
+    127.0.0.1 (`extra`: more serve_lm_generator options, e.g. the
+    rolling cache or a draft model): a warm-up (one predict of each
+    power of two up to the concurrency, or of two instances when `warm`
+    is false), then `requests` single-instance predicts at concurrency
+    16. Holds every response and, when given, the decode cache's bytes;
+    returns the result line and the outputs in prompt order."""
     import urllib.request
 
     import torch
 
     from kubeflow_tpu_torch.serve_bench import (
-        bench_prompts, closed_loop, warm_up)
+        bench_prompts, closed_loop, spec_stats, warm_up)
     from kubeflow_tpu_torch.serving.server import (
         ModelServer, serve_lm_generator)
 
@@ -783,7 +840,7 @@ def serving_pinned(card: str) -> dict:
         "chat", sv["model"], prompt_len=sv["prompt_len"],
         max_new_tokens=sv["max_new"], continuous_batching=True,
         decode_slots=sv["slots"], param_dtype=sv["param_dtype"],
-        vocab_size=sv["vocab"], seed=0, device="cuda")
+        vocab_size=sv["vocab"], seed=0, device="cuda", **extra)
     server = ModelServer()
     server.register(served)
     svc = server.serve(host="127.0.0.1", port=0).serve_background()
@@ -793,12 +850,15 @@ def serving_pinned(card: str) -> dict:
         req = urllib.request.Request(
             url, data=json.dumps({"instances": instances}).encode(),
             headers={"Content-Type": "application/json"}, method="POST")
-        with urllib.request.urlopen(req, timeout=600) as resp:
+        with urllib.request.urlopen(req, timeout=900) as resp:
             return json.loads(resp.read())["predictions"]
 
     try:
-        prompts = bench_prompts(sv["requests"], sv["prompt_len"], sv["vocab"])
-        warm_up(post, prompts, sv["concurrency"])
+        prompts = bench_prompts(requests, sv["prompt_len"], sv["vocab"])
+        if warm:
+            warm_up(post, prompts, sv["concurrency"])
+        else:
+            post([{"tokens": p} for p in prompts[:2]])
         setup_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         latencies, outs, wall = closed_loop(
@@ -806,10 +866,13 @@ def serving_pinned(card: str) -> dict:
         for out in outs:
             if len(out) != sv["max_new"] or not all(
                     isinstance(t, int) and 0 <= t < sv["vocab"] for t in out):
-                fail(f"pinned serving: bad response {out}")
+                fail(f"{tag}: bad response {out}")
         dec = served.decoder()
         stats = dec.stats()
         peak = torch.cuda.max_memory_allocated() / 1e9
+        if cache_bytes is not None and stats["cache_bytes"] != cache_bytes:
+            fail(f"{tag}: decode cache holds {stats['cache_bytes']} bytes, "
+                 f"want {cache_bytes}")
 
         def pct(q: float) -> float:
             return latencies[min(len(latencies) - 1, int(q * len(latencies)))]
@@ -817,36 +880,461 @@ def serving_pinned(card: str) -> dict:
         result = {
             "mode": "continuous", "model": sv["model"],
             "param_dtype": sv["param_dtype"], "slots": sv["slots"],
-            "concurrency": sv["concurrency"], "requests": sv["requests"],
+            "concurrency": sv["concurrency"], "requests": requests,
             "prompt_len": sv["prompt_len"], "max_new_tokens": sv["max_new"],
-            "tokens_per_sec": sv["requests"] * sv["max_new"] / wall,
-            "requests_per_sec": sv["requests"] / wall,
+            **extra,
+            "tokens_per_sec": requests * sv["max_new"] / wall,
+            "requests_per_sec": requests / wall,
             "p50_ms": pct(0.50) * 1e3, "p95_ms": pct(0.95) * 1e3,
             "p99_ms": pct(0.99) * 1e3, "wall_s": wall,
             "setup_and_warmup_s": setup_s, "peak_mem_gb": peak,
             "cache_bytes": stats["cache_bytes"],
             "completed": stats["completed"], "card": card,
+            **(spec_stats(stats) if stats["speculative"] else {}),
         }
-        print("pinned serving: " + json.dumps(result), flush=True)
-        prof = tick_profile(dec)
-        print(f"pinned serving ticks ({sv['slots']} slots busy): host "
-              f"{prof['host_ms_per_tick']:.2f} ms/tick, device "
-              f"{prof['device_ms_per_tick']:.2f} ms/tick (busy "
-              f"{100 * prof['device_busy_share']:.0f}%), "
-              f"{prof['launches_per_tick']:.0f} kernel launches/tick; host "
-              f"{prof['host_ms_per_tick_weights_dequantized_once']:.2f} "
-              "ms/tick with the weights dequantized once")
-        for kind, ms in sorted(prof["by_kind_ms"].items(),
-                               key=lambda kv: -kv[1]):
-            print(f"  {ms:9.3f} ms  [{kind}]")
-        print("pinned serving ticks: " + json.dumps(prof), flush=True)
+        print(f"{tag}: " + json.dumps(result), flush=True)
+        if profile:
+            prof = tick_profile(dec)
+            print(f"{tag} ticks ({sv['slots']} slots busy): host "
+                  f"{prof['host_ms_per_tick']:.2f} ms/tick, device "
+                  f"{prof['device_ms_per_tick']:.2f} ms/tick (busy "
+                  f"{100 * prof['device_busy_share']:.0f}%), "
+                  f"{prof['launches_per_tick']:.0f} kernel launches/tick; "
+                  "host "
+                  f"{prof['host_ms_per_tick_weights_dequantized_once']:.2f} "
+                  "ms/tick with the weights dequantized once")
+            for kind, ms in sorted(prof["by_kind_ms"].items(),
+                                   key=lambda kv: -kv[1]):
+                print(f"  {ms:9.3f} ms  [{kind}]")
+            print(f"{tag} ticks: " + json.dumps(prof), flush=True)
     finally:
         svc.shutdown()
         server.close()
     del served
     gc.collect()
     torch.cuda.empty_cache()
-    return result
+    return result, outs
+
+
+def entry_phase(fa) -> tuple[dict, dict]:
+    """The entry() twin on the card: logits [2, 256, 8192], finite, with
+    one flash forward launch per layer; the flash forward held against
+    its plain version at this path's shape ([2, 256, 12, 64], 12 kv
+    heads) and timed there; then the same config with random weights
+    (seed 0), flash against reference attention, per row. Returns the
+    entry call's launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch import entry as E
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import kernel_check
+
+    t0 = time.perf_counter()
+    fn, (params, tokens) = E.entry()
+    fa.reset_launches()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    layers = E.CONFIG["n_layers"]
+    if tuple(logits.shape) != (2, 256, 8192) or not torch.isfinite(
+            logits).all():
+        fail(f"entry: logits {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+    if launches != {"flash_fwd": layers, "flash_bwd_dq": 0,
+                    "flash_bwd_dkv": 0}:
+        fail(f"entry: launches {launches}, want {layers} flash_fwd")
+    del fn, params, logits
+    # the kernel at this path's shape against its plain version
+    b, l, h = 2, 256, 12
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+
+    q, k, v, dout = randn(b, l, h, D), randn(b, l, h, D), randn(b, l, h, D), \
+        randn(b, l, h, D)
+    cfg = dict(scale=D ** -0.5, causal=True, window=0)
+    errs = kernel_check.flash_errors(q, k, v, dout, **cfg)
+    bad = kernel_check.failures(errs)
+    if bad:
+        fail(f"entry shape: flash kernels vs plain: {'; '.join(bad)}")
+    timed = kernel_check.device_ms
+    pairs = b * h * l * (l + 1) / 2
+    t_ops = 4 * D * pairs / PEAK_BF16 * 1e3
+    t_bytes = (2 * 4 * b * l * h * D + 4 * b * h * l) / PEAK_BYTES * 1e3
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    at_shape = {
+        "shape": [b, l, h, D], "kv_heads": h,
+        "max_row_err": max(errs[o]["max_row_err"]
+                           for o in kernel_check.KERNEL_OUTPUTS["flash_fwd"]),
+        "ms": timed(lambda: fa.flash_fwd_cuda(q, k, v, **cfg)),
+        "plain_ms": timed(lambda: fa.flash_fwd_plain(
+            q, k, v, **cfg, **fa.kernel_blocks("flash_fwd", D)),
+            n=3, reps=3, warmup=1),
+        "library_ms": timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+    # random weights: flash against reference attention through the model
+    toks = torch.randint(0, 8192, (2, 256), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(5))
+    out = {}
+    for impl in ("auto", "reference"):
+        m = get_model("gpt-125m", device="cuda", seed=0, attention_impl=impl,
+                      **E.CONFIG)
+        with torch.no_grad():
+            out[impl] = m(toks)
+        del m
+    e = check_rows("entry config, random weights, flash vs reference",
+                   out["auto"], out["reference"], REF_ROW_TOL)
+    print(f"entry: logits [2, 256, 8192] finite, launches {launches}; flash "
+          f"fwd at [2, 256, 12, 64] vs plain row err "
+          f"{at_shape['max_row_err']:.3g}, {at_shape['ms']:.4f} ms (plain "
+          f"{at_shape['plain_ms']:.3f}, sdpa {at_shape['library_ms']:.4f}, "
+          f"bound {at_shape['bound_ms']:.4f} ms by {at_shape['bound_by']}); "
+          f"random weights flash vs reference row err {e['max_row_err']:.3g}"
+          f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, at_shape
+
+
+def _check_model(name: str = SERVE["model"], layers: int = CHECK_LAYERS,
+                 seed: int = 0, **kw):
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    return get_model(name, device="cuda", seed=seed, n_layers=layers,
+                     vocab_size=SERVE["vocab"], dtype="float32", **kw)
+
+
+def rolling_check() -> None:
+    """gpt-350m width, CHECK_LAYERS layers, f32: with window ROLL_W and
+    prompts of ROLL_P tokens decoding ROLL_N more (the cache wraps
+    twice), the rolling cache's greedy tokens equal the full cache's
+    under the same window, for generate() and the slot decoder, with
+    the dense and the int8 cache; the rolling cache is W-sized."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.generate import generate, init_cache
+    from kubeflow_tpu_torch.serving.continuous import SlotDecoder
+
+    t0 = time.perf_counter()
+    rng = random.Random(2)
+    prompts = [[rng.randrange(1, SERVE["vocab"]) for _ in range(k)]
+               for k in (ROLL_P, ROLL_P - 5, 3, ROLL_P - 1)]
+    toks, pads = _left_padded(prompts, ROLL_P)
+    seq = ROLL_P + ROLL_N
+    report = []
+    for kv in ("auto", "int8"):
+        kw = dict(max_seq_len=seq, attention_window=ROLL_W,
+                  kv_cache_dtype=kv)
+        full = _check_model(**kw)
+        roll = _check_model(rolling_kv_cache=True, **kw)
+        shapes = {tuple(t.shape[:2]) for t in init_cache(roll, 2).values()}
+        if shapes != {(2, ROLL_W)}:
+            fail(f"rolling {kv}: cache shapes {shapes}, want [2, {ROLL_W}]")
+        with torch.no_grad():
+            want = generate(full, None, toks, max_new_tokens=ROLL_N,
+                            pad_len=pads)[:, ROLL_P:].tolist()
+            got = generate(roll, None, toks, max_new_tokens=ROLL_N,
+                           pad_len=pads)[:, ROLL_P:].tolist()
+        if got != want:
+            fail(f"rolling {kv}: generate tokens differ from the full "
+                 "cache's under the same window (f32)")
+        dec = SlotDecoder(roll, None, slots=2, prompt_len=ROLL_P,
+                          max_new_tokens=ROLL_N)
+        try:
+            slot = _decode_all(dec, prompts)
+            cache_bytes = dec.stats()["cache_bytes"]
+        finally:
+            dec.close()
+        if slot != want:
+            fail(f"rolling {kv}: slot decoder tokens differ from the full "
+                 "cache's generate (f32)")
+        report.append(f"{kv}: {cache_bytes} cache bytes")
+        del full, roll
+    print(f"rolling check ({SERVE['model']} width, {CHECK_LAYERS} layers, "
+          f"f32, W {ROLL_W}, {len(prompts)} prompts of up to {ROLL_P} + "
+          f"{ROLL_N} new): rolling == full cache for generate() and the "
+          f"slot decoder, dense and int8 ({'; '.join(report)}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def speculative_check() -> None:
+    """CHECK_LAYERS layers, f32: speculative_generate and the lockstep
+    slot decoder, dense and paged target, equal the target's greedy
+    generate(), with the target's own weights as the draft (every
+    proposal accepted: accepted == drafted) and with an independent
+    draft (SPEC_DRAFT width, 2 layers, seed 1)."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.generate import generate
+    from kubeflow_tpu_torch.runtime.speculative import speculative_generate
+    from kubeflow_tpu_torch.serving.continuous import SlotDecoder
+
+    t0 = time.perf_counter()
+    p, n, k = CHECK_P, CHECK_N, SPEC_K
+    seq = p + n + k
+    rng = random.Random(3)
+    prompts = [[rng.randrange(1, SERVE["vocab"]) for _ in range(m)]
+               for m in (p, p // 2, 7, p - 3)]
+    toks, pads = _left_padded(prompts, p)
+    target = _check_model(max_seq_len=seq)
+    pages = 4 * -(-seq // CHECK_PAGE) + 1
+    paged = _check_model(max_seq_len=seq, kv_pages=pages,
+                         kv_page_size=CHECK_PAGE)
+    with torch.no_grad():
+        want = generate(target, None, toks, max_new_tokens=n,
+                        pad_len=pads)[:, p:].tolist()
+    drafts = {"self": target,
+              "independent": _check_model(SPEC_DRAFT, layers=2, seed=1,
+                                          max_seq_len=seq)}
+    report = []
+    for dname, draft in drafts.items():
+        totals = {"rounds": 0, "drafted": 0, "accepted": 0}
+        for r in range(len(prompts)):
+            got, st = speculative_generate(
+                target, None, draft, None, toks[r:r + 1], max_new_tokens=n,
+                k=k, pad_len=pads[r:r + 1])
+            if got[0, p:].tolist() != want[r]:
+                fail(f"speculative_generate ({dname} draft) differs from "
+                     f"greedy generate on prompt {r} (f32)")
+            for key in totals:
+                totals[key] += st[key]
+        if dname == "self" and totals["accepted"] != totals["drafted"]:
+            fail(f"self-draft: accepted {totals['accepted']} of "
+                 f"{totals['drafted']} drafted, want all")
+        lock = {}
+        for tname, tm in (("dense", target), ("paged", paged)):
+            dec = SlotDecoder(tm, None, slots=2, prompt_len=p,
+                              max_new_tokens=n, draft_model=draft, draft_k=k)
+            try:
+                got = _decode_all(dec, prompts)
+                st = dec.stats()
+                if tname == "paged":
+                    dec.alloc.check()
+            finally:
+                dec.close()
+            if got != want:
+                fail(f"lockstep slot decoder ({dname} draft, {tname} "
+                     "target) differs from greedy generate (f32)")
+            lock[tname] = (f"{st['spec_tokens_accepted']}/"
+                           f"{st['spec_drafted']}")
+        report.append(f"{dname} draft: batch-1 {totals['accepted']}/"
+                      f"{totals['drafted']} accepted in {totals['rounds']} "
+                      f"rounds, lockstep dense {lock['dense']}, paged "
+                      f"{lock['paged']}")
+    print(f"speculative check ({SERVE['model']} width, {CHECK_LAYERS} layers, "
+          f"f32, k {k}, {len(prompts)} prompts, P {p}, N {n}): batch-1 and "
+          f"lockstep dense/paged == greedy generate; {'; '.join(report)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del target, paged, drafts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def near_tie_witness(spec_outs: list, plain_outs: list) -> str:
+    """Why bf16 speculative rows differ from plain greedy ones: phase
+    13b's bf16 int8 target, built again from its seed as
+    serve_lm_generator builds it, prefills each differing row's
+    left-padded prompt plus the tokens both runs share, and reads the
+    top-1 minus top-2 logit margin at every step up to the first
+    difference. A near tie has a margin far below the steps that agree,
+    and the two runs' tokens are its top two."""
+    import torch
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.generate import init_cache
+    from kubeflow_tpu_torch.serve_bench import bench_prompts
+    from kubeflow_tpu_torch.serving.quant import QuantizedModel, quantize_params
+
+    sv = SERVE
+    prompts = bench_prompts(len(spec_outs), sv["prompt_len"], sv["vocab"])
+    base = get_model(sv["model"], device="cuda", seed=0,
+                     vocab_size=sv["vocab"],
+                     max_seq_len=sv["prompt_len"] + sv["max_new"] + SPEC_K)
+    model = QuantizedModel(base)
+    with torch.no_grad():
+        params = quantize_params(
+            {k: v.detach() for k, v in base.state_dict().items()},
+            base.cfg.head_dim)
+    at_diff, before, top_two, rows = [], [], 0, 0
+    for prompt, a, b in zip(prompts, spec_outs, plain_outs):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        rows += 1
+        pad = sv["prompt_len"] - len(prompt)
+        toks = torch.tensor([[0] * pad + prompt + b[:j]], device="cuda")
+        with torch.no_grad():
+            logits = model.apply(
+                params, toks, decode_index=0,
+                pad_len=torch.tensor([pad], device="cuda"),
+                cache=init_cache(model, 1))[0, sv["prompt_len"] - 1:]
+        top = logits.float().topk(2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).tolist()
+        at_diff.append(margin[j])
+        before.extend(margin[:j])
+        top_two += set(top.indices[j].tolist()) == {a[j], b[j]}
+    del base, model, params
+    if not rows:
+        return "no row differs"
+
+    def median(xs: list) -> float:
+        return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+    return (f"{rows} of {len(spec_outs)} rows differ; at the first "
+            f"difference the bf16 target's top-1 - top-2 logit margin is "
+            f"median {median(at_diff):.4f} (max {max(at_diff):.4f}) against "
+            f"median {median(before):.4f} over the {len(before)} agreeing "
+            f"steps before it; the two runs' tokens are that forward's top "
+            f"two on {top_two} of {rows} rows")
+
+
+def speculative_pinned_f32() -> str:
+    """Phase 13b's point computed in f32 (TF32 off): SERVE's model at
+    full depth with int8 weights, SPEC_REQUESTS prompts of up to 511
+    tokens on as many busy slots, the SPEC_DRAFT int8 draft with k
+    SPEC_K. The speculative server's tokens must equal a plain greedy
+    server's on the same weights, token for token."""
+    import torch
+
+    from kubeflow_tpu_torch.serve_bench import (
+        bench_prompts, closed_loop, spec_stats)
+    from kubeflow_tpu_torch.serving.server import serve_lm_generator
+
+    sv = SERVE
+    prompts = bench_prompts(SPEC_REQUESTS, sv["prompt_len"], sv["vocab"])
+    outs, st = {}, {}
+    for arm, extra in (("plain", {}), ("speculative", {
+            "draft_model": SPEC_DRAFT, "draft_k": SPEC_K})):
+        served = serve_lm_generator(
+            arm, sv["model"], prompt_len=sv["prompt_len"],
+            max_new_tokens=sv["max_new"], continuous_batching=True,
+            decode_slots=sv["slots"], param_dtype=sv["param_dtype"],
+            vocab_size=sv["vocab"], seed=0, device="cuda", dtype="float32",
+            **extra)
+        try:
+            _, outs[arm], _ = closed_loop(
+                lambda q: served.predict([{"tokens": q}])[0], prompts,
+                SPEC_REQUESTS)
+            if extra:
+                st = spec_stats(served.decoder().stats())
+        finally:
+            served.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    bad = [r for r, (a, b) in enumerate(zip(outs["speculative"],
+                                            outs["plain"])) if a != b]
+    if bad:
+        fail(f"speculative pinned f32: rows {bad} differ from plain greedy "
+             "serving")
+    return (f"{len(prompts)} requests x {sv['max_new']} tokens equal plain "
+            f"greedy (f32, TF32 off); acceptance "
+            f"{st['spec_tokens_accepted']}/{st['spec_drafted']} in "
+            f"{st['spec_rounds']} slot-rounds")
+
+
+def router_phase() -> None:
+    """Two port ModelServer replicas on the card (gpt-350m width,
+    CHECK_LAYERS layers, f32, continuous batching, paged cache) behind
+    the port's RouterFrontend over HttpTransport: ROUTER_REQUESTS
+    concurrent predicts; both replicas serve, every response equals a
+    direct call of a replica on the same prompt, and the router's queue
+    depth and in-flight tokens return to 0."""
+    import concurrent.futures as cf
+    import urllib.request
+
+    import torch
+
+    from kubeflow_tpu_torch.runtime.metrics import REGISTRY
+    from kubeflow_tpu_torch.serving import router as R
+    from kubeflow_tpu_torch.serving.server import (
+        ModelServer, serve_lm_generator)
+
+    t0 = time.perf_counter()
+    slots = 8
+    pages = slots * -(-(ROUTER_P + ROUTER_N) // CHECK_PAGE) + 1
+    replicas = []
+    for _ in range(2):
+        srv = ModelServer()
+        srv.register(serve_lm_generator(
+            "lm", SERVE["model"], prompt_len=ROUTER_P,
+            max_new_tokens=ROUTER_N, continuous_batching=True,
+            decode_slots=slots, kv_pages=pages, kv_page_size=CHECK_PAGE,
+            vocab_size=SERVE["vocab"], n_layers=CHECK_LAYERS,
+            dtype="float32", seed=0, device="cuda"))
+        replicas.append((srv, srv.serve(host="127.0.0.1", port=0)
+                         .serve_background()))
+    counts: dict = {}
+
+    class Counting:
+        def __init__(self, inner, name):
+            self.inner, self.name = inner, name
+
+        def predict(self, model, body, headers=None):
+            counts[self.name] = counts.get(self.name, 0) + 1
+            return self.inner.predict(model, body, headers)
+
+    router = R.TokenRouter(service="chip", namespace="smoke", max_queue=64,
+                           replica_token_budget=slots * (ROUTER_P + ROUTER_N))
+    router.sync_endpoints(
+        [{"name": f"replica-{i}", "addr": f"http://127.0.0.1:{svc.port}",
+          "state": R.STATE_ACTIVE} for i, (_, svc) in enumerate(replicas)],
+        transport_factory=lambda ep: Counting(R.HttpTransport(ep["addr"]),
+                                              ep["name"]))
+    front = R.RouterFrontend(router, max_new_tokens=ROUTER_N)
+    fsvc = front.serve(host="127.0.0.1", port=0).serve_background()
+    rng = random.Random(4)
+    prompts = [[rng.randrange(1, SERVE["vocab"])
+                for _ in range(rng.randrange(4, ROUTER_P))]
+               for _ in range(ROUTER_REQUESTS)]
+
+    def post(port: int, prompt: list[int]) -> list[int]:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/models/lm:predict",
+            data=json.dumps({"instances": [{"tokens": prompt}]}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())["predictions"][0]
+
+    try:
+        t1 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=ROUTER_REQUESTS) as pool:
+            routed = list(pool.map(lambda pr: post(fsvc.port, pr), prompts))
+        routed_s = time.perf_counter() - t1
+        direct = [post(replicas[0][1].port, pr) for pr in prompts]
+    finally:
+        fsvc.shutdown()
+        for srv, svc in replicas:
+            svc.shutdown()
+            srv.close()
+    if routed != direct:
+        same = sum(a == b for a, b in zip(routed, direct))
+        fail(f"router: {same} of {len(prompts)} routed responses equal a "
+             "direct call (f32)")
+    if len(counts) != 2 or sum(counts.values()) != len(prompts):
+        fail(f"router: dispatches by replica {counts}, want both of 2 "
+             f"serving {len(prompts)} requests")
+    sig = R.RegistrySignals(REGISTRY)
+    depth = sig.queue_depth("smoke", "chip")
+    inflight = sig.inflight_tokens("smoke", "chip")
+    if depth != 0 or inflight != 0 or router.queue_depth() != 0:
+        fail(f"router: router_queue_depth {depth}, in-flight tokens "
+             f"{inflight} after the run, want 0")
+    print(f"router: 2 replicas ({SERVE['model']} width, {CHECK_LAYERS} "
+          f"layers, f32, paged) behind RouterFrontend, {len(prompts)} "
+          f"concurrent predicts in {routed_s:.2f} s, dispatches {counts}, "
+          "every response == a direct replica call, router_queue_depth 0; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -885,33 +1373,81 @@ def main() -> int:
         fail(f"build log names kernels {sorted(ptxas)}, want "
              f"{sorted(fa.LAUNCHES)}")
 
-    rows = kernel_phase(fa, ptxas)
-    torch.cuda.empty_cache()
-    head_check()
-    torch.cuda.empty_cache()
-    reference_check()
-    torch.cuda.empty_cache()
-    remat_check(fa)
-    launches = {}
-    for tag, cfg in (("adamw", ADAMW_PATH), ("pinned", MAIN_PATH)):
-        launches[tag] = main_path(fa, _build, cfg, tag)
+    phase_s = {}
+
+    def timed_phase(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[name] = round(time.perf_counter() - t, 1)
+        print(f"phase {name}: {phase_s[name]} s", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
-    grad_accum_check(fa)
-    gc.collect()
-    torch.cuda.empty_cache()
+        return out
+
+    rows = timed_phase("kernels", kernel_phase, fa, ptxas)
+    timed_phase("head", head_check)
+    timed_phase("reference", reference_check)
+    launches = {}
+    launches["entry"], at_entry = timed_phase("entry", entry_phase, fa)
+    timed_phase("remat", remat_check, fa)
+    for tag, cfg in (("adamw", ADAMW_PATH), ("pinned", MAIN_PATH)):
+        launches[tag] = timed_phase(f"main path {tag}", main_path, fa,
+                                    _build, cfg, tag)
+    timed_phase("grad accumulation", grad_accum_check, fa)
     for tag, cfg in (("pinned", MAIN_PATH), ("adamw", ADAMW_PATH)):
-        profile_phase(cfg, tag)
-    serving_check()
-    # the serving path runs no flash kernel (decode attends by bmm over
-    # the cache); its counts are read like every path's
+        timed_phase(f"profile {tag}", profile_phase, cfg, tag)
+    timed_phase("serving check", serving_check)
+    # the serving paths run no flash kernel (decode attends by bmm over
+    # the cache); their counts are read like every path's
     fa.reset_launches()
-    serving_pinned(card)
+    _, plain_outs = timed_phase("pinned serving", serving_pinned, card,
+                                cache_bytes=DENSE_CACHE_BYTES)
     launches["serving"] = dict(fa.LAUNCHES)
+    timed_phase("rolling check", rolling_check)
+    fa.reset_launches()
+    timed_phase("rolling pinned", serving_pinned, card, tag="rolling pinned",
+                cache_bytes=ROLLING_CACHE_BYTES,
+                attention_window=ROLLING_WINDOW, rolling_kv_cache=True)
+    launches["rolling"] = dict(fa.LAUNCHES)
+    timed_phase("speculative check", speculative_check)
+    fa.reset_launches()
+    spec, spec_outs = timed_phase(
+        "speculative pinned", serving_pinned, card, tag="speculative pinned",
+        requests=SPEC_REQUESTS, warm=False, profile=False,
+        cache_bytes=DENSE_CACHE_BYTES + 24 * 2 * 16 * SPEC_K * 16 * 64 * 2,
+        draft_model=SPEC_DRAFT, draft_k=SPEC_K)
+    launches["speculative"] = dict(fa.LAUNCHES)
+    # bf16: a near-tie argmax can go either way between the verify chunk
+    # and a single tick, so the share equal to plain greedy is printed
+    pairs = [(a, b) for ra, rb in zip(spec_outs, plain_outs)
+             for a, b in zip(ra, rb)]
+    print(f"speculative pinned: acceptance {spec['acceptance_rate']:.4f} "
+          f"({spec['spec_tokens_accepted']}/{spec['spec_drafted']}), "
+          f"{spec['spec_rounds']} slot-rounds, "
+          f"{spec['tokens_per_sec']:.1f} tokens/s, p50 "
+          f"{spec['p50_ms']:.0f} ms, p95 {spec['p95_ms']:.0f} ms, peak "
+          f"{spec['peak_mem_gb']:.2f} GB; tokens equal to plain greedy "
+          f"(bf16, not held): {sum(a == b for a, b in pairs) / len(pairs):.3f}",
+          flush=True)
+    print("speculative pinned witness: " + timed_phase(
+        "speculative witness", near_tie_witness, spec_outs,
+        plain_outs[:SPEC_REQUESTS]), flush=True)
+    print("speculative pinned f32: " + timed_phase(
+        "speculative pinned f32", speculative_pinned_f32), flush=True)
+    fa.reset_launches()
+    timed_phase("router", router_phase)
+    launches["router"] = dict(fa.LAUNCHES)
+    for name in ("rolling", "speculative", "router", "serving"):
+        if any(launches[name].values()):
+            fail(f"the {name} path launched flash kernels "
+                 f"{launches[name]}: decode attends by bmm over the cache")
     for row in rows:
         row["launches"] = launches["pinned"][row["name"]]
         row["launches_by_path"] = {t: n[row["name"]]
                                    for t, n in launches.items()}
+        if row["name"] == "flash_fwd":
+            row["at_entry_shape"] = at_entry
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

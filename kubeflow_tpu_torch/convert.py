@@ -128,3 +128,24 @@ def quantized_to_flax(params: Mapping[str, Any], head_dim: int
             out[path] = p.detach().cpu().float().reshape(view).permute(
                 perm).numpy()
     return out
+
+
+def port_cache_to_flax(cache: Mapping[str, torch.Tensor]) -> dict:
+    """The reverse of `flax_cache_to_port`: the port's flat cache dict
+    as a nested flax cache tree of numpy arrays, dtypes kept (bf16 as
+    ml_dtypes' bfloat16). Dense, rolling ([B, W, Hkv, D] with int8
+    scales) and paged caches alike."""
+    tree: dict = {}
+    for name, t in cache.items():
+        *parents, leaf = name.split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            node[leaf] = t.float().numpy().astype(ml_dtypes.bfloat16)
+        else:
+            node[leaf] = t.numpy()
+    return tree

@@ -14,12 +14,12 @@ dots, mlp, slim, and `<policy>@K` for the first K blocks); see
 Decode (`forward(..., decode_index=, cache=)`) runs the reference's
 KV-cache paths: the dense cache (scalar, per-row and per-row chunk
 writes), its int8 variant with the scales applied to the scores and
-folded into the probabilities, and the paged pool with page 0 as the
-trash page. The cache is explicit state, a flat dict of per-layer
-tensors under the flax names (`layer_3/attn/cached_key`), written in
-place. The rolling-window cache, ring/Ulysses attention, MoE and
-pipeline stages are not ported yet and raise NotImplementedError
-naming their ROADMAP item.
+folded into the probabilities, the rolling-window cache (W slots,
+attend then write), and the paged pool with page 0 as the trash page.
+The cache is explicit state, a flat dict of per-layer tensors under the
+flax names (`layer_3/attn/cached_key`), written in place. Ring/Ulysses
+attention, MoE and pipeline stages are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -183,25 +183,30 @@ class Decode:
     cache: dict[str, torch.Tensor]
 
 
+def rolling_window(cfg: TransformerConfig) -> int:
+    """W, the positions a rolling cache keeps: min(window, max_seq).
+    Refuses a rolling cache without a window, as the reference does."""
+    if not cfg.attention_window:
+        raise ValueError("rolling_kv_cache requires attention_window > 0")
+    return min(cfg.attention_window, cfg.max_seq_len)
+
+
 def decode_cache_shapes(cfg: TransformerConfig, batch: int
                         ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """Shape and dtype of each dense decode-cache tensor, by flax name:
-    [B, max_seq, Hkv, D] keys and values in the model dtype, or int8
-    codes plus f32 [B, max_seq, Hkv, 1] scales under kv_cache_dtype
-    int8."""
-    if cfg.rolling_kv_cache:
-        raise NotImplementedError(
-            "the rolling-window KV cache is not ported yet (ROADMAP Queue "
-            "1, slice 2, item 7)")
+    [B, S, Hkv, D] keys and values in the model dtype, or int8 codes
+    plus f32 [B, S, Hkv, 1] scales under kv_cache_dtype int8. S is
+    max_seq, or W (`rolling_window`) for the rolling cache."""
+    s = rolling_window(cfg) if cfg.rolling_kv_cache else cfg.max_seq_len
     if cfg.kv_cache_dtype not in ("auto", "int8"):
         raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r} "
                          "(auto|int8)")
     quant = cfg.kv_cache_dtype == "int8"
-    kv = (batch, cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
     leaves = {"cached_key": (kv, torch.int8 if quant else cfg.dtype),
               "cached_value": (kv, torch.int8 if quant else cfg.dtype)}
     if quant:
-        sc = (batch, cfg.max_seq_len, cfg.n_kv_heads, 1)
+        sc = (batch, s, cfg.n_kv_heads, 1)
         leaves.update(cached_key_scale=(sc, torch.float32),
                       cached_value_scale=(sc, torch.float32))
     return {f"layer_{i}/attn/{k}": v for i in range(cfg.n_layers)
@@ -262,6 +267,36 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, idx) -> None:
     buf.copy_(torch.where(hit, upd, buf))
 
 
+def _grouped_scores(q: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """f32 scores of q [B, Lq, H, D] against keys [B, S, Hkv, D], scaled
+    by D^-0.5, as [B, Hkv, G, Lq, S]: the query heads grouped per kv
+    head, so k is never repeated."""
+    b, lq, h, d = q.shape
+    s, hkv = keys.shape[1], keys.shape[2]
+    g = h // hkv
+    qg = q.reshape(b, lq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
+        b * hkv, g * lq, d)
+    kt = keys.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
+    return _bmm_f32(qg, kt).view(b, hkv, g, lq, s) * (d ** -0.5)
+
+
+def _grouped_mix(probs: torch.Tensor, vals: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """probs [B, Hkv, G, Lq, S] (cast to `dtype`) times vals
+    [B, S, Hkv, D] -> [B, Hkv, G, Lq, D]."""
+    b, hkv, g, lq, s = probs.shape
+    d = vals.shape[-1]
+    vt = vals.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
+    out = torch.bmm(probs.to(dtype).reshape(b * hkv, g * lq, s), vt)
+    return out.view(b, hkv, g, lq, d)
+
+
+def _ungroup(out: torch.Tensor) -> torch.Tensor:
+    """[B, Hkv, G, Lq, D] -> [B, Lq, H, D]."""
+    b, hkv, g, lq, d = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, lq, hkv * g, d)
+
+
 def cache_attention(q, k_all, v_all, qpos, pad_len, window: int,
                     dtype: torch.dtype, k_scale=None, v_scale=None):
     """Masked attention of q [B, Lq, H, D] over a cache view k_all/v_all
@@ -271,16 +306,10 @@ def cache_attention(q, k_all, v_all, qpos, pad_len, window: int,
     s > qpos - window (window > 0) and s >= pad_len. The fill is -1e30.
     With an int8 cache, k_scale/v_scale ([B, Hkv, 1, 1, S]) multiply
     the scores and fold into the probabilities."""
-    b, lq, h, d = q.shape
-    s, hkv = k_all.shape[1], k_all.shape[2]
-    g = h // hkv
-    qg = q.reshape(b, lq, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(
-        b * hkv, g * lq, d)
-    kt = k_all.permute(0, 2, 3, 1).reshape(b * hkv, d, s)
-    logits = _bmm_f32(qg, kt).view(b, hkv, g, lq, s) * (d ** -0.5)
+    logits = _grouped_scores(q, k_all)
     if k_scale is not None:
         logits = logits * k_scale
-    pos = torch.arange(s, device=q.device)
+    pos = torch.arange(k_all.shape[1], device=q.device)
     qp = qpos[:, None, None, :, None]
     mask = pos <= qp
     if window:
@@ -290,10 +319,7 @@ def cache_attention(q, k_all, v_all, qpos, pad_len, window: int,
     probs = torch.softmax(torch.where(mask, logits, NEG_FILL), dim=-1)
     if v_scale is not None:
         probs = probs * v_scale
-    vt = v_all.permute(0, 2, 1, 3).reshape(b * hkv, s, d)
-    out = torch.bmm(probs.to(dtype).reshape(b * hkv, g * lq, s), vt)
-    return out.view(b, hkv, g, lq, d).permute(0, 3, 1, 2, 4).reshape(
-        b, lq, h, d)
+    return _ungroup(_grouped_mix(probs, v_all, dtype))
 
 
 class Attention(nn.Module):
@@ -343,13 +369,11 @@ class Attention(nn.Module):
                     "paged decode supports kv_cache_dtype='auto' only "
                     "(int8 page pools are not composed yet)")
             return self._decode_paged(q, k, v, dec)
-        if cfg.rolling_kv_cache:
-            raise NotImplementedError(
-                "the rolling-window KV cache is not ported yet (ROADMAP "
-                "Queue 1, slice 2, item 7)")
         if cfg.kv_cache_dtype not in ("auto", "int8"):
             raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r} "
                              "(auto|int8)")
+        if cfg.rolling_kv_cache:
+            return self._decode_rolling(q, k, v, dec, rolling_window(cfg))
         p, cache = self.cache_prefix, dec.cache
         ck, cv = cache[p + "cached_key"], cache[p + "cached_value"]
         quant = cfg.kv_cache_dtype == "int8"
@@ -376,6 +400,90 @@ class Attention(nn.Module):
                 _kv_scale_rows(cvs))
         return cache_attention(q, ck, cv, qpos, dec.pad_len,
                                cfg.attention_window, cfg.dtype)
+
+    def _decode_rolling(self, q, k, v, dec: Decode, w: int):
+        """The rolling cache: slot = position % W keeps the last W
+        positions. Attention reads the OLD cache plus the chunk's own k/v,
+        and the chunk is written afterwards: a write may overwrite slot
+        p - W while an earlier row of the chunk still needs it. Under
+        int8 the chunk is quantized before it attends, so its in-chunk
+        term sees the same round trip as a later cache read."""
+        cfg = self.cfg
+        b, lq = q.shape[:2]
+        p, cache = self.cache_prefix, dec.cache
+        ck, cv = cache[p + "cached_key"], cache[p + "cached_value"]
+        quant = cfg.kv_cache_dtype == "int8"
+        if quant:
+            cks = cache[p + "cached_key_scale"]
+            cvs = cache[p + "cached_value_scale"]
+            k_old, v_old = ck.to(cfg.dtype), cv.to(cfg.dtype)
+            ksc, vsc = _kv_scale_rows(cks), _kv_scale_rows(cvs)
+            k_w, ks_w = symmetric_int8(k, -1)
+            v_w, vs_w = symmetric_int8(v, -1)
+            k_c, v_c = k_w.to(cfg.dtype), v_w.to(cfg.dtype)
+        else:
+            k_old, v_old = ck, cv
+            k_w, v_w = k.to(cfg.dtype), v.to(cfg.dtype)
+            k_c, v_c = k_w, v_w
+        # the old-cache term [b, hkv, g, lq, W], the in-chunk term [..., lq]
+        lc, ls = _grouped_scores(q, k_old), _grouped_scores(q, k_c)
+        if quant:
+            lc = lc * ksc
+            ls = ls * _kv_scale_rows(ks_w)
+        dev = q.device
+        slots = torch.arange(w, device=dev)
+        cols = torch.arange(lq, device=dev)
+        idx, pad = dec.index, dec.pad_len
+        if isinstance(idx, int):
+            # query row r sits at idx + r; each slot holds the largest
+            # position <= idx - 1 of its residue (negative: never written)
+            qpos = idx + cols
+            pos_abs = (idx - 1) - ((idx - 1 - slots) % w)          # [W]
+            mc = ((pos_abs[None, :] >= 0)
+                  & (pos_abs[None, :] > qpos[:, None] - w))[None]   # [1, lq, W]
+            ms = ((cols[None, :] <= cols[:, None])
+                  & (cols[None, :] > cols[:, None] - w))[None]      # [1, lq, lq]
+            if pad is not None:
+                mc = mc & (pos_abs[None, None, :] >= pad[:, None, None])
+                ms = ms & (qpos[None, None, :] >= pad[:, None, None])
+        else:
+            if lq != 1:
+                raise ValueError(
+                    "rolling_kv_cache vector decode is single-token "
+                    f"(got chunk width {lq}); speculative/paged chunks "
+                    "need the full or paged cache")
+            cur_old = idx[:, None] - 1
+            pos_abs = cur_old - ((cur_old - slots[None, :]) % w)   # [b, W]
+            mc = ((pos_abs >= 0) & (pos_abs > idx[:, None] - w))[:, None]
+            ms = torch.ones((b, 1, 1), dtype=torch.bool, device=dev)
+            if pad is not None:
+                mc = mc & (pos_abs[:, None, :] >= pad[:, None, None])
+                ms = ms & (idx[:, None, None] >= pad[:, None, None])
+        lc = torch.where(mc[:, None, None], lc, NEG_FILL)
+        ls = torch.where(ms[:, None, None], ls, NEG_FILL)
+        probs = torch.softmax(torch.cat([lc, ls], dim=-1), dim=-1)
+        pc, ps = probs[..., :w], probs[..., w:]
+        if quant:
+            pc = pc * vsc
+            ps = ps * _kv_scale_rows(vs_w)
+        out = _ungroup(_grouped_mix(pc, v_old, cfg.dtype)
+                       + _grouped_mix(ps, v_c, cfg.dtype))
+        # write the (already quantized) chunk after attending
+        writes = [(ck, k_w), (cv, v_w)]
+        if quant:
+            writes += [(cks, ks_w), (cvs, vs_w)]
+        if isinstance(idx, int):
+            # only the last W columns survive a wrap; their slots differ
+            alive = cols[max(lq - w, 0):]
+            at = (idx + alive) % w
+            for buf, new in writes:
+                buf[:, at] = new[:, alive]
+        else:
+            rows = torch.arange(b, device=dev)
+            at = idx % w
+            for buf, new in writes:
+                buf[rows, at] = new[:, 0]
+        return out
 
     def _decode_paged(self, q, k, v, dec: Decode):
         """Scatter the chunk to (table[pos // PS], pos % PS), then gather

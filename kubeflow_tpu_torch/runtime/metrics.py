@@ -169,6 +169,19 @@ class MetricsRegistry:
         out.append(f"{name}_sum{suffix} {hist.sum}")
         out.append(f"{name}_count{suffix} {hist.count}")
 
+    def series(self, name: str) -> list[tuple[dict, float]]:
+        """One scalar metric's samples as (labels, value) pairs, the
+        in-process read of the router's RegistrySignals (no render and
+        parse of the whole exposition). Histograms are skipped: read
+        those through render()."""
+        with self._lock:
+            entry = self._metrics.get(name)
+            if entry is None:
+                return []
+            return [(dict(key), float(value))
+                    for key, value in entry[2].items()
+                    if not isinstance(value, _Histogram)]
+
     def render(self) -> str:
         out = []
         with self._lock:

@@ -5,6 +5,8 @@
         [--model gpt-350m] [--requests 32] [--concurrency 16] [--slots 16]
         [--prompt-len 512] [--max-new-tokens 64] [--param-dtype int8]
         [--kv-pages 0 --kv-page-size 0] [--kv-cache-dtype int8]
+        [--attention-window 256 --rolling-kv-cache]
+        [--self-draft]
         [--device cpu]
 
 The defaults are the serving point `tools/serve_best.json` pins for the
@@ -18,6 +20,11 @@ predicts in flight until `--requests` are done. Prints one JSON line
 per mode with run_mode's fields, plus the peak device memory, the
 decode cache's bytes and the card's name and power limit. Runs on the
 card unless `--device cpu` is given (then no device figure is printed).
+
+Speculative arm: `--self-draft` serves with the target's own weights as
+the draft (k = SELF_DRAFT_K, the reference arm's), a draft that agrees
+with every greedy pick: the tokens-per-forward ceiling. It adds the
+acceptance counters to the line.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ import sys
 import threading
 import time
 from typing import Callable
+
+# tokens the self-draft proposes per round: tools/serve_bench.py's draft_k
+SELF_DRAFT_K = 4
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -48,6 +58,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--kv-pages", type=int, default=0)
     p.add_argument("--kv-page-size", type=int, default=0)
     p.add_argument("--kv-cache-dtype", default="", choices=["", "auto", "int8"])
+    p.add_argument("--attention-window", type=int, default=0,
+                   help="sliding-window width of the served model (0: full "
+                        "causal)")
+    p.add_argument("--rolling-kv-cache", action="store_true",
+                   help="bound the KV cache to the window (O(window) memory "
+                        "and per-step cache stream)")
+    p.add_argument("--self-draft", action="store_true",
+                   help="draft = the target's own weights (the acceptance "
+                        "ceiling)")
     p.add_argument("--modes", default="continuous")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -126,6 +145,11 @@ def summary(mode: str, args: argparse.Namespace, latencies: list[float],
         "param_dtype": args.param_dtype or "f32",
         **({"kv_cache_dtype": args.kv_cache_dtype}
            if args.kv_cache_dtype else {}),
+        **({"attention_window": args.attention_window,
+            "rolling_kv_cache": args.rolling_kv_cache}
+           if args.attention_window else {}),
+        **({"draft_model": args.model, "draft_k": SELF_DRAFT_K}
+           if args.self_draft else {}),
     }
 
 
@@ -141,6 +165,15 @@ def card() -> str:
 def served_model(mode: str, args: argparse.Namespace):
     from kubeflow_tpu_torch.serving.server import serve_lm_generator
 
+    spec = {}
+    if args.self_draft:
+        from kubeflow_tpu_torch.models.registry import get_model
+
+        # the target's own weights: the same registry draw from the seed
+        spec = {"draft_model": args.model, "draft_k": SELF_DRAFT_K,
+                "draft_state_dict": get_model(
+                    args.model, device=args.device, seed=args.seed,
+                    vocab_size=args.vocab_size).state_dict()}
     return serve_lm_generator(
         "bench", args.model, prompt_len=args.prompt_len,
         max_new_tokens=args.max_new_tokens,
@@ -152,7 +185,11 @@ def served_model(mode: str, args: argparse.Namespace):
         param_dtype=args.param_dtype or None,
         vocab_size=args.vocab_size,
         **({"kv_cache_dtype": args.kv_cache_dtype}
-           if args.kv_cache_dtype else {}))
+           if args.kv_cache_dtype else {}),
+        **({"attention_window": args.attention_window}
+           if args.attention_window else {}),
+        **({"rolling_kv_cache": True} if args.rolling_kv_cache else {}),
+        **spec)
 
 
 def warm_up(predict: Callable[[list], list], prompts: list[list[int]],
@@ -187,7 +224,10 @@ def run_mode(mode: str, args: argparse.Namespace) -> dict:
         result = summary(mode, args, latencies, wall)
         dec = served.decoder()
         if dec is not None:
-            result["cache_bytes"] = dec.stats()["cache_bytes"]
+            stats = dec.stats()
+            result["cache_bytes"] = stats["cache_bytes"]
+            if stats["speculative"]:
+                result.update(spec_stats(stats))
         if on_card:
             result["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
             result["device"] = torch.cuda.get_device_name(0)
@@ -197,6 +237,22 @@ def run_mode(mode: str, args: argparse.Namespace) -> dict:
         return result
     finally:
         served.close()
+
+
+SPEC_KEYS = ("spec_rounds", "spec_tokens_emitted", "spec_tokens_accepted",
+             "spec_drafted")
+
+
+def spec_stats(stats: dict) -> dict:
+    """The lockstep decoder's speculative counters, with the acceptance
+    rate (accepted / drafted) and tokens per target forward (emitted /
+    slot-rounds)."""
+    out = {k: stats[k] for k in SPEC_KEYS}
+    out["acceptance_rate"] = (stats["spec_tokens_accepted"]
+                              / max(stats["spec_drafted"], 1))
+    out["tokens_per_round"] = (stats["spec_tokens_emitted"]
+                               / max(stats["spec_rounds"], 1))
+    return out
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -1,5 +1,5 @@
 """Continuous batching for LM serving: slot-based lockstep decode (port
-of kubeflow_tpu/serving/continuous.py, dense and paged modes).
+of kubeflow_tpu/serving/continuous.py: dense, paged and speculative).
 
 A fixed pool of S slots decodes in lockstep, one token per slot per
 tick, each slot at its own position (the model's per-row
@@ -13,13 +13,18 @@ generation never holds a short one back.
 - paged (the model was built with kv_pages / kv_page_size): a
   PageAllocator gates admission on free pages, prompts reuse shared
   prefix pages, and each admission prefills only its uncached suffix.
+- speculative (`draft_model` given; greedy only, dense or paged target,
+  dense draft): each round the draft proposes draft_k tokens for every
+  busy slot and the target verifies every slot's chunk in one
+  [S, draft_k + 1] forward; each slot accepts its own prefix, and the
+  tokens equal plain greedy decode (runtime/speculative.py).
 
 The state (cache, last logits, positions, budgets, output columns,
 pads, the sampling generator) lives on the device and is updated in
 place by each call; a call that fails leaves it unknown, so the loop
 fails every waiter and rebuilds it fresh. Params are an argument of
-every call, never captured. Speculative decoding (`draft_model`) and
-mesh serving raise NotImplementedError with their ROADMAP item.
+every call, never captured. Mesh serving raises NotImplementedError
+with its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -47,6 +52,12 @@ from kubeflow_tpu_torch.runtime.kvcache import (
     pages_for,
 )
 from kubeflow_tpu_torch.runtime.metrics import REGISTRY as METRICS_REGISTRY
+from kubeflow_tpu_torch.runtime.speculative import (
+    check_speculative_models,
+    greedy_accept,
+    lockstep_propose,
+    lockstep_verify,
+)
 from kubeflow_tpu_torch.serving.router import DeadlineExceeded
 
 log = logging.getLogger("kubeflow_tpu_torch.serving.continuous")
@@ -91,6 +102,18 @@ class _DecodeMeter:
                   "(prefix reuse drives this below tokens submitted)",
             model=self.model)
 
+    def spec_round(self, slots: int, accepted: int) -> None:
+        self.registry.counter_inc(
+            "serving_spec_rounds_total", by=float(slots),
+            help_="speculative verify forwards, one per active slot "
+                  "per round (tokens emitted / rounds = tokens per "
+                  "target forward)", model=self.model)
+        # inc by zero keeps the series visible when nothing is accepted
+        self.registry.counter_inc(
+            "serving_spec_tokens_accepted_total", by=float(accepted),
+            help_="draft tokens accepted by the target verify",
+            model=self.model)
+
 
 @dataclasses.dataclass
 class DecodeState:
@@ -125,11 +148,6 @@ class SlotDecoder:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP Queue 1, slice 4)")
-        if draft_model is not None:
-            raise NotImplementedError(
-                "speculative lockstep decode is not ported yet (ROADMAP "
-                "Queue 1, slice 2, item 11)")
-        del draft_variables, draft_k
         self.model = model
         self.S = slots
         self.P = prompt_len
@@ -141,8 +159,27 @@ class SlotDecoder:
         # absolute deadlines of submit() are values of this clock
         self.clock = clock if clock is not None else time.monotonic
         self.paged = bool(getattr(model.cfg, "kv_pages", 0))
-        check_decode_geometry(model, prompt_len, max_new_tokens)
-        self._total_len = prompt_len + max_new_tokens
+        self.spec = draft_model is not None
+        self.draft_k = draft_k if self.spec else 0
+        check_decode_geometry(model, prompt_len,
+                              max_new_tokens + self.draft_k)
+        if self.spec:
+            if temperature != 0.0:
+                raise ValueError("speculative lockstep decode is "
+                                 "greedy-only (temperature must be 0)")
+            if draft_k < 1:
+                raise ValueError("draft_k must be >= 1")
+            check_speculative_models(model, draft_model)
+            if getattr(draft_model.cfg, "kv_pages", 0):
+                raise ValueError("the draft model keeps a dense cache "
+                                 "(build it without kv_pages)")
+            check_decode_geometry(draft_model, prompt_len,
+                                  max_new_tokens + draft_k)
+            self.draft = draft_model
+            self._d_params = draft_variables
+        # a slot's longest sequence: prompt, budget, and the verify
+        # chunk's overhang past the last token
+        self._total_len = prompt_len + max_new_tokens + self.draft_k
         if self.paged:
             cfg = model.cfg
             self.page_size = cfg.kv_page_size
@@ -161,13 +198,21 @@ class SlotDecoder:
         self._counters = {
             "admitted": 0, "completed": 0, "peak_active": 0,
             "prefill_tokens_computed": 0, "prompt_tokens_submitted": 0,
+            "spec_rounds": 0, "spec_tokens_emitted": 0,
+            "spec_tokens_accepted": 0, "spec_drafted": 0,
             "deadline_canceled": 0,
         }
         self._params = params
         self._cols = torch.arange(self.N, device=self.device)
-        self.state = self._fresh_state()
+        if self.spec:
+            self.t_cache = self._fresh_cache()
+            self.d_cache = init_cache(self.draft, self.S)
+            target_cache = self.t_cache
+        else:
+            self.state = self._fresh_state()
+            target_cache = self.state.cache
         self._cache_bytes = sum(t.numel() * t.element_size()
-                                for t in self.state.cache.values())
+                                for t in target_cache.values())
         # prefill batch sizes (the smallest >= the waiting count is used)
         self._PREFILL_SIZES = tuple(sorted(
             {n for n in (1, 2, 4, 8, 16, 32) if n < self.S} | {self.S}))
@@ -179,8 +224,9 @@ class SlotDecoder:
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
-        self._thread = threading.Thread(target=self._loop, daemon=True,
-                                        name="slot-decoder")
+        self._thread = threading.Thread(
+            target=self._loop_spec if self.spec else self._loop,
+            daemon=True, name="slot-decoder")
         self._thread.start()
 
     # -- device state and calls (each updates the state in place) -------
@@ -324,7 +370,7 @@ class SlotDecoder:
         """Host counters (deterministic)."""
         out = dict(self._counters)
         out["mode"] = "paged" if self.paged else "dense"
-        out["speculative"] = False
+        out["speculative"] = self.spec
         out["cache_bytes"] = self._cache_bytes
         if self.paged:
             out.update(
@@ -605,3 +651,198 @@ class SlotDecoder:
                 self.meter.prefix_hits(plan.shared_pages)
             self._publish_pages()
             admitted += 1
+
+    # -- speculative lockstep loop ---------------------------------------
+
+    def _row_install(self, big: dict, row: dict, slot: int) -> None:
+        for name, t in big.items():
+            t[slot] = row[name][0].to(t.dtype)
+
+    def _spec_admit(self, prompt, pad: int, slot: int, plan=None) -> int:
+        """Prefill the target (dense: a 1-row cache installed into the
+        slot's row; paged: the uncached suffix into its pages) and the
+        draft (a 1-row cache into its row); returns the first token, the
+        target's greedy pick after the prompt."""
+        row = self._ids(prompt[None, :])
+        pad_t = self._ids([pad])
+        if self.paged:
+            if plan.copies:
+                copy_pages(self.t_cache, *self._cow_arrays(plan.copies))
+            logits = self.model.apply(
+                self._params, row[:, plan.compute_start:],
+                decode_index=self._ids([plan.compute_start]), pad_len=pad_t,
+                page_table=torch.as_tensor(self.alloc.table[slot:slot + 1],
+                                           device=self.device),
+                cache=self.t_cache)[:, -1]
+        else:
+            tc1, logits = prefill_scan(self.model, self._params,
+                                       init_cache(self.model, 1), row, pad_t)
+            self._row_install(self.t_cache, tc1, slot)
+        dc1, _ = prefill_scan(self.draft, self._d_params,
+                              init_cache(self.draft, 1), row, pad_t)
+        self._row_install(self.d_cache, dc1, slot)
+        return int(torch.argmax(logits[0], dim=-1))
+
+    def _loop_spec(self) -> None:
+        with torch.no_grad():
+            self._run_spec()
+
+    def _run_spec(self) -> None:
+        k = self.draft_k
+        k1 = k + 1
+        owners: dict[int, tuple] = {}    # slot -> (ev, sink, req, deadline)
+        out_h: dict[int, list] = {}      # slot -> emitted tokens
+        ebuf: dict[int, list] = {}       # slot -> last round's emissions
+        pos_h = np.zeros(self.S, np.int64)   # position of each slot's cur
+        rem_h = np.zeros(self.S, np.int64)
+        pads_h = np.zeros(self.S, np.int64)
+
+        def fail_all(err, batch=()):
+            for _p, _pad, _req, ev, sink, _dl in batch:
+                sink.append(err)
+                ev.set()
+            for ev, sink, _req, _dl in list(owners.values()):
+                sink.append(err)
+                ev.set()
+            owners.clear()
+            out_h.clear()
+            ebuf.clear()
+            self._free = list(range(self.S))
+            if self.alloc is not None:
+                self.alloc.reset()
+            self.t_cache = self._fresh_cache()
+            self.d_cache = init_cache(self.draft, self.S)
+
+        def complete(slot: int) -> None:
+            ev, sink, _req, _dl = owners.pop(slot)
+            sink.extend(out_h.pop(slot))
+            ebuf.pop(slot, None)
+            ev.set()
+            self._free.append(slot)
+            self._counters["completed"] += 1
+            if self.paged:
+                self.alloc.free(slot)
+            self._publish_pages()
+
+        def admit() -> None:
+            want = 1 if owners else self.S
+            admitted = 0
+            while admitted < want and self._free:
+                item = self._next_pending()
+                if item is None:
+                    return
+                if not self._validate(item):
+                    continue
+                prompt, pad, req, ev, sink, dl = item
+                row = [int(t) for t in prompt]
+                total = self.P + req + k
+                if self.paged and not self.alloc.can_admit(row, pad, total):
+                    self._carry = item
+                    return
+                slot = self._free.pop()
+                try:
+                    plan = (self.alloc.admit(slot, row, pad, total)
+                            if self.paged else None)
+                    first = self._spec_admit(prompt, pad, slot, plan)
+                except Exception as e:
+                    if self.paged:
+                        self.alloc.free(slot)
+                    self._free.append(slot)
+                    fail_all(e, [item])
+                    return
+                n_pref = self.P - plan.compute_start if plan else self.P
+                owners[slot] = (ev, sink, req, dl)
+                out_h[slot] = [first]
+                ebuf[slot] = [first]
+                pos_h[slot] = self.P
+                rem_h[slot] = req - 1
+                pads_h[slot] = pad
+                self._counters["admitted"] += 1
+                self._counters["prefill_tokens_computed"] += n_pref
+                self._counters["prompt_tokens_submitted"] += self.P
+                if self.meter:
+                    self.meter.prefill_tokens(n_pref)
+                    if self.paged:
+                        self.meter.prefix_hits(plan.shared_pages)
+                self._publish_pages()
+                if rem_h[slot] <= 0:
+                    complete(slot)     # the prefill's token was the budget
+                else:
+                    admitted += 1
+
+        while not self._stop:
+            try:
+                admit()
+                # a cancelled slot's mirrors are dropped: later rounds
+                # never emit for it, its cache rows are dead
+                expired = self._expired_slots(owners)
+                for s_ in expired:
+                    self._cancel_slot(owners, s_)
+                    out_h.pop(s_, None)
+                    ebuf.pop(s_, None)
+                    rem_h[s_] = 0
+                if expired:
+                    self._publish_pages()
+                self._note_active(owners)
+                if not owners:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+                    continue
+                # one propose/verify round over every busy slot
+                order = sorted(owners)
+                emitted = np.zeros((self.S, k1), np.int64)
+                starts = np.zeros(self.S, np.int64)
+                elen = np.ones(self.S, np.int64)
+                curv = np.zeros(self.S, np.int64)
+                for s_ in order:
+                    e = ebuf[s_]
+                    emitted[s_, :len(e)] = e
+                    starts[s_] = pos_h[s_] - len(e) + 1
+                    elen[s_] = len(e)
+                    curv[s_] = e[-1]
+                    if self.paged:
+                        # the verify writes positions pos .. pos + k
+                        self.alloc.append(s_, int(pos_h[s_]) + k1)
+                        copies = self.alloc.write_barrier(
+                            s_, int(pos_h[s_]), int(pos_h[s_]) + k1)
+                        if copies:
+                            copy_pages(self.t_cache,
+                                       *self._cow_arrays(copies))
+                pads_dev = self._ids(pads_h)
+                props = lockstep_propose(
+                    self.draft, self._d_params, self.d_cache,
+                    self._ids(emitted), self._ids(starts), self._ids(elen),
+                    k=k, pad_len=pads_dev)
+                chunk = torch.cat([self._ids(curv)[:, None], props], dim=1)
+                pt = (torch.as_tensor(self.alloc.table, device=self.device)
+                      if self.paged else None)
+                y = lockstep_verify(self.model, self._params, self.t_cache,
+                                    chunk, self._ids(pos_h), pad_len=pads_dev,
+                                    page_table=pt)
+                props_h = props.cpu().numpy()
+                y_h = y.cpu().numpy()
+                round_accepted = 0
+                for s_ in order:
+                    a = greedy_accept(props_h[s_], y_h[s_], k)
+                    emit = [int(t) for t in props_h[s_][:a]]
+                    emit.append(int(y_h[s_][a]))
+                    take = min(len(emit), int(rem_h[s_]))
+                    emit = emit[:take]
+                    out_h[s_].extend(emit)
+                    ebuf[s_] = emit
+                    pos_h[s_] += take
+                    rem_h[s_] -= take
+                    round_accepted += min(a, take)
+                    self._counters["spec_rounds"] += 1
+                    self._counters["spec_tokens_emitted"] += take
+                    self._counters["spec_tokens_accepted"] += min(a, take)
+                    self._counters["spec_drafted"] += k
+                    if rem_h[s_] <= 0:
+                        complete(s_)
+                if self.meter:
+                    self.meter.spec_round(len(order), round_accepted)
+                self._note_active(owners)
+            except Exception as e:     # a broken call: fail waiters, rebuild
+                log.exception("speculative slot-decoder loop failed")
+                fail_all(e)
+        self._drain_shutdown(owners)

@@ -12,17 +12,22 @@ Endpoints:
 `serve_lm_generator` serves a registry LM: prompts are left-padded or
 trimmed to `prompt_len` and decoded for `max_new_tokens` by generate()
 (optionally micro-batched, batches padded to a power of two) or by the
-continuous SlotDecoder (dense or paged). Weights are random from `seed`
-on the device (cuda unless device="cpu"), then cast or quantized per
-`param_dtype`. Not ported yet, each raising NotImplementedError with its
-ROADMAP item: the classifier server (`--model`, slice 5), checkpoint
-restore (slice 3), mesh serving (slice 4), speculative decoding (slice
-2 item 11) and the rolling KV cache (slice 2 item 7).
+continuous SlotDecoder (dense, paged or rolling cache). With
+`draft_model` a draft LM speeds greedy decode up: batch-1 rounds per row
+(runtime/speculative.py), or lockstep rounds over the slots under
+continuous batching; the tokens equal plain greedy decode. Weights are
+random from `seed` (the draft's from `seed + 1`) on the device (cuda
+unless device="cpu"), then cast or quantized per `param_dtype`. Not
+ported yet, each raising NotImplementedError with its ROADMAP item: the
+classifier server (`--model`, slice 5), checkpoint restore (slice 3,
+item 14) and mesh serving (slice 4).
 
 Usage:
     python -m kubeflow_tpu_torch.serving --lm chat=gpt-350m \\
         --prompt-len 512 --max-new-tokens 64 --param-dtype int8 \\
         --continuous-batching --decode-slots 16 [--device cpu]
+        [--draft-model gpt-125m --draft-k 4]
+        [--attention-window 256 --rolling-kv-cache]
 """
 
 from __future__ import annotations
@@ -130,6 +135,25 @@ class _ReplicaMeter:
 
 
 REPLICA_METER = _ReplicaMeter()
+
+
+def speculative_counters(registry=METRICS_REGISTRY):
+    """(drafted, accepted): each adds n to its counter for a model, the
+    batch-1 speculative path's acceptance signal."""
+
+    def drafted(model: str, n: int) -> None:
+        registry.counter_inc("serving_speculative_drafted_total",
+                             by=float(n), help_="draft tokens proposed",
+                             model=model)
+
+    def accepted(model: str, n: int) -> None:
+        registry.counter_inc(
+            "serving_speculative_accepted_total", by=float(n),
+            help_="draft tokens accepted by the target (accepted/drafted "
+                  "= acceptance rate; low rates mean the draft is "
+                  "wasting rounds)", model=model)
+
+    return drafted, accepted
 
 
 def _generated_tokens(result: list, signature: dict) -> int:
@@ -533,9 +557,12 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
                        prefix_cache: bool = True,
                        param_dtype: str | None = None,
                        draft_model: str | None = None,
+                       draft_checkpoint_dir: str | None = None,
+                       draft_k: int = 4,
                        max_inflight: int = 0,
                        device: str | torch.device | None = None,
                        state_dict: dict[str, torch.Tensor] | None = None,
+                       draft_state_dict: dict[str, torch.Tensor] | None = None,
                        **model_kwargs) -> ServedModel:
     """A generative ServedModel over a registry LM. Instances are
     `{"tokens": [int, ...]}` (optionally with `"max_new_tokens"`, on all
@@ -544,26 +571,23 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
     only. A token out of [0, vocab) or a budget out of
     [1, max_new_tokens] is a 400.
 
-    `state_dict` is a test seam: weights to load in place of the random
-    ones (e.g. a flax tree through `convert.flax_to_state_dict`)."""
+    `state_dict` and `draft_state_dict` are test seams: weights to load
+    in place of the random ones (e.g. a flax tree through
+    `convert.flax_to_state_dict`). The draft is the registry config with
+    the target's max_seq_len and vocab_size, on the target's device,
+    cast or quantized like the target."""
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.runtime.generate import generate
 
-    if checkpoint_dir:
+    if checkpoint_dir or draft_checkpoint_dir:
         raise NotImplementedError(
             "checkpoint restore is not ported yet (ROADMAP Queue 1, "
             "slice 3, item 14)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh serving is not ported yet (ROADMAP Queue 1, slice 4)")
-    if draft_model:
-        raise NotImplementedError(
-            "speculative decoding is not ported yet (ROADMAP Queue 1, "
-            "slice 2, item 11)")
-    if model_kwargs.get("rolling_kv_cache"):
-        raise NotImplementedError(
-            "the rolling-window KV cache is not ported yet (ROADMAP Queue "
-            "1, slice 2, item 7)")
+    # the verify chunk writes up to draft_k positions past the last token
+    seq_budget = prompt_len + max_new_tokens + (draft_k if draft_model else 0)
     if kv_pages and not continuous_batching:
         raise ValueError("kv_pages (the paged KV cache) requires "
                          "continuous_batching: the page pool is shared "
@@ -574,9 +598,23 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
         model_kwargs = dict(model_kwargs, kv_pages=kv_pages,
                             kv_page_size=kv_page_size)
     base = get_model(model_name, device=device, seed=seed,
-                     max_seq_len=prompt_len + max_new_tokens, **model_kwargs)
+                     max_seq_len=seq_budget, **model_kwargs)
     if state_dict is not None:
         base.load_state_dict(state_dict, strict=True)
+    rolling = base.cfg.rolling_kv_cache
+    if draft_model:
+        if temperature > 0:
+            raise ValueError("speculative decoding is greedy-only "
+                             "(temperature must be 0)")
+        if rolling:
+            # refused at registration: the per-request guard would fail
+            # every decode on a server that reported healthy
+            raise ValueError("speculative decoding requires the full KV "
+                             "cache (rolling_kv_cache evicts positions a "
+                             "rejected draft must rewind over)")
+    if kv_pages and rolling:
+        raise ValueError("the paged KV cache is exclusive with "
+                         "rolling_kv_cache")
     model = base
     quantized = param_dtype in ("int8", "int4")
     if quantized:
@@ -593,6 +631,33 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
     request_seed = itertools.count(seed).__next__
     decoder_box: list = []       # the SlotDecoder, built on first use
     decoder_lock = threading.Lock()
+    draft_box: list = []         # (draft model, its params), on first use
+    draft_lock = threading.Lock()
+
+    def draft():
+        """The draft model and its params, built once: random from
+        seed + 1 (or draft_state_dict), cast or quantized like the
+        target's."""
+        with draft_lock:
+            if not draft_box:
+                # the draft shares the target's vocabulary: its
+                # proposals are fed to the target's embedding (the
+                # reference's gather clamps a foreign id, torch raises)
+                dbase = get_model(draft_model, device=dev, seed=seed + 1,
+                                  max_seq_len=seq_budget, vocab_size=vocab)
+                if draft_state_dict is not None:
+                    dbase.load_state_dict(draft_state_dict, strict=True)
+                dm = dbase
+                if quantized:
+                    from kubeflow_tpu_torch.serving.quant import QuantizedModel
+
+                    dm = QuantizedModel(dbase)
+                with torch.no_grad():
+                    dparams = _prepare_serving_params(
+                        {k: v.detach() for k, v in dbase.state_dict().items()},
+                        param_dtype, dbase.cfg.head_dim)
+                draft_box.extend([dm, dparams])
+            return draft_box[0], draft_box[1]
 
     def validated_rows(toks):
         rows, pad_lens = [], []
@@ -639,11 +704,14 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
 
         with decoder_lock:      # concurrent first requests: one decoder
             if not decoder_box:
+                dm, dparams = draft() if draft_model else (None, None)
                 decoder_box.append(SlotDecoder(
                     model, params, slots=decode_slots,
                     prompt_len=prompt_len, max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k, seed=seed,
-                    prefix_cache=prefix_cache, metrics_name=name))
+                    prefix_cache=prefix_cache, draft_model=dm,
+                    draft_variables=dparams, draft_k=draft_k,
+                    metrics_name=name))
             return decoder_box[0]
 
     def predict(batch):
@@ -663,6 +731,26 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
             if len({len(o) for o in outs}) > 1:
                 return [list(o) for o in outs]
             return np.asarray(outs, dtype=np.int64)
+        if draft_model:
+            # batch-1 rounds per row (accept lengths are data-dependent);
+            # concurrency comes from the micro-batcher
+            from kubeflow_tpu_torch.runtime.speculative import (
+                speculative_generate)
+
+            dm, dparams = draft()
+            count_drafted, count_accepted = speculative_counters()
+            outs = []
+            for r, pad in zip(rows, pad_lens):
+                toks, stats = speculative_generate(
+                    model, params, dm, dparams,
+                    torch.tensor([r], dtype=torch.long, device=dev),
+                    max_new_tokens=max_new_tokens, k=draft_k,
+                    pad_len=torch.tensor([pad], dtype=torch.long,
+                                         device=dev))
+                count_drafted(name, stats["drafted"])
+                count_accepted(name, stats["accepted"])
+                outs.append(toks[0, prompt_len:].cpu().numpy())
+            return capped_rows(np.stack(outs), maxnews)
         out = generate(
             model, params, torch.as_tensor(rows, dtype=torch.long,
                                            device=dev),
@@ -673,8 +761,10 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
 
     served = ServedModel(
         name=name, predict_fn=predict,
-        # the slot decoder takes ragged batches as they are
-        pad_batches=not continuous_batching,
+        # the slot decoder takes ragged batches as they are, and the
+        # speculative path decodes row by row: pow2 padding would only
+        # decode phantom rows
+        pad_batches=not (continuous_batching or draft_model),
         batch_window_ms=batch_window_ms, max_batch=max_batch,
         max_inflight=max_inflight,
         signature={"inputs": "tokens", "method_name": "generate",
@@ -685,7 +775,9 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
                       if continuous_batching else {}),
                    **({"kv_pages": kv_pages, "kv_page_size": kv_page_size,
                        "prefix_cache": prefix_cache} if kv_pages else {}),
-                   **({"param_dtype": param_dtype} if param_dtype else {})})
+                   **({"param_dtype": param_dtype} if param_dtype else {}),
+                   **({"draft_model": draft_model, "draft_k": draft_k}
+                      if draft_model else {})})
     served.decoder = lambda: decoder_box[0] if decoder_box else None
     orig_close = served.close
 
@@ -715,11 +807,20 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--max-new-tokens", type=int, default=32)
     p.add_argument("--param-dtype", default=None,
                    choices=["bfloat16", "float32", "int8", "int4"])
-    p.add_argument("--attention-window", type=int, default=0)
+    p.add_argument("--attention-window", type=int, default=0,
+                   help="sliding-window attention width (0: full causal)")
     p.add_argument("--rolling-kv-cache", action="store_true",
-                   help="not ported yet")
+                   help="bound the decode KV cache to the attention window "
+                        "(slot = position %% window); needs "
+                        "--attention-window")
     p.add_argument("--kv-cache-dtype", default=None, choices=["auto", "int8"])
-    p.add_argument("--draft-model", default=None, help="not ported yet")
+    p.add_argument("--draft-model", default=None,
+                   help="registry LM that drafts k tokens per round for "
+                        "speculative decoding (greedy only; its weights "
+                        "are random from seed + 1)")
+    p.add_argument("--draft-k", type=int, default=4)
+    p.add_argument("--draft-checkpoint-dir", default=None,
+                   help="draft checkpoint to restore (not ported yet)")
     p.add_argument("--max-inflight", type=int, default=0)
     p.add_argument("--continuous-batching", action="store_true")
     p.add_argument("--decode-slots", type=int, default=8)
@@ -750,7 +851,9 @@ def main(argv: list[str] | None = None) -> int:
                 param_dtype=args.param_dtype,
                 max_inflight=args.max_inflight,
                 checkpoint_dir=ckpt or args.checkpoint_dir,
-                draft_model=args.draft_model, device=args.device,
+                draft_model=args.draft_model, draft_k=args.draft_k,
+                draft_checkpoint_dir=args.draft_checkpoint_dir,
+                device=args.device,
                 **({"kv_cache_dtype": args.kv_cache_dtype}
                    if args.kv_cache_dtype else {}),
                 **({"attention_window": args.attention_window}

@@ -303,8 +303,11 @@ def test_refused_geometry_and_unported_modes(lm):
     with pytest.raises(ValueError, match="kv_pages"):
         SlotDecoder(torch_model(lm[2], kv_pages=3, kv_page_size=4), None,
                     slots=2, prompt_len=P, max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="speculative"):
-        SlotDecoder(tm, None, draft_model=tm)
+    # speculative lockstep is ported; a paged draft is refused, as in
+    # the reference
+    with pytest.raises(ValueError, match="dense cache"):
+        SlotDecoder(tm, None, slots=2, prompt_len=P, max_new_tokens=4,
+                    draft_model=torch_model(lm[2], **PAGED))
     with pytest.raises(NotImplementedError, match="mesh"):
         SlotDecoder(tm, None, mesh=object())
     assert torch.is_grad_enabled()

@@ -210,8 +210,8 @@ def test_paged_one_past_the_table_clamps_to_trash():
 
 def test_unported_and_invalid_decode_paths_raise():
     tm = get_model("transformer-test", device="cpu", rolling_kv_cache=True,
-                   attention_window=4, max_seq_len=16)
-    with pytest.raises(NotImplementedError, match="rolling"):
+                   max_seq_len=16)
+    with pytest.raises(ValueError, match="attention_window"):
         init_cache(tm, 1)
     tm = get_model("transformer-test", device="cpu", max_seq_len=16)
     with pytest.raises(ValueError, match="cache="):

@@ -81,6 +81,8 @@ CASES = [
     # head_dim 128 at the main path's full shape (llama-1b widths: 16
     # heads of 128, 4 kv heads, batch 8, seq 2048)
     (8, 2048, 2048, 16, 4, 128, True, 0, False),
+    # the entry() forward's shape (gpt-125m: 12 q heads = 12 kv heads)
+    (2, 256, 256, 12, 12, 64, True, 0, False),
 ]
 
 

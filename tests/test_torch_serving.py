@@ -255,12 +255,24 @@ def test_cast_params_and_unported_options(weights):
     assert cast["a"].dtype == torch.bfloat16 and cast["i"].dtype == torch.int32
     with pytest.raises(ValueError, match="floating"):
         S.cast_params({}, "int8")
-    for kw, match in ((dict(draft_model="gpt-125m"), "speculative"),
-                      (dict(mesh={"model": 2}), "mesh"),
+    for kw, match in ((dict(mesh={"model": 2}), "mesh"),
                       (dict(checkpoint_dir="/nonexistent"), "checkpoint"),
-                      (dict(rolling_kv_cache=True, attention_window=4),
-                       "rolling")):
+                      (dict(draft_model="transformer-test",
+                            draft_checkpoint_dir="/nonexistent"),
+                       "checkpoint")):
         with pytest.raises(NotImplementedError, match=match):
+            port(weights, **kw)
+    # speculative decoding and the rolling cache are ported: what the
+    # reference refuses at registration, the port refuses the same way
+    for kw, match in ((dict(draft_model="transformer-test",
+                            rolling_kv_cache=True, attention_window=4),
+                       "full KV cache"),
+                      (dict(draft_model="transformer-test", temperature=0.7),
+                       "greedy-only"),
+                      (dict(rolling_kv_cache=True, attention_window=4,
+                            continuous_batching=True, kv_pages=8,
+                            kv_page_size=4), "exclusive")):
+        with pytest.raises(ValueError, match=match):
             port(weights, **kw)
     with pytest.raises(ValueError, match="continuous_batching"):
         port(weights, kv_pages=8, kv_page_size=4)

@@ -100,9 +100,10 @@ def test_unported_paths_raise():
                dict(attention_impl="ring"), dict(pipeline_stages=2)):
         with pytest.raises(NotImplementedError):
             T.TransformerConfig(**kw)
-    tm = get_model("transformer-test", device="cpu", rolling_kv_cache=True,
-                   attention_window=4)
-    with pytest.raises(NotImplementedError):
+    # the rolling cache is ported; without a window it is refused, as
+    # in the reference
+    tm = get_model("transformer-test", device="cpu", rolling_kv_cache=True)
+    with pytest.raises(ValueError, match="attention_window"):
         tm(torch.zeros(1, 8, dtype=torch.long), decode_index=0, cache={})
 
 
