@@ -115,15 +115,52 @@
    RouterFrontend over HttpTransport, 16 concurrent predicts: both
    replicas serve, every response equals a direct replica call, and
    router_queue_depth returns to 0.
+15. Resume (run after phase 8): the training runtime at the pinned
+   point through `python -m kubeflow_tpu_torch.runtime.launcher` as a
+   subprocess, under an injected TRACEPARENT with KFTPU_TRACE_FILE set
+   and CUBLAS_WORKSPACE_CONFIG=:4096:8. Packed KFR1 shards from numpy
+   draws (documents of 64-3000 tokens packed at seq 2048 with
+   `pack_documents`, 8 batches over two shards, and an eval shard of 2
+   batches) read by the native loader (`RecordDataset(native=True)`,
+   g++-built) through the Prefetcher, so segment ids reach the flash
+   kernels; shuffle_buffer 16, checkpoint_every 2, keep 2, eval every 3
+   steps over 2 batches, a profiler window at step 2. Run A is SIGTERMed
+   after its "step 3" line: exit 75, a strictly valid summary with
+   "preempted", the preempted step on disk and in manifest.json, the
+   profile naming the three flash kernels. Run B resumes it to step 6:
+   start_step that step, exit 0, a finite eval with smoke 0. Run C
+   trains 6 steps straight in a fresh directory. B's final parameters
+   are held to C's per row within 1e-2, the final losses within 1e-3
+   relative (the largest difference is printed); every run launches
+   each kernel 16 times a step and the forward 16 more per eval batch
+   (read from each launcher's log line); each trace dump is one tree
+   (worker under the injected parent, train.fit under worker,
+   train.step and train.checkpoint inside). Prints the checkpoint's
+   bytes, the seconds each save blocks the loop and writes in the
+   background, the restore's seconds, the step time on shards against
+   phase 6's synthetic one, and the seconds a restart spends skipping
+   10,000 consumed batches before its first step (token_batches over the
+   looped shards, and the record reader alone).
+16. Serve from checkpoint: `serve_lm_generator(checkpoint_dir=` run B's
+   `)` on llama-1b, continuous batching, 4 slots, 4 greedy requests of
+   32 new tokens, against generate() on the params `restore_params`
+   reads: in f32 (TF32 off) the tokens are equal; in bf16 the share of
+   equal tokens is printed and a row may differ only at a near tie: the
+   two runs' tokens the top two of that forward, and its top-1 minus
+   top-2 margin under 0.25x the median margin of the agreeing steps.
+   A draft checkpoint directory with no step fails registration. The
+   checkpoints are removed at the end.
 Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
 `{"kernels": [...]}` record (`launches`: the pinned main path's count,
-`launches_by_path`: each path's: the training paths, entry, and the
-serving, rolling, speculative and router paths, which must run none of
-them; the flash forward's row also holds its figures at the entry
-shape) and the card; the last line is
-`{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc` and no network.
+`launches_by_path`: each path's: the training paths, entry, `resume`
+(run B: 16 a step of each kernel, 16 more forwards per eval batch), and
+the serving, rolling, speculative, router and checkpoint-serving paths,
+which must run none of them; the flash forward's row also holds its
+figures at the entry shape) and the card; the last line is
+`{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
+no network.
 """
 
 from __future__ import annotations
@@ -134,9 +171,11 @@ import io
 import json
 import math
 import random
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # llama-1b attention at the training operating point
 B, L, H, HKV, D = 8, 2048, 32, 8, 64
@@ -426,9 +465,10 @@ def remat_check(fa) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path(fa, _build, cfg: dict, tag: str) -> dict:
+def main_path(fa, _build, cfg: dict, tag: str) -> tuple[dict, float]:
     """Train `cfg` through the port launcher; every kernel must launch
-    once per layer per step and the loss be finite."""
+    once per layer per step and the loss be finite. Returns the launches
+    and the mean metered step time (s)."""
     from kubeflow_tpu_torch.runtime import launcher
 
     path = _build.build_dir() / f"chip_smoke_{tag}.json"
@@ -459,7 +499,7 @@ def main_path(fa, _build, cfg: dict, tag: str) -> dict:
           f"{summary['step_time_s'] * 1e3:.1f} ms, {tokens_s:.0f} tokens/s, "
           f"mfu {'n/a' if mfu is None else f'{mfu:.4f}'}, final loss "
           f"{loss:.4f}, launches {launches}", flush=True)
-    return launches
+    return launches, summary["step_time_s"]
 
 
 def grad_accum_check(fa) -> None:
@@ -1139,6 +1179,44 @@ def speculative_check() -> None:
     torch.cuda.empty_cache()
 
 
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2] if xs else float("nan")
+
+
+def _first_difference_margins(model, params, toks, pads, got: list,
+                              want: list) -> tuple[list, list, int, int]:
+    """The near-tie reading of rows where `got` departs from `want`:
+    `model` prefills row r's left-padded prompt (`toks[r]`, `pads[r]`)
+    plus the tokens both runs share and takes the top-1 minus top-2
+    logit margin at every step up to the first difference. Returns the
+    margins at the first differences, the margins of the agreeing steps
+    before them, on how many rows the two runs' tokens are that
+    forward's top two, and how many rows differ."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.generate import init_cache
+
+    p = toks.shape[1]
+    at_diff, before, top_two, rows = [], [], 0, 0
+    for r, (a, b) in enumerate(zip(got, want)):
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        rows += 1
+        seq = torch.cat([toks[r:r + 1], torch.tensor(
+            [b[:j]], device=toks.device, dtype=toks.dtype)], 1)
+        with torch.no_grad():
+            logits = model.apply(params, seq, decode_index=0,
+                                 pad_len=pads[r:r + 1],
+                                 cache=init_cache(model, 1))[0, p - 1:]
+        top = logits.float().topk(2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).tolist()
+        at_diff.append(margin[j])
+        before.extend(margin[:j])
+        top_two += set(top.indices[j].tolist()) == {a[j], b[j]}
+    return at_diff, before, top_two, rows
+
+
 def near_tie_witness(spec_outs: list, plain_outs: list) -> str:
     """Why bf16 speculative rows differ from plain greedy ones: phase
     13b's bf16 int8 target, built again from its seed as
@@ -1150,7 +1228,6 @@ def near_tie_witness(spec_outs: list, plain_outs: list) -> str:
     import torch
 
     from kubeflow_tpu_torch.models.registry import get_model
-    from kubeflow_tpu_torch.runtime.generate import init_cache
     from kubeflow_tpu_torch.serve_bench import bench_prompts
     from kubeflow_tpu_torch.serving.quant import QuantizedModel, quantize_params
 
@@ -1164,35 +1241,16 @@ def near_tie_witness(spec_outs: list, plain_outs: list) -> str:
         params = quantize_params(
             {k: v.detach() for k, v in base.state_dict().items()},
             base.cfg.head_dim)
-    at_diff, before, top_two, rows = [], [], 0, 0
-    for prompt, a, b in zip(prompts, spec_outs, plain_outs):
-        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if j is None:
-            continue
-        rows += 1
-        pad = sv["prompt_len"] - len(prompt)
-        toks = torch.tensor([[0] * pad + prompt + b[:j]], device="cuda")
-        with torch.no_grad():
-            logits = model.apply(
-                params, toks, decode_index=0,
-                pad_len=torch.tensor([pad], device="cuda"),
-                cache=init_cache(model, 1))[0, sv["prompt_len"] - 1:]
-        top = logits.float().topk(2, dim=-1)
-        margin = (top.values[:, 0] - top.values[:, 1]).tolist()
-        at_diff.append(margin[j])
-        before.extend(margin[:j])
-        top_two += set(top.indices[j].tolist()) == {a[j], b[j]}
+    toks, pads = _left_padded(prompts, sv["prompt_len"])
+    at_diff, before, top_two, rows = _first_difference_margins(
+        model, params, toks, pads, spec_outs, plain_outs)
     del base, model, params
     if not rows:
         return "no row differs"
-
-    def median(xs: list) -> float:
-        return sorted(xs)[len(xs) // 2] if xs else float("nan")
-
     return (f"{rows} of {len(spec_outs)} rows differ; at the first "
             f"difference the bf16 target's top-1 - top-2 logit margin is "
-            f"median {median(at_diff):.4f} (max {max(at_diff):.4f}) against "
-            f"median {median(before):.4f} over the {len(before)} agreeing "
+            f"median {_median(at_diff):.4f} (max {max(at_diff):.4f}) against "
+            f"median {_median(before):.4f} over the {len(before)} agreeing "
             f"steps before it; the two runs' tokens are that forward's top "
             f"two on {top_two} of {rows} rows")
 
@@ -1337,6 +1395,435 @@ def router_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# -- phases 15-16: the training runtime through the launcher -----------------
+
+RESUME_STEPS, RESUME_EVAL_STEPS, RESUME_EVAL_EVERY = 6, 2, 3
+RESUME_SIGTERM_AFTER = 3          # "step 3" log line
+RESUME_LOSS_RTOL = 1e-3
+RESUME_DOC_TOKENS = (64, 3000)    # document lengths drawn for the shards
+RESUME_SKIP_BATCHES = 10_000      # batches a restart skips, timed alone
+TRACE_ROOT = ("0af7651916cd43dd8448eb211c80319c", "b7ad6b7169203331")
+SERVE_CKPT_SLOTS, SERVE_CKPT_P, SERVE_CKPT_N = 4, 64, 32
+# a bf16 row of phase 16 may differ from generate() only at a near tie:
+# its margin at the first difference under this share of the median
+# margin of the steps that agree, and the two tokens that forward's top two
+NEAR_TIE_RATIO = 0.25
+# what the profile window must show: each flash kernel by its name
+PROFILE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                   "flash_bwd_dkv_kernel")
+
+
+def _write_resume_shards(root) -> tuple[str, str]:
+    """Packed KFR1 shards from numpy draws: documents of 64-3000 tokens
+    packed at seq L, enough rows for 8 training batches over two shards,
+    and a separate eval shard of 2 batches (its own draw)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.runtime import records
+
+    def packed(seed: int, rows: int):
+        rng = np.random.default_rng(seed)
+        docs, tok = [], np.zeros((0, L + 1), np.int32)
+        while tok.shape[0] < rows:
+            lo, hi = RESUME_DOC_TOKENS
+            docs += [rng.integers(1, MAIN_PATH["vocab_size"], int(n),
+                                  dtype=np.int32)
+                     for n in rng.integers(lo, hi + 1, 16)]
+            tok, seg = records.pack_documents(docs, L)
+        return tok[:rows], seg[:rows]
+
+    tok, seg = packed(0, 8 * B)
+    half = tok.shape[0] // 2
+    for i, sl in enumerate((slice(0, half), slice(half, None))):
+        records.write_packed_token_shard(str(root / f"train-{i}.kfr"),
+                                         tok[sl], seg[sl])
+    tok, seg = packed(1, RESUME_EVAL_STEPS * B)
+    records.write_packed_token_shard(str(root / "eval.kfr"), tok, seg)
+    segments = int((seg > 0).sum()) / seg.size
+    return str(root / "train-*.kfr"), f"{segments:.3f} of eval positions in a document"
+
+
+def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None
+            ) -> dict:
+    """The port launcher as a subprocess on `cfg`, under an injected
+    TRACEPARENT, with its span dump in KFTPU_TRACE_FILE; SIGTERM after
+    its "step N" line when `sigterm_after` is given. Returns the exit
+    code, the output, the summary and the spans."""
+    import os
+    import re
+    import signal
+    import threading
+
+    from kubeflow_tpu_torch.obs import trace as obs_trace
+
+    cfg_path, trace_path = root / f"{tag}.json", root / f"{tag}.trace.jsonl"
+    cfg_path.write_text(json.dumps(cfg))
+    env = {**os.environ, "TRACEPARENT": f"00-{TRACE_ROOT[0]}-{TRACE_ROOT[1]}-01",
+           "KFTPU_TRACE_FILE": str(trace_path), "JAXRT_METRICS_PORT": "0",
+           # deterministic cuBLAS: a resumed run equals an uninterrupted one
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.runtime.launcher",
+         "--config", str(cfg_path)],
+        cwd=str(Path(__file__).resolve().parent), env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines, signalled = [], None
+    # a run that hangs without output is killed, so reading ends
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if (sigterm_after is not None and signalled is None
+                    and re.search(rf"\bstep {sigterm_after} loss=", line)):
+                proc.send_signal(signal.SIGTERM)
+                signalled = time.perf_counter() - t0
+        rc = proc.wait(timeout=600)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines)
+    wall = time.perf_counter() - t0
+    summary_lines = [ln for ln in lines if ln.startswith('{"summary"')]
+    if not summary_lines:
+        print(out[-6000:], flush=True)
+        fail(f"resume {tag}: exit {rc} with no summary line")
+    # strictly valid JSON: no bare NaN / Infinity
+    summary = json.loads(summary_lines[-1], parse_constant=lambda c: fail(
+        f"resume {tag}: summary holds {c}"))["summary"]
+    m = re.findall(r"flash kernel launches: (\{.*\})", out)
+    launches = json.loads(m[-1]) if m else None
+    spans = (obs_trace.read_jsonl(str(trace_path))
+             if trace_path.exists() else [])
+    return {"rc": rc, "out": out, "summary": summary, "launches": launches,
+            "spans": spans, "wall": wall, "signalled": signalled}
+
+
+def _check_trace(run: dict, tag: str) -> dict:
+    """The dump is one connected tree: worker under the injected parent,
+    train.fit under worker, train.step and train.checkpoint inside."""
+    from kubeflow_tpu_torch.obs import trace as obs_trace
+
+    spans = run["spans"]
+    by_name: dict[str, list] = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    workers, fits = by_name.get("worker", []), by_name.get("train.fit", [])
+    if len(workers) != 1 or workers[0].parent_id != TRACE_ROOT[1] or \
+            workers[0].trace_id != TRACE_ROOT[0]:
+        fail(f"resume {tag} trace: worker spans "
+             f"{[(w.trace_id, w.parent_id) for w in workers]}, want one "
+             f"under {TRACE_ROOT}")
+    if len(fits) != 1 or fits[0].parent_id != workers[0].span_id:
+        fail(f"resume {tag} trace: train.fit not under worker")
+    for name in ("train.step", "train.checkpoint"):
+        inside = [s for s in by_name.get(name, [])
+                  if s.parent_id == fits[0].span_id]
+        if not inside or len(inside) != len(by_name[name]):
+            fail(f"resume {tag} trace: {name} spans "
+                 f"{len(by_name.get(name, []))}, {len(inside)} under "
+                 "train.fit")
+    reach = obs_trace.reachable(spans, TRACE_ROOT[1])
+    if any(s.span_id not in reach for s in spans):
+        fail(f"resume {tag} trace: spans outside the injected tree")
+    return {name: len(v) for name, v in sorted(by_name.items())}
+
+
+def _want_launches(start: int, end: int, evals: int) -> dict:
+    steps = end - start
+    return {"flash_fwd": LAYERS * (steps + RESUME_EVAL_STEPS * evals),
+            "flash_bwd_dq": LAYERS * steps, "flash_bwd_dkv": LAYERS * steps}
+
+
+def _evals_in(start: int, end: int, every: int) -> int:
+    return sum(1 for s in range(start + 1, end + 1) if every and s % every == 0)
+
+
+def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
+    """Phase 15: the pinned main path at full width through the launcher
+    as a subprocess, on packed shards (segment ids reach the flash
+    kernels) through the native loader and the Prefetcher, with
+    checkpoints, evals, a profiler window and a SIGTERM: run A is
+    preempted after its "step 3" line, run B resumes it to step 6, run C
+    runs 6 steps straight; B is held to C. Returns run B's launches and
+    its checkpoint directory."""
+    import re
+
+    import torch
+
+    from kubeflow_tpu_torch.ops import kernel_check
+    from kubeflow_tpu_torch.runtime import checkpoint as ckpt_mod
+    from kubeflow_tpu_torch.runtime import records
+
+    t0 = time.perf_counter()
+    free_gb = shutil.disk_usage(root).free / 1e9
+    data_path, seg_note = _write_resume_shards(root)
+    ds = records.RecordDataset(sorted(map(str, root.glob("train-*.kfr"))), B,
+                               native=True)        # raises without g++
+    first = next(ds)
+    ds.close()
+    if not ds.native or first.shape != (B, 2 * 4 * (L + 1)):
+        fail(f"resume: native loader {ds.native}, batch {first.shape}")
+    cfg = {**MAIN_PATH, "data_path": data_path, "packed_data": True,
+           "shuffle_buffer": 16, "checkpoint_every": 2, "checkpoint_keep": 2,
+           "total_steps": RESUME_STEPS, "eval_every": RESUME_EVAL_EVERY,
+           "eval_steps": RESUME_EVAL_STEPS,
+           "eval_data_path": str(root / "eval.kfr"),
+           "checkpoint_dir": str(root / "ckpt"),
+           "profile_dir": str(root / "profile"), "profile_start_step": 2,
+           "profile_steps": 1}
+    print(f"resume: shards written ({seg_note}), native loader, "
+          f"{free_gb:.0f} GB free on the checkout's disk; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    a = _launch(cfg, root, "run_a", sigterm_after=RESUME_SIGTERM_AFTER)
+    m = re.search(r"preempted at step (\d+)", a["out"])
+    steps_a = ckpt_mod.list_steps(cfg["checkpoint_dir"])
+    manifest = json.loads((root / "ckpt" / "manifest.json").read_text())
+    if a["rc"] != 75 or not a["summary"].get("preempted") or not m:
+        print(a["out"][-6000:], flush=True)
+        fail(f"resume run A: exit {a['rc']} (want 75), summary "
+             f"{a['summary']}, SIGTERM at {a['signalled']}")
+    k = int(m.group(1))
+    if k < RESUME_SIGTERM_AFTER or k >= RESUME_STEPS or not steps_a or \
+            steps_a[-1] != k or manifest.get("latest_step") != k:
+        fail(f"resume run A: preempted at {k}, steps on disk {steps_a}, "
+             f"manifest {manifest}")
+    want_a = _want_launches(0, k, _evals_in(0, k, RESUME_EVAL_EVERY))
+    if a["launches"] != want_a:
+        fail(f"resume run A: launches {a['launches']}, want {want_a}")
+    tree_a = _check_trace(a, "A")
+    traces = sorted((root / "profile").glob("*.json"))
+    text = traces[0].read_text() if traces else ""
+    missing = [n for n in PROFILE_KERNELS if n not in text]
+    if len(traces) != 1 or missing:
+        fail(f"resume run A: profile {traces}, kernels missing {missing}")
+
+    b = _launch(cfg, root, "run_b")
+    sb = b["summary"]
+    ev = sb.get("eval") or {}
+    if b["rc"] != 0 or sb.get("start_step") != k or sb.get("steps") != \
+            RESUME_STEPS or "preempted" in sb:
+        print(b["out"][-6000:], flush=True)
+        fail(f"resume run B: exit {b['rc']}, summary {sb}, want start {k}")
+    if ev.get("smoke") != 0.0 or not all(
+            isinstance(ev.get(x), float) and math.isfinite(ev[x])
+            for x in ("loss", "accuracy", "perplexity")):
+        fail(f"resume run B: eval {ev}")
+    want_b = _want_launches(k, RESUME_STEPS,
+                            _evals_in(k, RESUME_STEPS, RESUME_EVAL_EVERY))
+    if b["launches"] != want_b:
+        fail(f"resume run B: launches {b['launches']}, want {want_b}")
+    tree_b = _check_trace(b, "B")
+
+    cfg_c = {**cfg, "checkpoint_dir": str(root / "ckpt_c"),
+             "checkpoint_every": 0, "eval_every": 0, "profile_dir": None}
+    c = _launch(cfg_c, root, "run_c")
+    if c["rc"] != 0 or c["summary"].get("start_step") != 0:
+        print(c["out"][-6000:], flush=True)
+        fail(f"resume run C: exit {c['rc']}, summary {c['summary']}")
+    want_c = _want_launches(0, RESUME_STEPS, 0)
+    if c["launches"] != want_c:
+        fail(f"resume run C: launches {c['launches']}, want {want_c}")
+
+    # run B's final parameters against run C's, per row
+    pb = torch.load(root / "ckpt" / str(RESUME_STEPS) / ckpt_mod.PARAMS_FILE,
+                    map_location="cuda", weights_only=True)["params"]
+    pc = torch.load(root / "ckpt_c" / str(RESUME_STEPS) / ckpt_mod.PARAMS_FILE,
+                    map_location="cuda", weights_only=True)["params"]
+    if set(pb) != set(pc):
+        fail("resume: runs B and C saved different parameters")
+    worst = (0.0, 0.0, "")
+    for name in sorted(pb):
+        g, w = pb[name].float(), pc[name].float()
+        g, w = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
+        e = check_rows(f"resume: run B vs run C {name}", g, w,
+                       kernel_check.ROW_TOL)
+        worst = max(worst, (e["max_row_err"], e["max_abs_err"], name))
+    lb, lc = sb["final"]["loss"], c["summary"]["final"]["loss"]
+    if not abs(lb - lc) <= RESUME_LOSS_RTOL * abs(lc):
+        fail(f"resume: final loss B {lb} vs C {lc}, beyond "
+             f"{RESUME_LOSS_RTOL} relative")
+    del pb, pc
+
+    # what a restart pays before its first step: fit skips the batches
+    # the earlier run consumed through token_batches, as run B did; timed
+    # here for RESUME_SKIP_BATCHES batches over the looped shards (so from
+    # the page cache: a cold disk's read rate comes on top), and through
+    # the record reader alone, without the per-batch token arrays
+    paths = sorted(map(str, root.glob("train-*.kfr")))
+    skip_s = {}
+    for how, it in (
+            ("token_batches", records.token_batches(
+                paths, B, L, shuffle_buffer=16, seed=0, loop=True,
+                segmented=True)),
+            ("records", records.RecordDataset(
+                paths, B, shuffle_buffer=16, loop=True, native=True))):
+        t = time.perf_counter()
+        for _ in range(RESUME_SKIP_BATCHES):
+            next(it)
+        skip_s[how] = time.perf_counter() - t
+        it.close()
+
+    def logged(run, pattern):
+        return [float(x) for x in re.findall(pattern, run["out"])]
+
+    nbytes = logged(a, r"queued save at step \d+ -> .* \((\d+) bytes")
+    blocking = [s.duration for run in (a, b) for s in run["spans"]
+                if s.name == "train.checkpoint"]
+    writes = logged(a, r"written in ([\d.]+) s") + \
+        logged(b, r"written in ([\d.]+) s")
+    restore_s = logged(b, r"restored step \d+ from .* in ([\d.]+) s")
+    figures = {
+        "preempted_at": k, "sigterm_after_s": a["signalled"],
+        "checkpoint_bytes": int(nbytes[0]) if nbytes else None,
+        "checkpoint_blocking_s": blocking,
+        "checkpoint_write_s": writes, "restore_s": restore_s,
+        "step_s_shards_prefetcher": c["summary"]["step_time_s"],
+        "step_s_synthetic_phase6": synthetic_step_s,
+        "resumed_vs_straight_max_row_err": worst[0],
+        "resumed_vs_straight_max_abs_diff": worst[1],
+        "resumed_vs_straight_worst_param": worst[2],
+        "final_loss_b_c": [lb, lc],
+        "eval": ev, "launches": {"A": a["launches"], "B": b["launches"],
+                                 "C": c["launches"]},
+        "spans": {"A": tree_a, "B": tree_b},
+        "wall_s": {"A": a["wall"], "B": b["wall"], "C": c["wall"]},
+        "profile_trace_mb": traces[0].stat().st_size / 1e6,
+        "resume_skip": {"batches": RESUME_SKIP_BATCHES,
+                        "bytes": RESUME_SKIP_BATCHES * first.size,
+                        "s": skip_s},
+    }
+    print(f"resume ({card}): " + json.dumps(figures), flush=True)
+    print(f"resume: A preempted at step {k} (exit 75), B resumed {k} -> "
+          f"{RESUME_STEPS}, B == C per row (max row err {worst[0]:.3g}, "
+          f"max abs diff {worst[1]:.3g} in {worst[2]}), final loss "
+          f"{lb:.6f} vs {lc:.6f}; checkpoint "
+          f"{figures['checkpoint_bytes']} bytes, blocking {blocking} s, "
+          f"write {writes} s, restore {restore_s} s; step "
+          f"{c['summary']['step_time_s'] * 1e3:.1f} ms on shards vs "
+          f"{synthetic_step_s * 1e3:.1f} ms synthetic; skipping "
+          f"{RESUME_SKIP_BATCHES} batches on resume "
+          f"{skip_s['token_batches']:.2f} s (the record reader alone "
+          f"{skip_s['records']:.2f} s); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(root / "ckpt_c", ignore_errors=True)
+    shutil.rmtree(root / "profile", ignore_errors=True)
+    return {"launches": b["launches"], "checkpoint_dir": root / "ckpt"}
+
+
+def _serve_from_checkpoint(checkpoint_dir, prompts: list, dtype: str
+                           ) -> tuple[list, list, str]:
+    """4 greedy requests through serve_lm_generator(checkpoint_dir=...)
+    (continuous batching, 4 slots) with `dtype` weights and compute, and
+    generate() over the same prompts on the params restore_params reads,
+    cast alike. Returns both token lists and, where rows differ, the
+    near-tie witness (_first_difference_margins on generate()'s model),
+    which fails unless every differing row is at a near tie: its
+    margin under NEAR_TIE_RATIO of the agreeing steps' median and the
+    two runs' tokens that forward's top two."""
+    import concurrent.futures as cf
+
+    import torch
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.checkpoint import restore_params
+    from kubeflow_tpu_torch.runtime.generate import generate
+    from kubeflow_tpu_torch.serving.server import cast_params, serve_lm_generator
+
+    p, n = SERVE_CKPT_P, SERVE_CKPT_N
+    served = serve_lm_generator(
+        "ckpt", "llama-1b", prompt_len=p, max_new_tokens=n, device="cuda",
+        checkpoint_dir=str(checkpoint_dir), param_dtype=dtype, dtype=dtype,
+        continuous_batching=True, decode_slots=SERVE_CKPT_SLOTS)
+    try:
+        with cf.ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+            got = list(pool.map(
+                lambda pr: [int(t) for t in
+                            served.predict([{"tokens": pr}])[0]], prompts))
+    finally:
+        served.close()
+    params, step = restore_params(str(checkpoint_dir))
+    model = get_model("llama-1b", device="cuda", max_seq_len=p + n,
+                      dtype=dtype)
+    model.load_state_dict(params)
+    cast = cast_params({k: v.detach() for k, v in model.state_dict().items()},
+                       dtype)
+    toks, pads = _left_padded(prompts, p)
+    with torch.no_grad():
+        want = generate(model, cast, toks, max_new_tokens=n,
+                        pad_len=pads)[:, p:].tolist()
+    at_diff, before, top_two, rows = _first_difference_margins(
+        model, cast, toks, pads, got, want)
+    del model, cast, params
+    witness = ""
+    if rows:
+        med = _median(before)
+        witness = (f"{rows} of {len(got)} rows differ; margin at the first "
+                   f"difference max {max(at_diff):.4f} against median "
+                   f"{med:.4f} over the {len(before)} agreeing steps before "
+                   f"it; the runs' tokens are that forward's top two on "
+                   f"{top_two} of {rows} rows")
+        if top_two != rows or not max(at_diff) < NEAR_TIE_RATIO * med:
+            fail(f"serve from checkpoint ({dtype}): {witness}: a row "
+                 f"differs by more than a near tie (margin under "
+                 f"{NEAR_TIE_RATIO}x the agreeing steps' median and the "
+                 "top two)")
+    return got, want, witness
+
+
+def serve_checkpoint_phase(checkpoint_dir, root) -> None:
+    """Phase 16: serve_lm_generator(checkpoint_dir=run B's) on llama-1b
+    with continuous batching, 4 slots, 4 greedy requests of 32 new
+    tokens, against generate() on the params restore_params reads: in
+    f32 (TF32 off) the tokens must be equal; in bf16, the serving dtype,
+    the share of equal tokens is printed and a row may differ only at a
+    near tie (see _serve_from_checkpoint): the slot decoder prefills a
+    request alone or beside others, generate() all four at once, and on
+    a model 6 steps from random init the top two logits are often
+    within bf16's rounding. A draft checkpoint directory with no step
+    fails registration."""
+    import torch
+
+    from kubeflow_tpu_torch.serving.server import serve_lm_generator
+
+    t0 = time.perf_counter()
+    p, n = SERVE_CKPT_P, SERVE_CKPT_N
+    rng = random.Random(7)
+    prompts = [[rng.randrange(1, 32000) for _ in range(k)]
+               for k in (p, p // 2, 7, 3 * p // 4)]
+    got, want, _ = _serve_from_checkpoint(checkpoint_dir, prompts, "float32")
+    if got != want:
+        same = sum(x == y for r, s in zip(got, want) for x, y in zip(r, s))
+        fail(f"serve from checkpoint (f32): {same} of {len(prompts) * n} "
+             "tokens equal generate() on the restored params")
+    got16, want16, witness = _serve_from_checkpoint(checkpoint_dir, prompts,
+                                                    "bfloat16")
+    same16 = sum(x == y for r, s in zip(got16, want16) for x, y in zip(r, s))
+    empty = root / "empty_draft"
+    empty.mkdir(exist_ok=True)
+    try:
+        serve_lm_generator("bad", "llama-1b", prompt_len=p, max_new_tokens=n,
+                           device="cuda", draft_model="gpt-125m",
+                           draft_checkpoint_dir=str(empty),
+                           continuous_batching=True)
+    except FileNotFoundError as e:
+        refused = str(e)
+    else:
+        fail("serve from checkpoint: an empty draft checkpoint directory "
+             "registered")
+    print(f"serve from checkpoint: llama-1b, {SERVE_CKPT_SLOTS} slots, "
+          f"{len(prompts)} greedy requests x {n} tokens; f32 == generate() "
+          f"on restore_params; bf16 {same16} of {len(prompts) * n} tokens "
+          f"equal ({witness or 'all rows equal'}); empty draft dir refused "
+          f"({refused}); {time.perf_counter() - t0:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -1390,12 +1877,28 @@ def main() -> int:
     launches = {}
     launches["entry"], at_entry = timed_phase("entry", entry_phase, fa)
     timed_phase("remat", remat_check, fa)
+    step_s = {}
     for tag, cfg in (("adamw", ADAMW_PATH), ("pinned", MAIN_PATH)):
-        launches[tag] = timed_phase(f"main path {tag}", main_path, fa,
-                                    _build, cfg, tag)
+        launches[tag], step_s[tag] = timed_phase(
+            f"main path {tag}", main_path, fa, _build, cfg, tag)
     timed_phase("grad accumulation", grad_accum_check, fa)
     for tag, cfg in (("pinned", MAIN_PATH), ("adamw", ADAMW_PATH)):
         timed_phase(f"profile {tag}", profile_phase, cfg, tag)
+    # the training runtime: subprocess launches (their counts come from
+    # each launcher's log), then serving from the resumed checkpoint
+    resume_root = _build.build_dir() / "chip_smoke_resume"
+    shutil.rmtree(resume_root, ignore_errors=True)
+    resume_root.mkdir(parents=True)
+    try:
+        resumed = timed_phase("resume", resume_phase, card,
+                              step_s["pinned"], resume_root)
+        launches["resume"] = resumed["launches"]
+        fa.reset_launches()
+        timed_phase("serve from checkpoint", serve_checkpoint_phase,
+                    resumed["checkpoint_dir"], resume_root)
+        launches["serve_checkpoint"] = dict(fa.LAUNCHES)
+    finally:
+        shutil.rmtree(resume_root, ignore_errors=True)
     timed_phase("serving check", serving_check)
     # the serving paths run no flash kernel (decode attends by bmm over
     # the cache); their counts are read like every path's
@@ -1437,7 +1940,8 @@ def main() -> int:
     fa.reset_launches()
     timed_phase("router", router_phase)
     launches["router"] = dict(fa.LAUNCHES)
-    for name in ("rolling", "speculative", "router", "serving"):
+    for name in ("rolling", "speculative", "router", "serving",
+                 "serve_checkpoint"):
         if any(launches[name].values()):
             fail(f"the {name} path launched flash kernels "
                  f"{launches[name]}: decode attends by bmm over the cache")

@@ -1,6 +1,7 @@
-"""Span API: ids, context propagation and a collector (port of the
-parts of kubeflow_tpu/obs/trace.py the serving router uses; the tree
-helpers and the file exporters stay behind).
+"""Span API: ids, context propagation, a collector, the tree helpers and
+the JSONL dump (port of kubeflow_tpu/obs/trace.py: what the serving
+router, the trainer and the launcher use; the dump stays readable by
+tools/trace2perfetto.py).
 
 Design constraints, in order:
 
@@ -26,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import json
 import os
 import threading
 import time
@@ -236,3 +238,53 @@ class Tracer:
 
 COLLECTOR = TraceCollector()
 TRACER = Tracer(COLLECTOR)
+
+
+# -- tree helpers ------------------------------------------------------------
+
+def children_index(spans: list[Span]) -> dict[str | None, list[Span]]:
+    out: dict[str | None, list[Span]] = {}
+    for s in spans:
+        out.setdefault(s.parent_id, []).append(s)
+    return out
+
+
+def reachable(spans: list[Span], root_span_id: str) -> set[str]:
+    """Span ids reachable from ``root_span_id`` via parent links —
+    the acceptance check that a trace is one connected tree."""
+    index = children_index(spans)
+    seen: set[str] = {root_span_id}
+    frontier = [root_span_id]
+    while frontier:
+        for child in index.get(frontier.pop(), []):
+            if child.span_id not in seen:
+                seen.add(child.span_id)
+                frontier.append(child.span_id)
+    return seen
+
+
+# -- exporters ---------------------------------------------------------------
+
+def to_jsonl(spans: list[Span]) -> str:
+    """Compact one-span-per-line dump (the ``trace2perfetto`` input)."""
+    return "".join(json.dumps(s.to_dict(), sort_keys=True) + "\n"
+                   for s in spans)
+
+
+def from_jsonl(text: str) -> list[Span]:
+    return [Span.from_dict(json.loads(line))
+            for line in text.splitlines() if line.strip()]
+
+
+def write_jsonl(path: str, spans: list[Span]) -> None:
+    """Atomic dump (utils/fsatomic.py): the launcher writes this at
+    exit — often BECAUSE the worker is being preempted — and a kill mid-
+    write must leave the previous dump intact, not a torn half-file."""
+    from kubeflow_tpu_torch.utils.fsatomic import atomic_write_text
+
+    atomic_write_text(path, to_jsonl(spans))
+
+
+def read_jsonl(path: str) -> list[Span]:
+    with open(path) as fh:
+        return from_jsonl(fh.read())

@@ -2,7 +2,7 @@
 kubeflow_tpu/runtime/metrics.py).
 
 StepMeter: step time, throughput and MFU over a sliding window, with the
-port's own peak table. A device not in the table gets no MFU (None):
+port's own peak table; each metered step can be a `train.step` span. A device not in the table gets no MFU (None):
 there is no default peak, so an unknown card is never measured against
 another's.
 
@@ -10,7 +10,9 @@ MetricsRegistry / REGISTRY: a minimal Prometheus registry (gauges,
 counters, histograms; text format 0.0.4) that the serving and decode
 meters publish into and `GET /metrics` renders. The reference mirrors
 the same signals into prometheus_client as well; the port does not
-(the card's machine has no prometheus_client).
+(the card's machine has no prometheus_client). `serve_metrics` serves
+the registry at /metrics with /healthz, as the launcher does at
+$JAXRT_METRICS_PORT.
 """
 
 from __future__ import annotations
@@ -38,17 +40,30 @@ def peak_flops(device_kind: str) -> float | None:
 
 class StepMeter:
     """Step wall time, examples/sec and MFU over the last `window` steps,
-    on one device. The caller synchronizes the device before stop()."""
+    on one device. The caller synchronizes the device before stop().
+
+    With ``tracer`` set (an ``obs.trace.Tracer``), each start/stop pair
+    also emits a ``train.step`` span under the ambient trace context,
+    its ``step`` attribute ``step_base`` + the metered count."""
 
     def __init__(self, flops_per_step: float, device_kind: str = "",
-                 window: int = 20):
+                 window: int = 20, tracer=None, step_base: int = 0):
         self.flops_per_step = float(flops_per_step)
         self.peak = peak_flops(device_kind)
         self._times: deque[float] = deque(maxlen=window)
         self._t0: float | None = None
         self.steps = 0
+        self._tracer = tracer
+        self.step_base = step_base
+        self._span = None
 
     def start(self) -> None:
+        if self._tracer is not None:
+            # a previous step that never reached stop() raised: its span
+            # still exports, as ERROR
+            self.close()
+            self._span = self._tracer.begin(
+                "train.step", step=self.step_base + self.steps)
         self._t0 = time.perf_counter()
 
     def stop(self) -> float:
@@ -58,7 +73,19 @@ class StepMeter:
         self._times.append(dt)
         self.steps += 1
         self._t0 = None
+        if self._span is not None:
+            self._span.attrs["step_time_s"] = round(dt, 6)
+            self._tracer.finish(self._span)
+            self._span = None
         return dt
+
+    def close(self) -> None:
+        """Finish a still-open step span as ERROR: the loop unwound
+        between start() and stop() (a step raised)."""
+        if self._span is not None:
+            self._span.status = "ERROR"
+            self._tracer.finish(self._span)
+            self._span = None
 
     @property
     def step_time(self) -> float:
@@ -201,3 +228,15 @@ class MetricsRegistry:
 
 
 REGISTRY = MetricsRegistry()
+
+
+def serve_metrics(port: int = 9100, host: str = "0.0.0.0"):
+    """Start /metrics (REGISTRY, text format 0.0.4) and /healthz on a
+    daemon thread; returns the HttpService (caller may .shutdown()).
+    Port 0 picks a free port."""
+    from kubeflow_tpu_torch.utils import httpd
+
+    router = httpd.Router("metrics")
+    httpd.add_metrics_route(router)
+    httpd.add_health_routes(router)
+    return httpd.HttpService(router, host, port).serve_background()

@@ -6,18 +6,26 @@ One step: forward through TransformerLM (rematerialized per block under
 backward (over `grad_accum_steps` microbatches when > 1), and an
 optimizer update whose learning rate follows the reference's optax
 warmup-cosine schedule.
-`fit` keeps the first step (kernel builds, allocator warm-up) out of the
-meter and returns the reference's summary dict.
+
+`fit` is the reference's loop: resume from the latest checkpoint, batches
+from synthetic data or KFR1 token shards (packed shards bring segment
+ids, which reach the flash kernels) through the Prefetcher, periodic
+saves and evals, a profiler window, a `stop` flag polled once a step
+(preemption), `train.fit` / `train.step` spans and the jaxrt_* gauges.
+The first step (kernel builds, allocator warm-up) stays out of the
+meter. It returns the reference's summary dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import logging
 import math
 import time
 from typing import Callable, Iterator
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -35,8 +43,9 @@ log = logging.getLogger("kubeflow_tpu_torch.trainer")
 @dataclasses.dataclass
 class TrainConfig:
     """Declarative training config: the reference's keys and defaults, so
-    the same JSON/YAML loads. Keys whose feature the port lacks yet raise
-    in Trainer, naming their ROADMAP item."""
+    the same JSON/YAML loads. A task the port lacks yet raises in
+    Trainer, naming its ROADMAP item; a mesh above one device raises in
+    MeshSpec."""
 
     model: str = "resnet50"
     model_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -92,14 +101,6 @@ def _unported(cfg: TrainConfig) -> str | None:
     """The first config feature the port lacks, with its ROADMAP item."""
     if cfg.task != "lm":
         return f"task={cfg.task!r} (ROADMAP Queue 1, slice 5)"
-    if cfg.checkpoint_dir:
-        return "checkpoint_dir (ROADMAP Queue 1 item 14)"
-    if cfg.data_path or cfg.packed_data:
-        return "data_path / packed_data (ROADMAP Queue 1 item 15)"
-    if cfg.eval_every:
-        return "eval_every (ROADMAP Queue 1 item 15)"
-    if cfg.profile_dir:
-        return "profile_dir (ROADMAP Queue 1 item 15)"
     return None
 
 
@@ -190,10 +191,37 @@ class Trainer:
             layouts=[flax_layout(n, p.shape, head_dim) for n, p in named])
         self.step = 0          # optimizer updates applied so far
 
-    def data_iter(self) -> Iterator[dict]:
+    def data_iter(self, data_path: str | None = None,
+                  seed: int | None = None) -> Iterator[dict]:
+        """Host batches: KFR1 token shards matching `data_path` (default
+        cfg.data_path; packed shards add segment_ids and -1 targets at
+        padding and document boundaries), else synthetic tokens."""
         cfg = self.cfg
+        data_path = data_path if data_path is not None else cfg.data_path
+        seed = seed if seed is not None else cfg.seed
+        if data_path:
+            from kubeflow_tpu_torch.runtime.records import token_batches
+
+            paths = sorted(glob.glob(data_path))
+            if not paths:
+                raise FileNotFoundError(f"no shards match {data_path!r}")
+            return token_batches(paths, cfg.global_batch, cfg.seq_len,
+                                 shuffle_buffer=cfg.shuffle_buffer,
+                                 seed=seed, loop=True,
+                                 segmented=cfg.packed_data)
         return synthetic_tokens(cfg.global_batch, cfg.seq_len, cfg.vocab_size,
-                                cfg.seed)
+                                seed)
+
+    def eval_data_iter(self) -> Iterator[dict]:
+        """Held-out batches: eval_data_path shards when given, else the
+        training source at a shifted seed (a smoke eval, not held-out)."""
+        cfg = self.cfg
+        return self.data_iter(data_path=cfg.eval_data_path or cfg.data_path,
+                              seed=cfg.seed + 1)
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(np.array(a)).to(self.device)
+                for k, a in batch.items()}
 
     def _device_iter(self, it: Iterator[dict]) -> Iterator[dict]:
         """Copy each distinct host batch to the device once: the synthetic
@@ -202,10 +230,39 @@ class Trainer:
         for b in it:
             key = tuple(id(a) for a in b.values())
             if key != last_key:
-                last_val = {k: torch.from_numpy(a).to(self.device)
-                            for k, a in b.items()}
+                last_val = self._to_device(b)
                 last_key = key
             yield last_val
+
+    # -- checkpoint payload --------------------------------------------------
+
+    def payload(self) -> dict:
+        """The training state as the checkpoint payload (live device
+        tensors; runtime/checkpoint.py copies them to the host): the
+        update count, the model's state_dict, no batch stats, and each
+        parameter's optimizer state by parameter name."""
+        state = {n: self.opt.state[p]
+                 for n, p in self.model.named_parameters()
+                 if p in self.opt.state}
+        return {"step": self.step, "params": self.model.state_dict(),
+                "batch_stats": {}, "opt_state": state}
+
+    def load_payload(self, payload: dict) -> None:
+        """Load a checkpoint payload into the model and the optimizer
+        (rebuilt from the config: only its state is data)."""
+        self.model.load_state_dict(payload["params"], strict=True)
+        names = [n for n, _ in self.model.named_parameters()]
+        opt_state = payload.get("opt_state") or {}
+        unknown = set(opt_state) - set(names)
+        if unknown:
+            raise ValueError(f"optimizer state for unknown parameters "
+                             f"{sorted(unknown)[:5]}")
+        groups = self.opt.state_dict()["param_groups"]
+        self.opt.load_state_dict({
+            "state": {i: opt_state[n] for i, n in enumerate(names)
+                      if n in opt_state},
+            "param_groups": groups})
+        self.step = int(payload["step"])
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, accuracy) of one batch, differentiable in the loss."""
@@ -236,6 +293,20 @@ class Trainer:
         self.opt.step()
         self.step += 1
         return {"loss": loss.detach(), "accuracy": acc.detach()}
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict) -> dict:
+        """{"loss", "accuracy"} of one batch in eval mode, as device
+        scalars; the chunked head when training chunks it (a config that
+        only fits because of the chunks must not run out of memory at
+        its first eval)."""
+        was_training = self.model.training
+        self.model.eval()
+        try:
+            loss, acc = self.loss(batch)
+        finally:
+            self.model.train(was_training)
+        return {"loss": loss, "accuracy": acc}
 
     def _accumulate(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The gradients of `accum` microbatches in the parameters' .grad,
@@ -271,50 +342,197 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     def fit(self, steps: int | None = None,
-            callback: Callable[[int, dict], None] | None = None) -> dict:
-        """Run `steps` updates (default total_steps); return the summary:
-        steps, start_step, step_time_s, examples_per_sec, mfu, final."""
+            callback: Callable[[int, dict], None] | None = None,
+            stop: Callable[[], bool] | None = None) -> dict:
+        """Run the loop to the global step target `steps` (default
+        total_steps); return the summary: steps, start_step, step_time_s,
+        examples_per_sec, mfu, final, and "preempted" / "eval" when they
+        apply.
+
+        With cfg.checkpoint_dir and cfg.resume, training resumes from
+        the latest checkpoint and runs only the remaining steps; real
+        data then skips the batches the earlier run consumed, so the
+        resumed run sees the batches an uninterrupted one would. `stop`
+        is polled once per step (runtime.preemption's SIGTERM notice):
+        when it returns True the loop saves the step (unless it is saved
+        already) and returns early with summary["preempted"] = True."""
+        from kubeflow_tpu_torch.obs import trace as obs_trace
+
         cfg = self.cfg
         steps = steps or cfg.total_steps
+        ckpt = None
+        if cfg.checkpoint_dir:
+            from kubeflow_tpu_torch.runtime.checkpoint import Checkpointer
+
+            ckpt = Checkpointer(cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
+                                world_size=1, num_slices=1)
+            if cfg.resume:
+                try:
+                    # loads into self; the host copy is not kept
+                    restored = ckpt.restore_latest(self) is not None
+                except BaseException:
+                    ckpt.close()
+                    raise
+                if restored:
+                    log.info("resumed from checkpoint at step %d", self.step)
         start_step = self.step
+        if start_step >= steps:
+            # the target is reached already: a no-op run, same schema
+            if ckpt:
+                ckpt.close()
+            return {"steps": steps, "start_step": start_step,
+                    "step_time_s": None, "examples_per_sec": 0.0,
+                    "mfu": 0.0, "final": {}}
+
         kind = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "")
-        meter = rt_metrics.StepMeter(self.flops_per_step(), kind)
-        data = self._device_iter(self.data_iter())
+        # each metered step is a train.step span; metering starts after
+        # the first step, hence the +1 global-step base
+        meter = rt_metrics.StepMeter(self.flops_per_step(), kind,
+                                     tracer=obs_trace.TRACER,
+                                     step_base=start_step + 1)
         last: dict = {}
+        last_saved = -1
+        last_eval: dict = {}
         first_dt = float("nan")
+
+        def maybe_save(gstep: int) -> None:
+            nonlocal last_saved
+            if ckpt and cfg.checkpoint_every and gstep % cfg.checkpoint_every == 0:
+                if ckpt.save(gstep, self.payload()):
+                    last_saved = gstep
+
+        def maybe_eval(gstep: int) -> None:
+            # a FRESH iterator per eval scores the same leading window
+            # every time, so the metric compares across steps
+            nonlocal last_eval
+            if not (cfg.eval_every and gstep % cfg.eval_every == 0):
+                return
+            eval_iter = iter(self.eval_data_iter())
+            sums: dict = {}
+            try:
+                for _ in range(max(1, cfg.eval_steps)):
+                    m = self.eval_step(self._to_device(next(eval_iter)))
+                    for k, v in m.items():
+                        sums[k] = sums.get(k, 0.0) + float(v)
+            finally:
+                if hasattr(eval_iter, "close"):
+                    eval_iter.close()    # a native reader's thread
+            last_eval = {k: v / max(1, cfg.eval_steps) for k, v in sums.items()}
+            last_eval["perplexity"] = math.exp(min(last_eval["loss"], 30.0))
+            # without eval_data_path this reads the TRAINING source at a
+            # shifted seed: marked so it is not taken for held-out numbers
+            smoke = not cfg.eval_data_path
+            last_eval["smoke"] = float(smoke)
+            what = "training-data smoke eval" if smoke else "held-out eval"
+            for k, v in last_eval.items():
+                rt_metrics.REGISTRY.gauge(f"jaxrt_eval_{k}", v, f"{what} {k}")
+            log.info("%s @ step %d: %s", what, gstep,
+                     " ".join(f"{k}={v:.4f}" for k, v in sorted(last_eval.items())))
+
+        from kubeflow_tpu_torch.runtime.profiler import TraceWindow
+
+        trace = TraceWindow(cfg.profile_dir, cfg.profile_start_step,
+                            cfg.profile_steps)
+        ok = preempted = False
+        data = None
+        # nest under the caller's span (the launcher's "worker"), else
+        # under the pod's TRACEPARENT, else start a new trace
+        fit_span = obs_trace.TRACER.begin(
+            "train.fit",
+            parent=obs_trace.TRACER.current() or obs_trace.context_from_env(),
+            model=cfg.model, global_batch=cfg.global_batch,
+            start_step=start_step, steps=steps)
         self.model.train()
-        for i in range(steps - start_step):
-            batch = next(data)
-            if i == 0:
-                # the first step builds kernels and warms the allocator:
-                # kept out of the meter window
-                t0 = time.perf_counter()
-                m = self.train_step(batch)
-                self._sync()
-                first_dt = time.perf_counter() - t0
-                log.info("first step (incl. kernel build): %.2fs", first_dt)
-                last = {k: float(v) for k, v in m.items()}
+        try:
+            # inside the try: a glob that matches nothing still closes
+            # the checkpointer on the way out
+            if cfg.data_path:
+                from kubeflow_tpu_torch.runtime.data import Prefetcher
+
+                it = self.data_iter()
+                for _ in range(start_step):
+                    next(it)     # the batches of the steps before the resume
+                data = Prefetcher(it, self.device)
             else:
-                meter.start()
-                m = self.train_step(batch)
-                self._sync()
-                meter.stop()
-                if (i + 1) % cfg.log_every == 0 or i == steps - start_step - 1:
+                data = self._device_iter(self.data_iter())
+            for i in range(steps - start_step):
+                if stop is not None and stop():
+                    preempted = True
+                    # no force: a step that is on disk already (resumed
+                    # at N, preempted before N+1) stays as it is
+                    if ckpt and self.step != last_saved:
+                        if ckpt.save(self.step, self.payload()):
+                            last_saved = self.step
+                    log.warning("preempted at step %d: checkpoint saved, "
+                                "exiting early", self.step)
+                    break
+                trace.step(start_step + i)
+                batch = next(data)
+                if i == 0:
+                    # the first step builds kernels and warms the
+                    # allocator: kept out of the meter window
+                    t0 = time.perf_counter()
+                    with obs_trace.TRACER.span("train.step", step=start_step,
+                                               compile=True):
+                        m = self.train_step(batch)
+                        self._sync()
+                    first_dt = time.perf_counter() - t0
+                    log.info("first step (incl. kernel build): %.2fs", first_dt)
                     last = {k: float(v) for k, v in m.items()}
-                    log.info("step %d loss=%.4f acc=%.3f %.1f ex/s step=%.1fms",
-                             i + 1, last["loss"], last["accuracy"],
-                             meter.throughput(cfg.global_batch),
-                             meter.step_time * 1e3)
-            if callback:
-                callback(i, m)
+                else:
+                    meter.start()
+                    m = self.train_step(batch)
+                    self._sync()
+                    meter.stop()
+                    if (i + 1) % cfg.log_every == 0 or i == steps - start_step - 1:
+                        last = {k: float(v) for k, v in m.items()}
+                        self._publish(meter, last)
+                        mfu = meter.mfu
+                        log.info("step %d loss=%.4f acc=%.3f %.1f ex/s "
+                                 "step=%.1fms%s", start_step + i + 1,
+                                 last["loss"], last["accuracy"],
+                                 meter.throughput(cfg.global_batch),
+                                 meter.step_time * 1e3,
+                                 "" if mfu is None else f" mfu={mfu * 100:.1f}%")
+                maybe_save(start_step + i + 1)
+                maybe_eval(start_step + i + 1)
+                if callback:
+                    callback(i, m)
+            ok = True
+        finally:
+            try:
+                meter.close()  # a step that raised still exports, as ERROR
+                trace.stop()
+                if hasattr(data, "close"):
+                    data.close()
+                if ckpt:
+                    # the final save only on a completed run: the stop
+                    # branch saved the preempted step already. Always
+                    # close, so a queued write lands even when unwinding
+                    # on an exception.
+                    try:
+                        if ok and not preempted and self.step != last_saved:
+                            ckpt.save(self.step, self.payload(), force=True)
+                    finally:
+                        ckpt.close()
+            except BaseException:
+                ok = False
+                raise
+            finally:
+                # the final save and its write are inside train.fit
+                fit_span.attrs["preempted"] = preempted
+                if not ok and fit_span.status == "OK":
+                    fit_span.status = "ERROR"
+                obs_trace.TRACER.finish(fit_span)
         if meter.steps == 0 and math.isfinite(first_dt):
             meter._times.append(first_dt)   # single-step run
 
         def finite(x):
+            # the launcher json.dumps the summary: bare NaN is not JSON
             return x if x is not None and math.isfinite(x) else None
 
-        return {
+        summary = {
             "steps": steps,
             "start_step": start_step,
             "step_time_s": finite(meter.step_time),
@@ -322,3 +540,19 @@ class Trainer:
             "mfu": finite(meter.mfu),
             "final": {k: finite(v) for k, v in last.items()},
         }
+        if preempted:
+            summary["preempted"] = True
+        if last_eval:
+            summary["eval"] = {k: finite(v) for k, v in last_eval.items()}
+        return summary
+
+    def _publish(self, meter: rt_metrics.StepMeter, last: dict) -> None:
+        """The jaxrt_* gauges controllers and dashboards read (the
+        reference's names)."""
+        reg = rt_metrics.REGISTRY
+        reg.gauge("jaxrt_step_seconds", meter.step_time, "mean step wall time")
+        reg.gauge("jaxrt_examples_per_sec",
+                  meter.throughput(self.cfg.global_batch), "training throughput")
+        if meter.mfu is not None:
+            reg.gauge("jaxrt_mfu", meter.mfu, "model FLOPs utilization")
+        reg.gauge("jaxrt_loss", last["loss"], "training loss")

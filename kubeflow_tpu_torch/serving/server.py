@@ -15,12 +15,14 @@ trimmed to `prompt_len` and decoded for `max_new_tokens` by generate()
 continuous SlotDecoder (dense, paged or rolling cache). With
 `draft_model` a draft LM speeds greedy decode up: batch-1 rounds per row
 (runtime/speculative.py), or lockstep rounds over the slots under
-continuous batching; the tokens equal plain greedy decode. Weights are
-random from `seed` (the draft's from `seed + 1`) on the device (cuda
-unless device="cpu"), then cast or quantized per `param_dtype`. Not
-ported yet, each raising NotImplementedError with its ROADMAP item: the
-classifier server (`--model`, slice 5), checkpoint restore (slice 3,
-item 14) and mesh serving (slice 4).
+continuous batching; the tokens equal plain greedy decode. Weights come
+from the latest step of a port training checkpoint (`checkpoint_dir`,
+`draft_checkpoint_dir`: runtime/checkpoint.py restore_variables, params
+only; a missing or empty directory fails at registration), else random
+from `seed` (the draft's from `seed + 1`), on the device (cuda unless
+device="cpu"), then cast or quantized per `param_dtype`. Not ported
+yet, each raising NotImplementedError with its ROADMAP item: the
+classifier server (`--model`, slice 5) and mesh serving (slice 4).
 
 Usage:
     python -m kubeflow_tpu_torch.serving --lm chat=gpt-350m \\
@@ -28,6 +30,7 @@ Usage:
         --continuous-batching --decode-slots 16 [--device cpu]
         [--draft-model gpt-125m --draft-k 4]
         [--attention-window 256 --rolling-kv-cache]
+        [--checkpoint-dir ckpt/ | --lm chat=llama-1b@ckpt/]
 """
 
 from __future__ import annotations
@@ -571,18 +574,31 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
     only. A token out of [0, vocab) or a budget out of
     [1, max_new_tokens] is a 400.
 
-    `state_dict` and `draft_state_dict` are test seams: weights to load
-    in place of the random ones (e.g. a flax tree through
-    `convert.flax_to_state_dict`). The draft is the registry config with
-    the target's max_seq_len and vocab_size, on the target's device,
-    cast or quantized like the target."""
+    `checkpoint_dir` and `draft_checkpoint_dir` load the latest step of
+    a port training checkpoint; a missing or empty directory raises
+    here, at registration, not at the first request. `state_dict` and
+    `draft_state_dict` are test seams: weights to load in place of the
+    random ones (e.g. a flax tree through `convert.flax_to_state_dict`).
+    The draft is the registry config with the target's max_seq_len and
+    vocab_size, on the target's device, cast or quantized like the
+    target."""
     from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.checkpoint import (
+        list_steps, restore_variables)
     from kubeflow_tpu_torch.runtime.generate import generate
 
-    if checkpoint_dir or draft_checkpoint_dir:
-        raise NotImplementedError(
-            "checkpoint restore is not ported yet (ROADMAP Queue 1, "
-            "slice 3, item 14)")
+    if checkpoint_dir:
+        if state_dict is not None:
+            raise ValueError("pass checkpoint_dir or state_dict, not both")
+        variables, step = restore_variables(checkpoint_dir)
+        state_dict = variables["params"]
+        log.info("model %s: restored params from %s step %d", name,
+                 checkpoint_dir, step)
+    if draft_checkpoint_dir and not list_steps(draft_checkpoint_dir):
+        # the draft loads on first use: probe now so an empty directory
+        # fails registration (readiness), not every speculative request
+        raise FileNotFoundError(
+            f"no checkpoint under {draft_checkpoint_dir}")
     if mesh is not None:
         raise NotImplementedError(
             "mesh serving is not ported yet (ROADMAP Queue 1, slice 4)")
@@ -635,9 +651,9 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
     draft_lock = threading.Lock()
 
     def draft():
-        """The draft model and its params, built once: random from
-        seed + 1 (or draft_state_dict), cast or quantized like the
-        target's."""
+        """The draft model and its params, built once: from
+        draft_checkpoint_dir (or draft_state_dict), else random from
+        seed + 1; cast or quantized like the target's."""
         with draft_lock:
             if not draft_box:
                 # the draft shares the target's vocabulary: its
@@ -645,8 +661,12 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
                 # reference's gather clamps a foreign id, torch raises)
                 dbase = get_model(draft_model, device=dev, seed=seed + 1,
                                   max_seq_len=seq_budget, vocab_size=vocab)
-                if draft_state_dict is not None:
-                    dbase.load_state_dict(draft_state_dict, strict=True)
+                dstate = draft_state_dict
+                if draft_checkpoint_dir:
+                    dstate = restore_variables(draft_checkpoint_dir)[0][
+                        "params"]
+                if dstate is not None:
+                    dbase.load_state_dict(dstate, strict=True)
                 dm = dbase
                 if quantized:
                     from kubeflow_tpu_torch.serving.quant import QuantizedModel
@@ -799,7 +819,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--model", action="append", default=[],
                    help="name=zoo_model classifier (not ported yet)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoint to restore (not ported yet)")
+                   help="port training checkpoint to serve the LM from "
+                        "(its latest step; `--lm name=model@dir` per model)")
     p.add_argument("--lm", action="append", default=[],
                    help="generative LM entry: name=zoo_model, e.g. "
                         "chat=gpt-350m")
@@ -817,10 +838,11 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--draft-model", default=None,
                    help="registry LM that drafts k tokens per round for "
                         "speculative decoding (greedy only; its weights "
-                        "are random from seed + 1)")
+                        "are random from seed + 1 without "
+                        "--draft-checkpoint-dir)")
     p.add_argument("--draft-k", type=int, default=4)
     p.add_argument("--draft-checkpoint-dir", default=None,
-                   help="draft checkpoint to restore (not ported yet)")
+                   help="port training checkpoint of the draft model")
     p.add_argument("--max-inflight", type=int, default=0)
     p.add_argument("--continuous-batching", action="store_true")
     p.add_argument("--decode-slots", type=int, default=8)

@@ -1,4 +1,5 @@
-"""The port's CUDA flash kernels against their plain versions, on the card.
+"""The port's CUDA flash kernels against their plain versions, on the card,
+and the Prefetcher's side-stream copies there.
 
 Marked `cuda`: each test skips when torch sees no GPU (decided inside the
 fixture, never at import). Run on an H100 with
@@ -200,3 +201,27 @@ def test_remat_step_launches(dev, policy, fwd_per_layer):
     assert torch.isfinite(loss)
     assert dict(fa.LAUNCHES) == {"flash_fwd": 2 * fwd_per_layer,
                                  "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+
+
+def test_prefetcher_copies_on_a_side_stream(dev):
+    """Batches copied on the Prefetcher's stream equal their host arrays
+    when the compute stream reads them, with later copies in flight."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.runtime.data import Prefetcher
+
+    rng = np.random.default_rng(0)
+    host = [{"tokens": rng.integers(0, 32000, (8, 2048), dtype=np.int32)}
+            for _ in range(6)]
+    pf = Prefetcher(iter(host), dev)
+    try:
+        for want in host:
+            got = next(pf)["tokens"]
+            assert got.device.type == "cuda" and got.dtype == torch.int32
+            assert int((got.long() * 2).sum()) == int(
+                want["tokens"].astype(np.int64).sum() * 2)
+            del got              # freed while the next copies run
+        with pytest.raises(StopIteration):
+            next(pf)
+    finally:
+        pf.close()

@@ -255,13 +255,17 @@ def test_cast_params_and_unported_options(weights):
     assert cast["a"].dtype == torch.bfloat16 and cast["i"].dtype == torch.int32
     with pytest.raises(ValueError, match="floating"):
         S.cast_params({}, "int8")
-    for kw, match in ((dict(mesh={"model": 2}), "mesh"),
-                      (dict(checkpoint_dir="/nonexistent"), "checkpoint"),
-                      (dict(draft_model="transformer-test",
-                            draft_checkpoint_dir="/nonexistent"),
-                       "checkpoint")):
-        with pytest.raises(NotImplementedError, match=match):
-            port(weights, **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        port(weights, mesh={"model": 2})
+    # checkpoint restore is ported: a missing checkpoint fails at
+    # registration, as the reference's does
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        S.serve_lm_generator("x", "transformer-test", device="cpu",
+                             dtype="float32", checkpoint_dir="/nonexistent",
+                             **LM)
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        port(weights, draft_model="transformer-test",
+             draft_checkpoint_dir="/nonexistent")
     # speculative decoding and the rolling cache are ported: what the
     # reference refuses at registration, the port refuses the same way
     for kw, match in ((dict(draft_model="transformer-test",
