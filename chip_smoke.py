@@ -150,14 +150,45 @@
    top-2 margin under 0.25x the median margin of the agreeing steps.
    A draft checkpoint directory with no step fails registration. The
    checkpoints are removed at the end.
+17. ResNet-50 through the launcher: `examples/resnet50.yaml` (batch
+   256, 224px, space_to_depth, sgdm, bf16) in a copy with total_steps
+   10, log_every 5 and a checkpoint directory, run as
+   `python -m kubeflow_tpu_torch.runtime.launcher` in a subprocess:
+   exit 0, a finite loss, a summary line and no flash launch; prints
+   images/s, step ms, MFU (the StepMeter over `fwd_flops`: 6.34 TFLOP
+   a step) and the peak memory the launcher logs. Then the profile of
+   phase 8 on that config: device time of a step by kind of kernel
+   (convolutions, BatchNorm, elementwise, the SGD update), the busy
+   share and the peak memory.
+18. ResNet-50 on the card against the CPU: full width and depth, batch
+   8, 224px, the same weights, f32 with TF32 off. After one sgdm step,
+   the train-mode logits before it and the eval-mode logits after it
+   and every BatchNorm statistic within 1e-3 relative, every parameter
+   within 1e-2 per row; then bf16 on the card against that f32 run,
+   logits within 2e-2 per row.
+19. Classifier server: `serve_flax_classifier("resnet50")` behind the
+   port's ModelServer on 127.0.0.1 answers 8 predicts over HTTP, its
+   softmax rows sum to 1 within 1e-3 and equal a direct call to the
+   model within 1e-3; then the same from phase 17's checkpoint, whose
+   batch_stats must have moved. Prints p50 latency.
+20. ViT-B/16 (batch 128, 224px; 13.4 TFLOP a step) and BERT-base (seq
+   512, batch 32, every other row ending in 64-383 pad tokens, so the
+   segment mask is exercised; 9.28 TFLOP a step): 5 sgdm steps each in
+   bf16 through the Trainer, a finite loss, no flash launch, step ms,
+   MFU and peak memory; then bf16 against f32 on the card with the
+   trained weights: the final norm's output within 2e-2 per token row,
+   and ViT's logits within 2e-2 per row (BERT's two logits a row are
+   printed, not held: the reference's own bf16 logits miss that limit,
+   tests/test_torch_bert.py).
 Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
 `{"kernels": [...]}` record (`launches`: the pinned main path's count,
 `launches_by_path`: each path's: the training paths, entry, `resume`
 (run B: 16 a step of each kernel, 16 more forwards per eval batch), and
-the serving, rolling, speculative, router and checkpoint-serving paths,
-which must run none of them; the flash forward's row also holds its
+the serving, rolling, speculative, router and checkpoint-serving paths
+and the classification paths (resnet50, classifier, vit-b16,
+bert-base), which must run none of them; the flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -528,6 +559,9 @@ def grad_accum_check(fa) -> None:
 
 KINDS = (  # profile phase: kernel name -> kind, first match wins
     ("flash attention", ("flash_",)),
+    ("batchnorm", ("batch_norm", "bn_fw", "bn_bw", "welford")),
+    ("convolution", ("implicit_gemm", "fprop", "dgrad", "wgrad", "convolve",
+                     "conv2d")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")),
     ("optimizer", ("multi_tensor", "adam", "foreach")),
     ("softmax/xent", ("softmax", "logsumexp", "nll", "cross_entropy")),
@@ -1490,10 +1524,10 @@ def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None
     summary_lines = [ln for ln in lines if ln.startswith('{"summary"')]
     if not summary_lines:
         print(out[-6000:], flush=True)
-        fail(f"resume {tag}: exit {rc} with no summary line")
+        fail(f"launcher run {tag}: exit {rc} with no summary line")
     # strictly valid JSON: no bare NaN / Infinity
     summary = json.loads(summary_lines[-1], parse_constant=lambda c: fail(
-        f"resume {tag}: summary holds {c}"))["summary"]
+        f"launcher run {tag}: summary holds {c}"))["summary"]
     m = re.findall(r"flash kernel launches: (\{.*\})", out)
     launches = json.loads(m[-1]) if m else None
     spans = (obs_trace.read_jsonl(str(trace_path))
@@ -1824,6 +1858,329 @@ def serve_checkpoint_phase(checkpoint_dir, root) -> None:
     torch.cuda.empty_cache()
 
 
+# -- the classification models (phases 17-20) -------------------------------
+
+RESNET_YAML = "examples/resnet50.yaml"
+RESNET_STEPS, RESNET_LOG_EVERY = 10, 5
+RESNET50_STEP_FLOPS = 6.34e12      # fwd_flops(space_to_depth) x 3 x 256
+CPU_REL_TOL = 1e-3                 # f32 card vs CPU: logits, statistics
+BF16_ROW_TOL = 2e-2                # bf16 vs f32 logits, per row
+CHECK_BATCH, SERVE_PREDICTS = 8, 8
+ENCODERS = {  # full width: ViT-B/16 at 224px, BERT-base at seq 512
+    "vit-b16": {"model": "vit-b16", "task": "classification",
+                "global_batch": 128, "image_size": 224,
+                "flops": 13.4e12},
+    "bert-base": {"model": "bert-base", "task": "seq_classification",
+                  "global_batch": 32, "seq_len": 512, "vocab_size": 30522,
+                  "num_classes": 2, "flops": 9.28e12},
+}
+ENCODER_STEPS = 5
+
+
+def resnet_yaml_config() -> dict:
+    """examples/resnet50.yaml as a TrainConfig dict (the file itself is
+    read, never written)."""
+    from kubeflow_tpu_torch.utils import yaml_lite
+
+    here = Path(__file__).resolve().parent
+    return yaml_lite.loads((here / RESNET_YAML).read_text())
+
+
+def resnet_launcher_phase(root) -> dict:
+    """Phase 17: examples/resnet50.yaml through the port launcher as a
+    subprocess, at full width and depth (batch 256, 224px,
+    space_to_depth, sgdm, bf16), total_steps and log_every overridden in
+    a copy, with a checkpoint directory. Requires exit 0, a finite loss,
+    a summary line and no flash launch; prints images/s, step ms, MFU
+    and the peak memory the launcher logs. Returns the run."""
+    import re
+
+    cfg = resnet_yaml_config()
+    cfg.update(total_steps=RESNET_STEPS, log_every=RESNET_LOG_EVERY,
+               checkpoint_dir=str(root / "resnet50_ckpt"))
+    run = _launch(cfg, root, "resnet50")
+    if run["rc"] != 0:
+        print(run["out"][-6000:], flush=True)
+        fail(f"resnet50 launcher: exit {run['rc']}")
+    s = run["summary"]
+    loss = s["final"].get("loss")
+    if loss is None or not math.isfinite(loss) or s["steps"] != RESNET_STEPS:
+        fail(f"resnet50 launcher: summary {s}")
+    if run["launches"] is None or any(run["launches"].values()):
+        fail(f"resnet50 launcher: flash launches {run['launches']}, want 0")
+    peak = re.findall(r"peak device memory: ([0-9.]+) GB", run["out"])
+    if not peak:
+        fail("resnet50 launcher: no peak memory line")
+    run["peak_gb"] = float(peak[-1])
+    flops = s["examples_per_sec"] / cfg["global_batch"] * RESNET50_STEP_FLOPS
+    print(f"resnet50 launcher ({RESNET_YAML}, {RESNET_STEPS} steps): "
+          f"{s['examples_per_sec']:.1f} images/s, step "
+          f"{s['step_time_s'] * 1e3:.2f} ms, mfu {s['mfu']}, "
+          f"{flops / 1e12:.1f} TFLOP/s, peak {run['peak_gb']:.2f} GB, "
+          f"final loss {loss:.4f}, wall {run['wall']:.1f} s", flush=True)
+    return run
+
+
+def _resnet_step(trainer, batch: dict) -> dict:
+    """Train-mode logits of `batch` (moving the BatchNorm statistics
+    once), one sgdm step on it, then its eval-mode logits; the model's
+    state after the step."""
+    import torch
+
+    trainer.model.train()
+    with torch.no_grad():
+        before = trainer.model(batch["image"]).float().cpu()
+    trainer.train_step(batch)
+    trainer.model.eval()
+    with torch.no_grad():
+        evl = trainer.model(batch["image"]).float().cpu()
+    return {"train_logits": before, "eval_logits": evl,
+            "state": {k: v.float().cpu()
+                      for k, v in trainer.model.state_dict().items()}}
+
+
+def _rel(got, want) -> float:
+    return float((got - want).norm() / want.norm().clamp_min(1e-12))
+
+
+def resnet_card_vs_cpu_phase() -> None:
+    """Phase 18: ResNet-50 at full width and depth, batch 8, 224px, the
+    same weights on the card and on the CPU, f32 with TF32 off: after
+    one sgdm step the logits (train mode before it, eval mode after) and
+    every BatchNorm statistic within 1e-3 relative, every parameter
+    within 1e-2 per row (kernel_check's limit); then bf16 on the card
+    against that f32 run, logits within 2e-2 per row."""
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    t0 = time.perf_counter()
+    base = {"model": "resnet50", "task": "classification",
+            "global_batch": CHECK_BATCH, "image_size": 224,
+            "optimizer": "sgdm", "learning_rate": 0.1, "warmup_steps": 0,
+            "total_steps": 10}
+    f32 = {**base, "model_kwargs": {"stem": "space_to_depth",
+                                    "dtype": "float32"}}
+    cpu = Trainer(TrainConfig.from_dict(f32), device="cpu")
+    init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    host = next(cpu.data_iter())
+    runs = {}
+    for tag, cfg, dev in (("cpu", f32, "cpu"), ("card f32", f32, "cuda"),
+                          ("card bf16", {**base, "model_kwargs": {
+                              "stem": "space_to_depth"}}, "cuda")):
+        t = cpu if dev == "cpu" else Trainer(TrainConfig.from_dict(cfg),
+                                             device=dev)
+        t.model.load_state_dict(init)
+        runs[tag] = _resnet_step(t, t._to_device(host))
+        del t
+    want, got = runs["cpu"], runs["card f32"]
+    worst = {}
+    for key in ("train_logits", "eval_logits"):
+        worst[key] = max(_rel(g, w) for g, w in zip(got[key], want[key]))
+        if not worst[key] <= CPU_REL_TOL:
+            fail(f"resnet50 card vs cpu: {key} row error {worst[key]:.3g}")
+    params = {n for n in want["state"] if not n.endswith((".mean", ".var"))}
+    worst["batch_stats"] = max(_rel(got["state"][n], want["state"][n])
+                               for n in want["state"] if n not in params)
+    if not worst["batch_stats"] <= CPU_REL_TOL:
+        fail(f"resnet50 card vs cpu: batch_stats {worst['batch_stats']:.3g}")
+    moved = max(_rel(want["state"][n], init[n].float()) for n in params
+                if init[n].abs().sum() > 0)
+
+    def rows(t):             # a kernel's rows are its outputs; a vector is one
+        return t.reshape(t.shape[0], -1) if t.ndim > 1 else t[None]
+
+    worst["params"] = max(
+        check_rows(f"resnet50 {n}", rows(got["state"][n]),
+                   rows(want["state"][n]), 1e-2)["max_row_err"]
+        for n in params)
+    bf = runs["card bf16"]
+    e16 = check_rows("resnet50 bf16 vs f32 logits", bf["train_logits"],
+                     got["train_logits"], BF16_ROW_TOL)
+    print(f"resnet50 card vs cpu (batch {CHECK_BATCH}, f32, TF32 off): "
+          f"train logits {worst['train_logits']:.3g}, eval logits "
+          f"{worst['eval_logits']:.3g}, batch_stats "
+          f"{worst['batch_stats']:.3g} (relative), params "
+          f"{worst['params']:.3g} per row (the step moved them up to "
+          f"{moved:.3g}); bf16 logits {e16['max_row_err']:.4f} per row; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def classifier_server_phase(checkpoint_dir: str) -> None:
+    """Phase 19: serve_flax_classifier("resnet50") behind the REST server
+    on 127.0.0.1, 8 predicts over HTTP: softmax rows sum to 1 within
+    1e-3 and equal a direct call to the model; then the same from the
+    phase 17 checkpoint (its params and batch_stats, which must have
+    moved from their initial values). Prints p50 latency."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.checkpoint import restore_variables
+    from kubeflow_tpu_torch.serving.server import (
+        ModelServer,
+        serve_flax_classifier,
+    )
+
+    kw = {"num_classes": 1000, "stem": "space_to_depth"}
+    images = np.random.default_rng(3).random(
+        (SERVE_PREDICTS, 224, 224, 3), dtype=np.float32)
+    variables, step = restore_variables(checkpoint_dir)
+    stats = variables.get("batch_stats") or {}
+    if not stats or all(float(v.abs().max()) == 0.0 for n, v in
+                        stats.items() if n.endswith(".mean")):
+        fail(f"classifier: checkpoint step {step} holds no moved "
+             "batch_stats")
+    for tag, ckpt in (("random", None), ("checkpoint", checkpoint_dir)):
+        server = ModelServer()
+        server.register(serve_flax_classifier(
+            "resnet50", "resnet50", checkpoint_dir=ckpt, **kw))
+        svc = server.serve(host="127.0.0.1", port=0).serve_background()
+        lat, rows = [], []
+        try:
+            for img in images:
+                body = json.dumps({"instances": [img.tolist()]}).encode()
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{svc.port}/v1/models/resnet50:predict",
+                    data=body, method="POST")
+                t = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    rows.append(json.loads(r.read())["predictions"][0])
+                lat.append(time.perf_counter() - t)
+        finally:
+            svc.shutdown()
+            server.close()
+        got = np.asarray(rows, np.float64)
+        model = get_model("resnet50", device="cuda", **kw).eval()
+        if ckpt:
+            model.load_state_dict({**variables["params"], **stats})
+        with torch.no_grad():
+            want = torch.cat([torch.softmax(model(torch.from_numpy(
+                img[None]).cuda()).float(), -1).cpu() for img in images])
+        sums = np.abs(got.sum(-1) - 1.0).max()
+        diff = np.abs(got - want.double().numpy()).max()
+        if got.shape != (SERVE_PREDICTS, 1000) or not sums <= 1e-3 \
+                or not diff <= 1e-3:
+            fail(f"classifier {tag}: shape {got.shape}, row sums off by "
+                 f"{sums:.3g}, vs direct call {diff:.3g}")
+        print(f"classifier server ({tag} weights"
+              f"{f', step {step}' if ckpt else ''}): {SERVE_PREDICTS} "
+              f"predicts over HTTP, p50 {sorted(lat)[len(lat) // 2] * 1e3:.1f}"
+              f" ms, row sums within {sums:.2g} of 1, max diff to a direct "
+              f"call {diff:.2g}", flush=True)
+        del model
+        torch.cuda.empty_cache()
+
+
+def _encoder_batch(name: str, spec: dict) -> dict:
+    """The synthetic batch of `spec`; BERT's tokens end in a run of
+    0-padding (64-383 positions) on every other row."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.runtime import data
+
+    b = spec["global_batch"]
+    if spec["task"] == "classification":
+        return dict(next(data.synthetic_images(b, spec["image_size"],
+                                               1000, 0)))
+    batch = dict(next(data.synthetic_token_classes(
+        b, spec["seq_len"], spec["vocab_size"], spec["num_classes"], 0)))
+    tok = batch["tokens"].copy()
+    tok[tok == 0] = 1
+    pads = np.random.default_rng(1).integers(64, 384, b)
+    for r in range(0, b, 2):
+        tok[r, -pads[r]:] = 0
+    batch["tokens"] = tok
+    return batch
+
+
+def encoder_phase(name: str, card: str) -> dict:
+    """Phase 20: `name` (vit-b16, bert-base) at full width, a few sgdm
+    steps in bf16 through the Trainer: a finite loss, step ms (steps 2
+    onward between two synchronizes), MFU and peak memory; then bf16
+    logits against f32 on the card with the same weights, within 2e-2
+    per row. Returns the figures."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.metrics import StepMeter
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    spec = ENCODERS[name]
+    cfg = {k: v for k, v in spec.items() if k != "flops"}
+    cfg.update(optimizer="sgdm", learning_rate=0.1, warmup_steps=2,
+               total_steps=ENCODER_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(TrainConfig.from_dict(cfg), device="cuda")
+    if abs(trainer.flops_per_step() - spec["flops"]) > 0.01 * spec["flops"]:
+        fail(f"{name}: {trainer.flops_per_step() / 1e12:.2f} TFLOP a step, "
+             f"want {spec['flops'] / 1e12}")
+    host = _encoder_batch(name, spec)
+    batch = trainer._to_device(host)
+    x = batch["image" if spec["task"] == "classification" else "tokens"]
+    fa.reset_launches()
+    times = []
+    for i in range(ENCODER_STEPS):
+        t = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    loss = float(m["loss"])
+    launches = dict(fa.LAUNCHES)
+    if not math.isfinite(loss):
+        fail(f"{name}: loss {loss}")
+    if any(launches.values()):
+        fail(f"{name}: flash launches {launches}: the reference attends by "
+             "its plain einsum here")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_s = sum(times[1:]) / (len(times) - 1)
+    meter = StepMeter(trainer.flops_per_step(), torch.cuda.get_device_name())
+    meter._times.append(step_s)
+    trained = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    # bf16 against f32 on the trained weights (ViT's head starts at zero):
+    # the final norm's output, every token's row, and the logits
+    logits, hidden = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = {**cfg, "model_kwargs": {"dtype": dtype}}
+        model = Trainer(TrainConfig.from_dict(c), device="cuda").model
+        model.load_state_dict(trained)
+        hook = model.ln_f.register_forward_hook(
+            lambda mod, i, o, d=dtype: hidden.__setitem__(d, o.float().cpu()))
+        with torch.no_grad():
+            logits[dtype] = model(x[:8]).float().cpu()
+        hook.remove()
+        del model
+        torch.cuda.empty_cache()
+    eh = check_rows(f"{name} bf16 vs f32 hidden", hidden["bfloat16"],
+                    hidden["float32"], BF16_ROW_TOL)
+    if spec["task"] == "classification":
+        el = check_rows(f"{name} bf16 vs f32 logits", logits["bfloat16"],
+                        logits["float32"], BF16_ROW_TOL)
+    else:
+        # two logits a row: a projection of the [CLS] row onto two
+        # directions, whose relative error is the hidden row's only up
+        # to cancellation; the reference's own bf16 logits miss 2e-2 a
+        # row here (tests/test_torch_bert.py), so they are printed
+        from kubeflow_tpu_torch.ops import kernel_check
+
+        el = kernel_check.errors(logits["bfloat16"], logits["float32"])
+    out = {"step_ms": step_s * 1e3, "mfu": meter.mfu, "peak_gb": peak,
+           "loss": loss, "bf16_hidden_row_err": eh["max_row_err"],
+           "bf16_logit_row_err": el["max_row_err"], "launches": launches}
+    held = "held" if spec["task"] == "classification" else "not held"
+    print(f"{name} ({cfg['global_batch']} x "
+          f"{cfg.get('seq_len') if spec['task'] != 'classification' else str(cfg['image_size']) + 'px'}"
+          f", {card}): step {out['step_ms']:.2f} ms, mfu "
+          f"{out['mfu']:.4f}, peak {peak:.2f} GB, final loss {loss:.4f}; "
+          f"bf16 vs f32 on the trained weights: hidden "
+          f"{eh['max_row_err']:.4f} per row, logits "
+          f"{el['max_row_err']:.4f} per row ({held}), max abs "
+          f"{el['max_abs_err']:.4g}; flash launches {launches}", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1945,6 +2302,31 @@ def main() -> int:
         if any(launches[name].values()):
             fail(f"the {name} path launched flash kernels "
                  f"{launches[name]}: decode attends by bmm over the cache")
+    # the classification models: ResNet-50 through the launcher (its
+    # counts from the launcher's log line), against the CPU, behind the
+    # server, then ViT-B/16 and BERT-base; none reaches a flash kernel
+    cls_root = _build.build_dir() / "chip_smoke_classify"
+    shutil.rmtree(cls_root, ignore_errors=True)
+    cls_root.mkdir(parents=True)
+    try:
+        launches["resnet50"] = timed_phase(
+            "resnet50 launcher", resnet_launcher_phase, cls_root)["launches"]
+        fa.reset_launches()
+        timed_phase("resnet50 card vs cpu", resnet_card_vs_cpu_phase)
+        timed_phase("classifier server", classifier_server_phase,
+                    str(cls_root / "resnet50_ckpt"))
+        launches["classifier"] = dict(fa.LAUNCHES)
+    finally:
+        shutil.rmtree(cls_root, ignore_errors=True)
+    timed_phase("profile resnet50", profile_phase, resnet_yaml_config(),
+                "resnet50")
+    for name in ENCODERS:
+        launches[name] = timed_phase(name, encoder_phase, name,
+                                     card)["launches"]
+    for name in ("resnet50", "classifier", *ENCODERS):
+        if any(launches[name].values()):
+            fail(f"the {name} path launched flash kernels {launches[name]}"
+                 ": the reference's classifiers reach no Pallas kernel")
     for row in rows:
         row["launches"] = launches["pinned"][row["name"]]
         row["launches_by_path"] = {t: n[row["name"]]

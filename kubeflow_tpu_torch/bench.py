@@ -1,19 +1,27 @@
-"""LM training benchmark on one GPU: the port's twin of `bench.py run_lm`.
+"""Training benchmarks on one GPU: the port's twins of `bench.py run_lm`
+and `run_resnet`.
 
     python -m kubeflow_tpu_torch.bench [--steps 20] [--warmup 3]
         [--lm-model llama-1b] [--lm-batch 8] [--seq-len 2048]
         [--lm-optimizer adafactor] [--lm-remat | --no-lm-remat]
         [--lm-remat-policy slim] [--lm-xent-chunks 8] [--lm-grad-accum 0]
+    python -m kubeflow_tpu_torch.bench --workload resnet [--steps 20]
+        [--model resnet50] [--batch 256] [--image-size 224]
+        [--stem space_to_depth]
 
-The defaults are the operating point `tools/lm_best.json` pins for the
-reference: llama-1b, seq 2048, global batch 8, adafactor, slim remat, 8
-xent chunks, flash attention. The TrainConfig is built as `run_lm`
-builds it (lr 3e-4, warmup 5, weight_decay left at its 1e-4 default).
-Warm-up steps, then `--steps` steps timed on the host clock between two
-`torch.cuda.synchronize` calls, one batch resident on the card; MFU
-from the port's StepMeter. Prints one JSON line with run_lm's fields,
-plus the card and the peak device memory. Runs on a CUDA device only:
-without one it raises.
+`--workload lm` (the default) runs the operating point
+`tools/lm_best.json` pins for the reference: llama-1b, seq 2048, global
+batch 8, adafactor, slim remat, 8 xent chunks, flash attention, with the
+TrainConfig `run_lm` builds (lr 3e-4, warmup 5, weight_decay left at its
+1e-4 default). `--workload resnet` runs `run_resnet`'s: ResNet-50 with
+the space_to_depth stem, 224px, batch 256, synthetic images, sgdm with
+lr 0.1 and warmup 5. Either way: warm-up steps, then `--steps` steps
+timed on the host clock between two `torch.cuda.synchronize` calls, one
+batch resident on the card; MFU from the port's StepMeter. Prints one
+JSON line with the reference's fields, plus the card and the peak device
+memory. Runs on a CUDA device only: without one it raises.
+`--resnet-remat` raises: the reference's whole-forward remat would
+replay the BatchNorm updates here (ROADMAP Queue 1 item 19b).
 """
 
 from __future__ import annotations
@@ -27,8 +35,16 @@ import time
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--workload", default="lm", choices=["lm", "resnet"])
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--warmup", type=int, default=3)
+    p.add_argument("--model", default="resnet50")
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--stem", default="space_to_depth",
+                   choices=["space_to_depth", "conv7"])
+    p.add_argument("--resnet-remat", default="",
+                   help="not ported (ROADMAP Queue 1 item 19b)")
     p.add_argument("--lm-model", default="llama-1b")
     p.add_argument("--lm-batch", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=2048)
@@ -72,31 +88,90 @@ def train_config(args: argparse.Namespace):
     ))
 
 
-def run_lm(args: argparse.Namespace) -> dict:
+def resnet_config(args: argparse.Namespace):
+    """The TrainConfig of `bench.py run_resnet` for these flags."""
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig
+
+    if args.resnet_remat:
+        raise NotImplementedError(
+            "--resnet-remat: the reference checkpoints the whole forward; "
+            "replaying it here would move the BatchNorm statistics twice "
+            "(ROADMAP Queue 1 item 19b)")
+    return TrainConfig.from_dict(dict(
+        model=args.model,
+        model_kwargs={"stem": args.stem},
+        task="classification",
+        global_batch=args.batch,
+        image_size=args.image_size,
+        num_classes=1000,
+        optimizer="sgdm",
+        learning_rate=0.1,
+        total_steps=args.steps,
+        warmup_steps=5,
+        log_every=10**9,
+    ))
+
+
+def _timed(trainer, steps: int, warmup: int) -> tuple[float, float, str]:
+    """Mean step seconds of `steps` chained steps on one resident batch
+    after `warmup` steps, the final loss and the card's name."""
     import torch
 
-    from kubeflow_tpu_torch.runtime.metrics import StepMeter
-    from kubeflow_tpu_torch.runtime.trainer import Trainer
-
-    trainer = Trainer(train_config(args), device="cuda")
     kind = torch.cuda.get_device_name(trainer.device)
     batch = next(trainer._device_iter(trainer.data_iter()))
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(max(1, args.warmup)):
+    for _ in range(max(1, warmup)):
         m = trainer.train_step(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.steps):
+    for _ in range(steps):
         m = trainer.train_step(batch)
     torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / args.steps
+    dt = (time.perf_counter() - t0) / steps
     final_loss = float(m["loss"])
     if not math.isfinite(final_loss):
-        raise RuntimeError(f"lm loss is {final_loss}")
+        raise RuntimeError(f"{trainer.cfg.model} loss is {final_loss}")
+    return dt, final_loss, kind
+
+
+def _mfu(trainer, dt: float, kind: str) -> float | None:
+    from kubeflow_tpu_torch.runtime.metrics import StepMeter
 
     meter = StepMeter(trainer.flops_per_step(), kind)
     meter._times.append(dt)
-    mfu = meter.mfu
+    return meter.mfu
+
+
+def run_resnet(args: argparse.Namespace) -> dict:
+    import torch
+
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+
+    trainer = Trainer(resnet_config(args), device="cuda")
+    dt, final_loss, kind = _timed(trainer, args.steps, args.warmup)
+    mfu = _mfu(trainer, dt, kind)
+    return {
+        "model": args.model,
+        "mfu": None if mfu is None else round(mfu, 4),
+        "images_per_sec": round(args.batch / dt, 1),
+        "step_time_ms": round(dt * 1e3, 2),
+        "global_batch": args.batch,
+        "image_size": args.image_size,
+        "stem": args.stem,
+        "final_loss": final_loss,
+        "device": kind,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def run_lm(args: argparse.Namespace) -> dict:
+    import torch
+
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+
+    trainer = Trainer(train_config(args), device="cuda")
+    dt, final_loss, kind = _timed(trainer, args.steps, args.warmup)
+    mfu = _mfu(trainer, dt, kind)
     return {
         "model": args.lm_model,
         "attention": args.lm_attention,
@@ -119,7 +194,9 @@ def run_lm(args: argparse.Namespace) -> dict:
 
 
 def main(argv: list[str] | None = None) -> int:
-    print(json.dumps(run_lm(parse_args(argv))), flush=True)
+    args = parse_args(argv)
+    run = run_resnet if args.workload == "resnet" else run_lm
+    print(json.dumps(run(args)), flush=True)
     return 0
 
 

@@ -1,20 +1,35 @@
-"""Flax TransformerLM parameters and optax optimizer states <-> the
-port's state_dict and optimizer state.
+"""Flax parameters, batch statistics and optax optimizer states <-> the
+port's state_dict and optimizer state, for every model of the registry.
 
-Layouts of the reference tree (kubeflow_tpu/models/transformer.py):
-- `layer_i/attn/{q,k,v}/kernel` [d, H, D] and `o/kernel` [H, D, d];
-- `layer_i/mlp/{gate,up,down}/kernel` [in, out];
-- `layer_i/ln_{attn,mlp}/scale`, `ln_f/scale` [d] f32;
-- `embedding` [V, d] f32; `lm_head/kernel` [d, V] f32.
-torch Linear weights are [out, in], so every projection is transposed;
-the embedding and the head kernel keep their layout. `flax_layout` is
-the inverse rule: it shows a port parameter in its flax shape, which is
-what the optimizer's factoring follows (runtime/optim.py).
+Layouts of the reference trees (kubeflow_tpu/models/):
+- TransformerLM: `layer_i/attn/{q,k,v}/kernel` [d, H, D] and
+  `o/kernel` [H, D, d]; `layer_i/mlp/{gate,up,down}/kernel` [in, out];
+  `layer_i/ln_{attn,mlp}/scale`, `ln_f/scale` [d] f32; `embedding`
+  [V, d] f32; `lm_head/kernel` [d, V] f32;
+- ViT and BERT: `layer_i/qkv/kernel` [d, 3, h, d_head], `layer_i/o/
+  kernel` [h, d_head, d], `fc1`/`fc2` kernels [in, out] and biases,
+  `patch_embed` (ViT) and BERT's `head` as Dense kernels [in, out];
+  ViT's `pos_embed` and `head_kernel` [d, classes], BERT's `embedding`
+  and `pos_embedding`, as they are;
+- ResNet: conv kernels (`conv_init`, `Conv_i`, `conv_proj`) HWIO
+  [kh, kw, in, out]; BatchNorm `scale` and `bias` in params, `mean` and
+  `var` in the batch_stats collection (the port's buffers of the same
+  names: `flax_to_state_dict(batch_stats)` maps them); `head` a Dense.
+torch weights are [out, in] (OIHW for a conv), so every projection is
+transposed (q/k/v and qkv fold their heads into out, o into in) and
+every conv kernel permuted; everything else keeps its layout.
+`flax_layout` is the inverse rule: it shows a port parameter in its flax
+shape, which is what the optimizer's factoring follows
+(runtime/optim.py).
 
 Optimizer states (`opt_state_to_port` / `opt_state_to_flax`), for the
 optax chains the reference's make_optimizer builds:
 - adamw: `ScaleByAdamState(count, mu, nu)` <-> torch.optim.AdamW's
   per-parameter `step`, `exp_avg`, `exp_avg_sq` (port layout);
+- sgdm (add_decayed_weights, then sgd with nesterov momentum):
+  `TraceState(trace)` <-> torch.optim.SGD's `momentum_buffer` (port
+  layout); SGD keeps no update count, so the optax count comes from the
+  checkpoint's step;
 - adafactor: `FactoredState(count, v_row, v_col, v)` <-> runtime/optim.py
   Adafactor's `step` and `v` or `v_row`/`v_col`, already in the flax
   layout. optax keeps a shape-(1,) zero for the statistic a parameter
@@ -54,20 +69,30 @@ def _port_name(path: str) -> str:
     return ".".join(parts)
 
 
+def _is_conv(parts: list[str]) -> bool:
+    """Whether the module at `parts[:-1]` is a ResNet conv (flax's
+    auto-named `Conv_i`, `conv_init`, `conv_proj`)."""
+    return len(parts) > 1 and parts[-2].startswith(("Conv_", "conv_"))
+
+
 def _leaf_to_port(path: str, a: np.ndarray) -> np.ndarray:
-    """A flax-layout leaf at `path` in the port's layout: [in..., out...]
-    kernels become [out, in], q/k/v folding (H, D) into out and o into
-    in; the rest as they are."""
+    """A flax-layout leaf at `path` in the port's layout: HWIO conv
+    kernels become OIHW, [in..., out...] kernels [out, in], q/k/v and qkv
+    folding their heads into out and o into in; the rest as they are."""
     parts = path.split("/")
     if parts[-1] == "kernel" and parts[0] != "lm_head":
+        if _is_conv(parts):
+            return a.transpose(3, 2, 0, 1)
         n_in = 2 if parts[-2] == "o" else 1
         return a.reshape(int(np.prod(a.shape[:n_in])), -1).T
     return a
 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Map a flax TransformerLM `params` tree (nested dicts of arrays) to a
-    `TransformerLM.state_dict()`; every tensor is f32 on the CPU."""
+    """Map a flax `params` tree (nested dicts of arrays) to the port
+    model's state_dict entries of those parameters; every tensor is f32
+    on the CPU. A `batch_stats` tree maps the same way, to the
+    BatchNorm buffers."""
     return {_port_name(path): torch.tensor(np.ascontiguousarray(
                 _leaf_to_port(path, a)))
             for path, a in _flatten(params).items()}
@@ -91,32 +116,39 @@ def _nest(flat: Mapping[str, Any]) -> dict:
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
-                       head_dim: int) -> dict:
-    """The inverse of `flax_to_state_dict`: a port state_dict as a nested
-    flax params tree of f32 numpy arrays, in the flax layout."""
+                       head_dim: int | None) -> dict:
+    """The inverse of `flax_to_state_dict`: port parameters (or
+    BatchNorm buffers) as a nested flax tree of f32 numpy arrays, in the
+    flax layout. `head_dim` is the attention head width (None for a
+    ResNet)."""
     return _nest({flax_name(n): _to_flax_leaf(n, t, head_dim)
                   for n, t in state_dict.items()})
 
 
-def flax_layout(name: str, shape, head_dim: int
+def flax_layout(name: str, shape, head_dim: int | None
                 ) -> tuple[tuple[int, ...], tuple[int, ...]]:
     """(view, perm) such that `p.view(view).permute(perm)` is port
-    parameter `name` of `shape` in the flax tree's layout: q/k/v weights
-    [H*D, d] -> [d, H, D], the o weight [d, H*D] -> [H, D, d], the other
+    parameter `name` of `shape` in the flax tree's layout: conv weights
+    OIHW -> HWIO, q/k/v weights [H*D, d] -> [d, H, D], qkv [3*H*D, d] ->
+    [d, 3, H, D], the o weight [d, H*D] -> [H, D, d], the other
     projections [out, in] -> [in, out]; the rest as they are."""
     shape = tuple(shape)
     parts = name.split(".")
     if parts[-1] != "weight":
         return shape, tuple(range(len(shape)))
+    if len(shape) == 4:
+        return shape, (2, 3, 1, 0)
     n_out, n_in = shape
+    if parts[-2] == "qkv":
+        return (3, n_out // (3 * head_dim), head_dim, n_in), (3, 0, 1, 2)
     if parts[-3:-1] in (["attn", "q"], ["attn", "k"], ["attn", "v"]):
         return (n_out // head_dim, head_dim, n_in), (2, 0, 1)
-    if parts[-3:-1] == ["attn", "o"]:
+    if parts[-2] == "o":
         return (n_out, n_in // head_dim, head_dim), (1, 2, 0)
     return shape, (1, 0)
 
 
-def flax_shape(name: str, shape, head_dim: int) -> tuple[int, ...]:
+def flax_shape(name: str, shape, head_dim: int | None) -> tuple[int, ...]:
     """The shape port parameter `name` has in the flax tree."""
     view, perm = flax_layout(name, shape, head_dim)
     return tuple(view[i] for i in perm)
@@ -226,7 +258,7 @@ def _find(tree, *fields: str):
 
 def opt_state_to_port(opt_state, params: Mapping[str, Any], optimizer: str
                       ) -> dict[str, dict]:
-    """An optax state of the reference's `optimizer` ("adamw" or
+    """An optax state of the reference's `optimizer` ("adamw", "sgdm" or
     "adafactor") over flax `params` as the port's optimizer state:
     {port parameter name: that parameter's state}."""
     from kubeflow_tpu_torch.runtime.optim import factored_dims
@@ -243,6 +275,11 @@ def opt_state_to_port(opt_state, params: Mapping[str, Any], optimizer: str
                     "exp_avg_sq": torch.tensor(np.ascontiguousarray(
                         _leaf_to_port(p, nu[p])))}
                 for p in flat_params}
+    if optimizer == "sgdm":
+        trace = _flatten(_find(opt_state, "trace").trace)
+        return {_port_name(p): {"momentum_buffer": torch.tensor(
+                    np.ascontiguousarray(_leaf_to_port(p, trace[p])))}
+                for p in flat_params}
     if optimizer == "adafactor":
         node = _find(opt_state, "count", "v_row", "v_col", "v")
         count = int(np.asarray(node.count))
@@ -258,27 +295,32 @@ def opt_state_to_port(opt_state, params: Mapping[str, Any], optimizer: str
             out[_port_name(p)] = {"step": count, **st}
         return out
     raise ValueError(f"no optax state conversion for optimizer "
-                     f"{optimizer!r} (adamw, adafactor)")
+                     f"{optimizer!r} (adamw, sgdm, adafactor)")
 
 
 def _port_count(opt_state: Mapping[str, dict]) -> int:
     steps = {int(st["step"]) for st in opt_state.values() if "step" in st}
     if len(steps) > 1:
         raise ValueError(f"parameters at different update counts {steps}")
+    if not steps and any(opt_state.values()):
+        raise ValueError("this optimizer state keeps no update count "
+                         "(torch SGD): pass step=")
     return steps.pop() if steps else 0
 
 
 def opt_state_to_flax(opt_state: Mapping[str, dict],
                       params: Mapping[str, torch.Tensor], template,
-                      head_dim: int):
-    """The port's optimizer state over `params` (the model's state_dict)
+                      head_dim: int | None, step: int | None = None):
+    """The port's optimizer state over `params` (the model's parameters)
     as an optax state shaped like `template` (e.g. `tx.init(params)` of
     the reference's make_optimizer): each node of the template is
-    rebuilt with numpy leaves, adam moments in the flax layout, the
-    unused adafactor statistics as shape-(1,) zeros."""
+    rebuilt with numpy leaves, adam moments and sgd traces in the flax
+    layout, the unused adafactor statistics as shape-(1,) zeros. The
+    count is `step`, else the state's own (SGD keeps none)."""
     from kubeflow_tpu_torch.runtime.optim import factored_dims
 
-    count = np.asarray(_port_count(opt_state), np.int32)
+    count = np.asarray(_port_count(opt_state) if step is None else step,
+                       np.int32)
     one = np.zeros((1,), np.float32)
 
     def state(name: str, key: str):
@@ -288,7 +330,7 @@ def opt_state_to_flax(opt_state: Mapping[str, dict],
     def tree(fn) -> dict:
         return _nest({flax_name(n): fn(n, t) for n, t in params.items()})
 
-    def adam_leaf(key):
+    def layout_leaf(key):
         def f(n, t):
             v = state(n, key)
             return _to_flax_leaf(n, v if v is not None else
@@ -317,8 +359,10 @@ def opt_state_to_flax(opt_state: Mapping[str, dict],
         if hasattr(node, "_fields"):
             fields = node._fields
             if {"mu", "nu"} <= set(fields):
-                return node._replace(count=count, mu=tree(adam_leaf("exp_avg")),
-                                     nu=tree(adam_leaf("exp_avg_sq")))
+                return node._replace(count=count, mu=tree(layout_leaf("exp_avg")),
+                                     nu=tree(layout_leaf("exp_avg_sq")))
+            if fields == ("trace",):
+                return node._replace(trace=tree(layout_leaf("momentum_buffer")))
             if {"v_row", "v_col", "v"} <= set(fields):
                 return node._replace(count=count,
                                      v_row=tree(factored_leaf("v_row")),
@@ -336,17 +380,20 @@ def opt_state_to_flax(opt_state: Mapping[str, dict],
 
 def write_port_checkpoint(directory: str, step: int,
                           flax_params: Mapping[str, Any], flax_opt_state,
-                          optimizer: str) -> None:
+                          optimizer: str,
+                          batch_stats: Mapping[str, Any] | None = None
+                          ) -> None:
     """A port checkpoint at `step` from a reference run's numpy trees:
-    `flax_params` (TrainState.params) and `flax_opt_state`
-    (TrainState.opt_state) of the reference's `optimizer`. The port's
-    Trainer with this `checkpoint_dir` resumes from it. Steps already in
-    `directory` are left as they are (no retention runs), and one at
-    `step` itself is replaced."""
+    `flax_params` (TrainState.params), `flax_opt_state`
+    (TrainState.opt_state) of the reference's `optimizer` and
+    `batch_stats` (TrainState.batch_stats, a ResNet's BatchNorm
+    statistics). The port's Trainer with this `checkpoint_dir` resumes
+    from it. Steps already in `directory` are left as they are (no
+    retention runs), and one at `step` itself is replaced."""
     from kubeflow_tpu_torch.runtime.checkpoint import Checkpointer
 
     payload = {"step": int(step), "params": flax_to_state_dict(flax_params),
-               "batch_stats": {},
+               "batch_stats": flax_to_state_dict(batch_stats or {}),
                "opt_state": opt_state_to_port(flax_opt_state, flax_params,
                                               optimizer)}
     ckpt = Checkpointer(directory, keep=0, world_size=1, num_slices=1)

@@ -1,0 +1,63 @@
+"""The bidirectional pre-norm encoder block that ViT and BERT share (the
+reference's `ViTBlock`, kubeflow_tpu/models/vit.py, and `EncoderBlock`,
+kubeflow_tpu/models/bert.py, are the same computation).
+
+RMSNorm -> qkv -> attention (non-causal, the plain `reference_attention`
+as in the reference, with segment ids when given) -> o -> residual;
+RMSNorm -> fc1 -> gelu (flax's default: the tanh approximation) -> fc2
+-> residual. Parameter names follow the flax tree: `qkv.weight` is the
+DenseGeneral kernel [d, 3, h, d_head] as [3*h*d_head, d], `o.weight` the
+kernel [h, d_head, d] as [d, h*d_head] (`convert.py`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kubeflow_tpu_torch.models.transformer import Dense, RMSNorm
+from kubeflow_tpu_torch.ops.attention import reference_attention
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, d_model: int, n_heads: int, d_ff: int,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.n_heads, self.d_head = n_heads, d_model // n_heads
+        inner = n_heads * self.d_head
+        self.ln_attn = RMSNorm(d_model, dtype, device)
+        self.qkv = Dense(d_model, 3 * inner, dtype, device)
+        self.o = Dense(inner, d_model, dtype, device)
+        self.ln_mlp = RMSNorm(d_model, dtype, device)
+        self.fc1 = Dense(d_model, d_ff, dtype, device, bias=True)
+        self.fc2 = Dense(d_ff, d_model, dtype, device, bias=True)
+
+    def forward(self, x: torch.Tensor,
+                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+        b, l, _ = x.shape
+        qkv = self.qkv(self.ln_attn(x)).view(b, l, 3, self.n_heads,
+                                              self.d_head)
+        q, k, v = qkv.unbind(2)
+        att = reference_attention(q, k, v, causal=False,
+                                  segment_ids=segment_ids)
+        x = x + self.o(att.reshape(b, l, -1))
+        y = self.fc2(F.gelu(self.fc1(self.ln_mlp(x)), approximate="tanh"))
+        return x + y
+
+
+def init_normal(module: nn.Module, gen: torch.Generator,
+                std: dict[str, float], default: float = 0.02) -> None:
+    """Draw every parameter of `module` from `gen` as the reference's
+    initializers do: norm scales stay one, biases zero, a name in `std`
+    gets normal(std[name]) (0 keeps it zero), the rest normal(default)."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("scale", "bias"):
+                continue
+            s = std.get(name, default)
+            if s:
+                p.normal_(0.0, s, generator=gen)
+            else:
+                p.zero_()

@@ -20,7 +20,10 @@ def register_model(name: str):
 
 def _load_zoo() -> None:
     """Import the builtin model modules (registration side effect)."""
+    import kubeflow_tpu_torch.models.bert  # noqa: F401
+    import kubeflow_tpu_torch.models.resnet  # noqa: F401
     import kubeflow_tpu_torch.models.transformer  # noqa: F401
+    import kubeflow_tpu_torch.models.vit  # noqa: F401
 
 
 def get_model(name: str, **kwargs) -> Any:

@@ -160,15 +160,20 @@ class RMSNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """Bias-free projection: f32 weight [out, in], applied in `dtype`."""
+    """Projection: f32 weight [out, in] (and an f32 bias with `bias`),
+    applied in `dtype`."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device,
+                 bias: bool = False):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
+        self.bias = (nn.Parameter(torch.zeros(d_out, device=device))
+                     if bias else None)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        None if self.bias is None else self.bias.to(self.dtype))
 
 
 @dataclasses.dataclass

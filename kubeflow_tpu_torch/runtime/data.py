@@ -1,7 +1,8 @@
-"""Input batches (port of kubeflow_tpu/runtime/data.py): the synthetic LM
-generator, the host -> device Prefetcher for real data, and the
-per-process batch slice. numpy's default_rng from the same seed gives
-synthetic batches bit-equal to the reference's."""
+"""Input batches (port of kubeflow_tpu/runtime/data.py): the synthetic
+image, LM and sequence-classification generators, the host -> device
+Prefetcher for real data, and the per-process batch slice. numpy's
+default_rng from the same seed gives synthetic batches bit-equal to the
+reference's."""
 
 from __future__ import annotations
 
@@ -11,6 +12,33 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+
+def synthetic_images(batch: int, image_size: int = 224,
+                     num_classes: int = 1000, seed: int = 0
+                     ) -> Iterator[dict]:
+    """Infinite synthetic ImageNet-like batches: NHWC uint8 draws scaled
+    to f32 in [-1, 1), one label each; the same host batch every step
+    (the tf_cnn_benchmarks synthetic-data method)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 255, (batch, image_size, image_size, 3),
+                     dtype=np.uint8)
+    y = rng.integers(0, num_classes, (batch,), dtype=np.int32)
+    x = (x.astype(np.float32) / 127.5) - 1.0
+    while True:
+        yield {"image": x, "label": y}
+
+
+def synthetic_token_classes(batch: int, seq_len: int, vocab: int = 32000,
+                            num_classes: int = 2, seed: int = 0
+                            ) -> Iterator[dict]:
+    """Sequence-classification batches (the BERT fine-tune shape): tokens
+    and one label per sequence, the same every step."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, vocab, (batch, seq_len), dtype=np.int32)
+    y = rng.integers(0, num_classes, (batch,), dtype=np.int32)
+    while True:
+        yield {"tokens": tok, "label": y}
 
 
 def synthetic_tokens(batch: int, seq_len: int, vocab: int = 32000,

@@ -96,7 +96,13 @@ def run_builtin_trainer(cfg_dict: dict, device: str = "cuda") -> int:
             # SIGTERM (pod eviction, node maintenance) => save and exit
             # EX_TEMPFAIL, so the controller gang-restarts and resumes
             notice.install()
-            summary = Trainer(cfg, device=device).fit(stop=notice)
+            trainer = Trainer(cfg, device=device)
+            summary = trainer.fit(stop=notice)
+            if trainer.device.type == "cuda":
+                import torch
+
+                log.info("peak device memory: %.3f GB",
+                         torch.cuda.max_memory_allocated(trainer.device) / 1e9)
     finally:
         notice.uninstall()
         _dump_trace()

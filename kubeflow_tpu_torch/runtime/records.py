@@ -1,6 +1,6 @@
 """KFRecord shards: the real-data input pipeline (the port's copy of
-kubeflow_tpu/runtime/records.py; the image shards wait for the ResNet
-slice).
+kubeflow_tpu/runtime/records.py): token shards for the LM, packed token
+shards with segment ids, and image shards for the classifiers.
 
 KFRecord is the shard format: fixed-size records (tensor-friendly: batch
 assembly is a memcpy, random access is offset arithmetic) with
@@ -263,6 +263,44 @@ def token_batches(paths: Sequence[str], batch: int, seq_len: int, *,
     finally:
         # Runs on generator close/GC too, so an abandoned iterator (e.g.
         # Prefetcher torn down mid-epoch) stops the native worker thread.
+        ds.close()
+
+
+def write_image_shard(path: str, images: np.ndarray,
+                      labels: np.ndarray) -> int:
+    """Write [n, H, W, C] uint8 images and [n] int32 labels as one
+    KFRecord shard; each record is 4 label bytes, then the raw image
+    bytes (fixed size, so the native loader needs no schema)."""
+    if images.ndim != 4 or images.dtype != np.uint8:
+        raise ValueError(f"images must be [n,H,W,C] uint8, got "
+                         f"{images.shape} {images.dtype}")
+    labels = np.asarray(labels, np.int32)
+    if labels.shape != (images.shape[0],):
+        raise ValueError(f"labels must be [n], got {labels.shape}")
+    flat = images.reshape(images.shape[0], -1)
+    recs = np.concatenate(
+        [labels[:, None].view(np.uint8).reshape(labels.shape[0], 4), flat],
+        axis=1)
+    return write_records(path, recs)
+
+
+def image_batches(paths: Sequence[str], batch: int, image_size: int, *,
+                  channels: int = 3, shuffle_buffer: int = 0, seed: int = 0,
+                  loop: bool = True) -> Iterator[dict]:
+    """Classification batches from image shards: yields {"image":
+    [b, H, W, C] f32 in [0, 1), "label": [b] int32} (decoding is a cast;
+    augmentation belongs before the shard writer)."""
+    rb = 4 + image_size * image_size * channels
+    ds = RecordDataset(paths, batch, record_bytes=rb,
+                       shuffle_buffer=shuffle_buffer, seed=seed, loop=loop)
+    try:
+        for raw in ds:
+            labels = raw[:, :4].copy().view(np.int32).reshape(-1)
+            imgs = raw[:, 4:].reshape(
+                raw.shape[0], image_size, image_size, channels)
+            yield {"image": imgs.astype(np.float32) / 255.0,
+                   "label": labels}
+    finally:
         ds.close()
 
 

@@ -1,15 +1,19 @@
-"""The LM training loop on one device (port of kubeflow_tpu/runtime/trainer.py
-for task="lm").
+"""The training loop on one device (port of kubeflow_tpu/runtime/trainer.py).
 
-One step: forward through TransformerLM (rematerialized per block under
-`remat`), the loss (chunked over the sequence when `xent_chunks` > 1),
+Tasks, as the reference's `_batch_xy` selects them: `lm` (TransformerLM,
+next-token targets), `classification` (images and labels: ResNet, ViT)
+and `seq_classification` (tokens and one label per sequence: BERT).
+One step: the forward (an LM rematerialized per block under `remat`),
+the loss (an LM's chunked over the sequence when `xent_chunks` > 1),
 backward (over `grad_accum_steps` microbatches when > 1), and an
 optimizer update whose learning rate follows the reference's optax
-warmup-cosine schedule.
+warmup-cosine schedule. A ResNet's BatchNorm statistics move with each
+training forward and travel in the checkpoint payload's `batch_stats`,
+as the reference keeps them beside `params`.
 
 `fit` is the reference's loop: resume from the latest checkpoint, batches
-from synthetic data or KFR1 token shards (packed shards bring segment
-ids, which reach the flash kernels) through the Prefetcher, periodic
+from synthetic data or KFR1 token or image shards (packed token shards
+bring segment ids, which reach the flash kernels) through the Prefetcher, periodic
 saves and evals, a profiler window, a `stop` flag polled once a step
 (preemption), `train.fit` / `train.step` spans and the jaxrt_* gauges.
 The first step (kernel builds, allocator warm-up) stays out of the
@@ -34,7 +38,11 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.parallel.mesh import MeshSpec
 from kubeflow_tpu_torch.runtime import metrics as rt_metrics
-from kubeflow_tpu_torch.runtime.data import synthetic_tokens
+from kubeflow_tpu_torch.runtime.data import (
+    synthetic_images,
+    synthetic_token_classes,
+    synthetic_tokens,
+)
 from kubeflow_tpu_torch.runtime.optim import Adafactor
 
 log = logging.getLogger("kubeflow_tpu_torch.trainer")
@@ -43,7 +51,7 @@ log = logging.getLogger("kubeflow_tpu_torch.trainer")
 @dataclasses.dataclass
 class TrainConfig:
     """Declarative training config: the reference's keys and defaults, so
-    the same JSON/YAML loads. A task the port lacks yet raises in
+    the same JSON/YAML loads. A feature the port lacks yet raises in
     Trainer, naming its ROADMAP item; a mesh above one device raises in
     MeshSpec."""
 
@@ -97,11 +105,25 @@ class TrainConfig:
         return cls(**d)
 
 
+TASKS = ("classification", "seq_classification", "lm")
+
+
 def _unported(cfg: TrainConfig) -> str | None:
     """The first config feature the port lacks, with its ROADMAP item."""
-    if cfg.task != "lm":
-        return f"task={cfg.task!r} (ROADMAP Queue 1, slice 5)"
+    if cfg.task != "lm" and cfg.remat:
+        return (f"remat for task={cfg.task!r}: the reference checkpoints "
+                "the whole forward; replaying it here would move the "
+                "BatchNorm statistics twice (ROADMAP Queue 1 item 19b)")
     return None
+
+
+def _batch_xy(cfg: TrainConfig, batch: dict):
+    """Input and target of a batch, per task (the reference's)."""
+    if cfg.task == "classification":
+        return batch["image"], batch["label"]
+    if cfg.task == "seq_classification":
+        return batch["tokens"], batch["label"]
+    return batch["tokens"], batch["targets"]
 
 
 def warmup_cosine_lr(step: int, cfg: TrainConfig) -> float:
@@ -159,9 +181,14 @@ class Trainer:
     (cuda unless "cpu" is asked for)."""
 
     def __init__(self, cfg: TrainConfig, device=None):
+        if cfg.task not in TASKS:
+            raise ValueError(f"unknown task {cfg.task!r} ({' | '.join(TASKS)})")
         missing = _unported(cfg)
         if missing:
             raise NotImplementedError(f"not ported yet: {missing}")
+        if cfg.task == "seq_classification" and cfg.data_path:
+            raise ValueError("seq_classification trains on synthetic "
+                             "batches: token shards carry no labels")
         self.accum = max(1, cfg.grad_accum_steps)
         if cfg.global_batch % self.accum:
             raise ValueError(
@@ -169,46 +196,79 @@ class Trainer:
                 f"grad_accum_steps {self.accum}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        kw = dict(cfg.model_kwargs)
-        # the model remats per block (models/transformer.py), as the
-        # reference's LM does
-        if cfg.remat:
-            kw.setdefault("remat", True)
-            kw.setdefault("remat_policy", cfg.remat_policy)
-        if cfg.flash_block_q:
-            kw.setdefault("flash_block_q", cfg.flash_block_q)
-        if cfg.flash_block_k:
-            kw.setdefault("flash_block_k", cfg.flash_block_k)
-        # synthetic targets draw from cfg.vocab_size: the head must match
-        kw.setdefault("vocab_size", cfg.vocab_size)
         self.model = get_model(cfg.model, device=self.device, seed=cfg.seed,
-                               **kw)
+                               **self._model_kwargs())
         self.n_params = sum(p.numel() for p in self.model.parameters())
-        head_dim = self.model.cfg.head_dim
+        head_dim = getattr(self.model.cfg, "head_dim", None)
         named = list(self.model.named_parameters())
         self.opt = make_optimizer(
             cfg, [p for _, p in named],
             layouts=[flax_layout(n, p.shape, head_dim) for n, p in named])
         self.step = 0          # optimizer updates applied so far
 
+    def _model_kwargs(self) -> dict:
+        """The model's kwargs: the config's, plus what the reference's
+        _model_kwargs adds per task."""
+        cfg = self.cfg
+        kw = dict(cfg.model_kwargs)
+        if cfg.task == "lm":
+            # the model remats per block (models/transformer.py), as the
+            # reference's LM does
+            if cfg.remat:
+                kw.setdefault("remat", True)
+                kw.setdefault("remat_policy", cfg.remat_policy)
+            if cfg.flash_block_q:
+                kw.setdefault("flash_block_q", cfg.flash_block_q)
+            if cfg.flash_block_k:
+                kw.setdefault("flash_block_k", cfg.flash_block_k)
+            # synthetic targets draw from cfg.vocab_size: the head must
+            # match
+            kw.setdefault("vocab_size", cfg.vocab_size)
+            return kw
+        # labels draw from cfg.num_classes: a head of another size would
+        # see labels out of range
+        if kw.get("num_classes", cfg.num_classes) != cfg.num_classes:
+            raise ValueError(
+                f"model_kwargs.num_classes={kw['num_classes']} conflicts "
+                f"with num_classes={cfg.num_classes}; set the top-level "
+                "num_classes only")
+        kw.setdefault("num_classes", cfg.num_classes)
+        return kw
+
     def data_iter(self, data_path: str | None = None,
                   seed: int | None = None) -> Iterator[dict]:
-        """Host batches: KFR1 token shards matching `data_path` (default
-        cfg.data_path; packed shards add segment_ids and -1 targets at
-        padding and document boundaries), else synthetic tokens."""
+        """Host batches: KFR1 shards matching `data_path` (default
+        cfg.data_path): image shards for classification, token shards
+        for the LM (packed shards add segment_ids and -1 targets at
+        padding and document boundaries); else the task's synthetic
+        batches."""
         cfg = self.cfg
         data_path = data_path if data_path is not None else cfg.data_path
         seed = seed if seed is not None else cfg.seed
         if data_path:
-            from kubeflow_tpu_torch.runtime.records import token_batches
+            from kubeflow_tpu_torch.runtime.records import (
+                image_batches,
+                token_batches,
+            )
 
             paths = sorted(glob.glob(data_path))
             if not paths:
                 raise FileNotFoundError(f"no shards match {data_path!r}")
+            if cfg.task == "classification":
+                return image_batches(paths, cfg.global_batch, cfg.image_size,
+                                     shuffle_buffer=cfg.shuffle_buffer,
+                                     seed=seed, loop=True)
             return token_batches(paths, cfg.global_batch, cfg.seq_len,
                                  shuffle_buffer=cfg.shuffle_buffer,
                                  seed=seed, loop=True,
                                  segmented=cfg.packed_data)
+        if cfg.task == "classification":
+            return synthetic_images(cfg.global_batch, cfg.image_size,
+                                    cfg.num_classes, seed)
+        if cfg.task == "seq_classification":
+            return synthetic_token_classes(cfg.global_batch, cfg.seq_len,
+                                           cfg.vocab_size, cfg.num_classes,
+                                           seed)
         return synthetic_tokens(cfg.global_batch, cfg.seq_len, cfg.vocab_size,
                                 seed)
 
@@ -239,18 +299,26 @@ class Trainer:
     def payload(self) -> dict:
         """The training state as the checkpoint payload (live device
         tensors; runtime/checkpoint.py copies them to the host): the
-        update count, the model's state_dict, no batch stats, and each
-        parameter's optimizer state by parameter name."""
-        state = {n: self.opt.state[p]
-                 for n, p in self.model.named_parameters()
+        update count, the model's parameters, its BatchNorm statistics
+        (`batch_stats`: the buffers of the state_dict, empty for the LM,
+        ViT and BERT), and each parameter's optimizer state by parameter
+        name."""
+        named = dict(self.model.named_parameters())
+        sd = self.model.state_dict()
+        state = {n: self.opt.state[p] for n, p in named.items()
                  if p in self.opt.state}
-        return {"step": self.step, "params": self.model.state_dict(),
-                "batch_stats": {}, "opt_state": state}
+        return {"step": self.step,
+                "params": {n: t for n, t in sd.items() if n in named},
+                "batch_stats": {n: t for n, t in sd.items()
+                                if n not in named},
+                "opt_state": state}
 
     def load_payload(self, payload: dict) -> None:
         """Load a checkpoint payload into the model and the optimizer
         (rebuilt from the config: only its state is data)."""
-        self.model.load_state_dict(payload["params"], strict=True)
+        self.model.load_state_dict(
+            {**payload["params"], **(payload.get("batch_stats") or {})},
+            strict=True)
         names = [n for n, _ in self.model.named_parameters()]
         opt_state = payload.get("opt_state") or {}
         unknown = set(opt_state) - set(names)
@@ -267,7 +335,10 @@ class Trainer:
     def loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """(loss, accuracy) of one batch, differentiable in the loss."""
         cfg = self.cfg
-        x, y = batch["tokens"], batch["targets"]
+        x, y = _batch_xy(cfg, batch)
+        if cfg.task != "lm":
+            logits = self.model(x)
+            return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
         seg = batch.get("segment_ids")
         if cfg.xent_chunks > 1:
             from kubeflow_tpu_torch.ops.xent import chunked_lm_xent
@@ -296,10 +367,10 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
-        """{"loss", "accuracy"} of one batch in eval mode, as device
-        scalars; the chunked head when training chunks it (a config that
-        only fits because of the chunks must not run out of memory at
-        its first eval)."""
+        """{"loss", "accuracy"} of one batch in eval mode (BatchNorm on
+        its running statistics), as device scalars; the chunked head when
+        training chunks it (a config that only fits because of the
+        chunks must not run out of memory at its first eval)."""
         was_training = self.model.training
         self.model.eval()
         try:
@@ -320,7 +391,7 @@ class Trainer:
         for m in range(self.accum):
             micro = {k: v[m::self.accum] for k, v in batch.items()}
             loss, acc = self.loss(micro)
-            n = (micro["targets"] >= 0).sum().float()
+            n = (_batch_xy(self.cfg, micro)[1] >= 0).sum().float()
             (loss * n).backward()
             loss_sum = loss_sum + loss.detach() * n
             acc_sum = acc_sum + acc.detach() * n
@@ -332,8 +403,21 @@ class Trainer:
         return loss_sum / n, acc_sum / n
 
     def flops_per_step(self) -> float:
-        """Analytic train-step FLOPs (2 per MAC, train = 3x forward)."""
+        """Analytic train-step FLOPs (2 per MAC, train = 3x forward), as
+        the reference counts them: a ResNet by `fwd_flops`, a ViT by
+        `fwd_flops_per_image`, an LM or BERT by `flops_per_token`."""
         cfg = self.cfg
+        if cfg.model.startswith("resnet"):
+            from kubeflow_tpu_torch.models.resnet import fwd_flops
+
+            per_image = fwd_flops(
+                cfg.model, image_size=cfg.image_size,
+                num_classes=cfg.num_classes,
+                num_filters=cfg.model_kwargs.get("num_filters", 64),
+                stem=cfg.model_kwargs.get("stem", "conv7"))
+            return 3.0 * per_image * cfg.global_batch
+        if hasattr(self.model, "fwd_flops_per_image"):
+            return 3.0 * self.model.fwd_flops_per_image() * cfg.global_batch
         return (self.model.flops_per_token(seq_len=cfg.seq_len)
                 * cfg.global_batch * cfg.seq_len)
 
@@ -419,7 +503,9 @@ class Trainer:
                 if hasattr(eval_iter, "close"):
                     eval_iter.close()    # a native reader's thread
             last_eval = {k: v / max(1, cfg.eval_steps) for k, v in sums.items()}
-            last_eval["perplexity"] = math.exp(min(last_eval["loss"], 30.0))
+            if cfg.task == "lm":
+                last_eval["perplexity"] = math.exp(min(last_eval["loss"],
+                                                       30.0))
             # without eval_data_path this reads the TRAINING source at a
             # shifted seed: marked so it is not taken for held-out numbers
             smoke = not cfg.eval_data_path

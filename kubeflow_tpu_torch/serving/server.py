@@ -1,5 +1,5 @@
-"""LM model server: the TF-Serving REST surface over the port's decode
-path (port of kubeflow_tpu/serving/server.py, the LM generator).
+"""Model server: the TF-Serving REST surface over the port's classifiers
+and its decode path (port of kubeflow_tpu/serving/server.py).
 
 Endpoints:
 - GET  /v1/models                              -> inventory
@@ -8,6 +8,13 @@ Endpoints:
 - POST /v1/models/{model}:predict              -> {"predictions": [...]}
 - POST /v1/models/{model}/versions/{v}:predict
 - GET  /healthz, /readyz, /metrics
+
+`serve_flax_classifier` serves a registry classifier (ResNet, ViT,
+BERT) as softmax rows over its f32 logits, in eval mode (BatchNorm on
+its running statistics); weights from the latest step of a port training
+checkpoint (`checkpoint_dir`, params and batch_stats), else random from
+`seed`. The CLI's default, with neither `--model` nor `--lm`, is the
+reference's: `mnist=resnet18` with 10 classes.
 
 `serve_lm_generator` serves a registry LM: prompts are left-padded or
 trimmed to `prompt_len` and decoded for `max_new_tokens` by generate()
@@ -20,11 +27,13 @@ from the latest step of a port training checkpoint (`checkpoint_dir`,
 `draft_checkpoint_dir`: runtime/checkpoint.py restore_variables, params
 only; a missing or empty directory fails at registration), else random
 from `seed` (the draft's from `seed + 1`), on the device (cuda unless
-device="cpu"), then cast or quantized per `param_dtype`. Not ported
-yet, each raising NotImplementedError with its ROADMAP item: the
-classifier server (`--model`, slice 5) and mesh serving (slice 4).
+device="cpu"), then cast or quantized per `param_dtype`. Mesh serving
+is not ported yet and raises NotImplementedError with its ROADMAP item
+(Queue 1 item 17).
 
 Usage:
+    python -m kubeflow_tpu_torch.serving [--device cpu]    # mnist=resnet18
+    python -m kubeflow_tpu_torch.serving --model cls=resnet18@ckpt/
     python -m kubeflow_tpu_torch.serving --lm chat=gpt-350m \\
         --prompt-len 512 --max-new-tokens 64 --param-dtype int8 \\
         --continuous-batching --decode-slots 16 [--device cpu]
@@ -513,10 +522,68 @@ class ModelServer:
 # model builders
 
 
-def serve_flax_classifier(*args, **kwargs) -> ServedModel:
-    raise NotImplementedError(
-        "the classifier server needs ResNet, which is not ported yet "
-        "(ROADMAP Queue 1, slice 5)")
+def serve_flax_classifier(name: str, model_name: str,
+                          input_key: str | None = None, seed: int = 0,
+                          checkpoint_dir: str | None = None,
+                          mesh: Any | None = None,
+                          device: str | torch.device | None = None,
+                          **model_kwargs) -> ServedModel:
+    """A registry classifier as a ServedModel: each predict returns the
+    softmax over the f32 logits, one row per instance. Instances are
+    arrays (images [H, W, C] for ResNet and ViT, token ids for BERT), or
+    dicts holding one under `input_key`.
+
+    With `checkpoint_dir` the model is built here and loads the latest
+    step of a port training checkpoint, params and batch_stats (a
+    missing or empty directory raises here, at registration). Without
+    it the weights are random from `seed` and the model is built at the
+    first predict, a ResNet with that batch's channel count (flax
+    infers it from the input at init), as the reference's does."""
+    from kubeflow_tpu_torch.device import resolve_device
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.checkpoint import restore_variables
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh serving is not ported yet (ROADMAP Queue 1 item 17)")
+    dev = resolve_device(device)
+    built: list = []
+    lock = threading.Lock()
+
+    def build(channels: int | None):
+        kw = dict(model_kwargs)
+        if channels is not None and model_name.startswith("resnet"):
+            kw.setdefault("in_channels", channels)
+        model = get_model(model_name, device=dev, seed=seed, **kw)
+        model.eval()
+        return model
+
+    if checkpoint_dir:
+        variables, step = restore_variables(checkpoint_dir)
+        model = build(None)
+        model.load_state_dict({**variables["params"],
+                               **variables.get("batch_stats", {})},
+                              strict=True)
+        built.append(model)
+        log.info("model %s: restored variables from %s step %d", name,
+                 checkpoint_dir, step)
+
+    @torch.no_grad()
+    def predict(batch):
+        x = batch[input_key] if input_key and isinstance(batch, dict) \
+            else batch
+        x = torch.from_numpy(np.asarray(x)).to(dev)
+        if not built:
+            with lock:
+                if not built:
+                    built.append(build(x.shape[-1] if x.ndim == 4 else None))
+        model = built[0]
+        x = x.float() if x.is_floating_point() else x.long()
+        return torch.softmax(model(x).float(), dim=-1).cpu().numpy()
+
+    return ServedModel(name=name, predict_fn=predict,
+                       signature={"inputs": input_key or "array",
+                                  "method_name": "predict"})
 
 
 def cast_params(params: dict[str, torch.Tensor], dtype
@@ -601,7 +668,7 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
             f"no checkpoint under {draft_checkpoint_dir}")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1, slice 4)")
+            "mesh serving is not ported yet (ROADMAP Queue 1 item 17)")
     # the verify chunk writes up to draft_k positions past the last token
     seq_budget = prompt_len + max_new_tokens + (draft_k if draft_model else 0)
     if kv_pages and not continuous_batching:
@@ -817,10 +884,13 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--model", action="append", default=[],
-                   help="name=zoo_model classifier (not ported yet)")
+                   help="name=zoo_model[@ckpt_dir] classifier, e.g. "
+                        "mnist=resnet18 (the default when neither --model "
+                        "nor --lm is given)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="port training checkpoint to serve the LM from "
-                        "(its latest step; `--lm name=model@dir` per model)")
+                   help="port training checkpoint to serve from (its "
+                        "latest step): the one --model's, else the LMs'; "
+                        "`name=model@dir` per model")
     p.add_argument("--lm", action="append", default=[],
                    help="generative LM entry: name=zoo_model, e.g. "
                         "chat=gpt-350m")
@@ -853,13 +923,23 @@ def main(argv: list[str] | None = None) -> int:
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    if args.model or not args.lm:
-        serve_flax_classifier()
     if args.mesh:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1, slice 4)")
+            "mesh serving is not ported yet (ROADMAP Queue 1 item 17)")
+    # the default classifier only when nothing at all was asked for
+    models = args.model or ([] if args.lm else ["mnist=resnet18"])
+    if args.checkpoint_dir and len(models) > 1:
+        p.error("--checkpoint-dir applies to exactly one --model; use "
+                "name=zoo@ckpt_dir for several")
     server = ModelServer()
     try:
+        for spec in models:
+            name, _, zoo = spec.partition("=")
+            zoo, _, ckpt = zoo.partition("@")
+            server.register(serve_flax_classifier(
+                name, zoo or "resnet18", num_classes=10,
+                checkpoint_dir=ckpt or args.checkpoint_dir,
+                device=args.device))
         for spec in args.lm:
             name, _, zoo = spec.partition("=")
             zoo, _, ckpt = zoo.partition("@")
@@ -872,7 +952,8 @@ def main(argv: list[str] | None = None) -> int:
                 prefix_cache=not args.no_prefix_cache,
                 param_dtype=args.param_dtype,
                 max_inflight=args.max_inflight,
-                checkpoint_dir=ckpt or args.checkpoint_dir,
+                checkpoint_dir=ckpt or (None if models
+                                        else args.checkpoint_dir),
                 draft_model=args.draft_model, draft_k=args.draft_k,
                 draft_checkpoint_dir=args.draft_checkpoint_dir,
                 device=args.device,

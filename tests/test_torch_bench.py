@@ -47,3 +47,25 @@ def test_bench_needs_a_gpu():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.main(["--steps", "1"])
+
+
+def test_resnet_workload_is_run_resnet_s_config():
+    args = bench.parse_args(["--workload", "resnet"])
+    cfg = bench.resnet_config(args)
+    # bench.py run_resnet's fixed values and defaults
+    assert (cfg.model, cfg.task, cfg.global_batch, cfg.image_size,
+            cfg.num_classes) == ("resnet50", "classification", 256, 224, 1000)
+    assert cfg.model_kwargs == {"stem": "space_to_depth"}
+    assert (cfg.optimizer, cfg.learning_rate, cfg.warmup_steps,
+            cfg.total_steps, cfg.remat) == ("sgdm", 0.1, 5, 20, False)
+    cfg = bench.resnet_config(bench.parse_args([
+        "--workload", "resnet", "--model", "resnet18", "--batch", "64",
+        "--image-size", "128", "--stem", "conv7", "--steps", "3"]))
+    assert (cfg.model, cfg.global_batch, cfg.image_size, cfg.total_steps,
+            cfg.model_kwargs) == ("resnet18", 64, 128, 3, {"stem": "conv7"})
+    with pytest.raises(NotImplementedError, match="item 19b"):
+        bench.resnet_config(bench.parse_args(["--workload", "resnet",
+                                              "--resnet-remat", "full"]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench.main(["--workload", "resnet", "--steps", "1"])

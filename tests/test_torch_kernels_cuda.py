@@ -225,3 +225,52 @@ def test_prefetcher_copies_on_a_side_stream(dev):
             next(pf)
     finally:
         pf.close()
+
+
+def test_resnet50_one_step_on_the_card_equals_the_cpu(dev):
+    """chip_smoke's phase 18 outside it: ResNet-50 at full width and
+    depth, batch 8, 224px, the same weights on the card and the CPU, f32
+    with TF32 off. After one sgdm step the eval-mode logits and every
+    BatchNorm statistic agree within 1e-3 relative, every parameter
+    within 1e-2 per row (kernel_check's limit)."""
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig.from_dict({
+        "model": "resnet50", "task": "classification", "global_batch": 8,
+        "image_size": 224, "optimizer": "sgdm", "learning_rate": 0.1,
+        "warmup_steps": 0, "total_steps": 10,
+        "model_kwargs": {"stem": "space_to_depth", "dtype": "float32"}})
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu = Trainer(cfg, device="cpu")
+        card = Trainer(cfg, device=dev)
+        card.model.load_state_dict(cpu.model.state_dict())
+        host = next(cpu.data_iter())
+        out = {}
+        for tag, t in (("cpu", cpu), ("card", card)):
+            batch = t._to_device(host)
+            t.train_step(batch)
+            t.model.eval()
+            with torch.no_grad():
+                logits = t.model(batch["image"]).float().cpu()
+            out[tag] = (logits, {k: v.float().cpu() for k, v in
+                                 t.model.state_dict().items()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (want, want_sd), (got, got_sd) = out["cpu"], out["card"]
+    for g, w in zip(got, want):
+        assert float((g - w).norm() / w.norm()) <= 1e-3
+    params = {n for n, _ in cpu.model.named_parameters()}
+    for name, w in want_sd.items():
+        g = got_sd[name]
+        if name in params:
+            rows = (lambda t: t.reshape(t.shape[0], -1) if t.ndim > 1
+                    else t[None])
+            err = kernel_check.errors(rows(g), rows(w))["max_row_err"]
+            assert err <= kernel_check.ROW_TOL, name
+        else:
+            assert float((g - w).norm() / w.norm()) <= 1e-3, name

@@ -156,3 +156,38 @@ def test_imports_and_serves_with_jax_triton_and_prometheus_blocked():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert len(got["preds"]) == 1 and len(got["preds"][0]) == 4
+
+
+def test_classification_modules_are_scanned_and_build_without_jax():
+    """The classification slice's modules are in the scans above, and
+    every classifier builds under the reference's registry name with
+    jax, flax and triton unimportable."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    for path in ("models/resnet.py", "models/vit.py", "models/bert.py",
+                 "models/encoder.py", "runtime/data.py", "runtime/records.py",
+                 "runtime/trainer.py", "serving/server.py", "convert.py",
+                 "bench.py"):
+        assert f"kubeflow_tpu_torch/{path}" in scanned, path
+    code = (
+        "import importlib.abc, json, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',\n"
+        "                                  'triton', 'kubeflow_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from kubeflow_tpu_torch.models.registry import get_model\n"
+        "names = ['resnet18', 'resnet50', 'resnet101', 'vit-test',\n"
+        "         'vit-s16', 'vit-b16', 'bert-test', 'bert-base']\n"
+        "sizes = {n: sum(p.numel() for p in\n"
+        "                get_model(n, device='meta').parameters())\n"
+        "         for n in names}\n"
+        "print(json.dumps(sizes))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    sizes = json.loads(out.stdout.strip().splitlines()[-1])
+    # the published sizes: ResNet-50 25.6M, ViT-B/16 ~86M, BERT-base ~110M
+    assert 25.5e6 < sizes["resnet50"] < 25.6e6
+    assert 85e6 < sizes["vit-b16"] < 88e6
+    assert 100e6 < sizes["bert-base"] < 112e6

@@ -98,16 +98,18 @@ def test_train_config_rejects_unknown_keys():
 
 
 @pytest.mark.parametrize("kw", [
-    {"task": "classification"},
-    {"task": "classification", "checkpoint_dir": "ckpt"},
-    {"task": "seq_classification", "data_path": "shards-*"},
-    {"task": "seq_classification", "eval_every": 5}])
+    {"task": "classification", "model": "resnet18", "remat": True},
+    {"task": "classification", "model": "vit-test", "remat": True,
+     "checkpoint_dir": "ckpt"},
+    {"task": "seq_classification", "model": "bert-test",
+     "model_kwargs": {"dtype": "float32", "attention_impl": "ring"}},
+    {"model_kwargs": {"dtype": "float32", "moe_every": 2}}])
 def test_unported_config_raises(kw):
-    # checkpoints, shards, eval and profiling are ported for task="lm"
-    # (tests/test_torch_checkpoint.py, test_torch_runtime_hooks.py); the
-    # other tasks still raise with any of them
+    # every task is ported (tests/test_torch_classification.py); what
+    # still raises is whole-forward remat for the classifiers, BERT's
+    # ring attention and the LM's MoE blocks, each naming its ROADMAP item
     cfg = _cfg(ttrainer, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         ttrainer.Trainer(cfg, device="cpu")
 
 
