@@ -180,6 +180,28 @@
    and ViT's logits within 2e-2 per row (BERT's two logits a row are
    printed, not held: the reference's own bf16 logits miss that limit,
    tests/test_torch_bert.py).
+21. The world on one card (`examples/gpt-125m.yaml`'s model and data
+   shape at full width and depth: gpt-125m, seq 1024, vocab 32000,
+   global batch 64, adamw, remat; mesh data 2, since the yaml's fsdp 4 x
+   model 2 needs 8 GPUs): (a) two port launchers
+   (`JAXJOB_NUM_PROCESSES=2`, `JAXJOB_PROCESS_ID` 0 and 1, a local
+   coordinator, `--nproc-per-node 1`) share the card over gloo (NCCL
+   refuses two ranks on one device) for 3 steps at local batch 32: both
+   print the same losses, each launches each flash kernel 12 times a
+   step (the forward 24: full remat replays it), and the final params
+   equal one process at global batch 64 per row within 1e-2, the final
+   loss within 1e-3 relative; prints each rank's step time and the
+   gradient reduce's share of it (the `train.grad_reduce` spans). (b)
+   the same world to a total of 5 steps, rank 1 SIGTERMed after step 2:
+   both ranks stop at one step and exit 75; one process resumes that
+   world-2 checkpoint at world 1 to step 5 and is held like (a) against
+   5 straight one-process steps.
+22. NCCL at one rank: a one-rank NCCL world through the port's `gpu`
+   backend, a DeviceMesh on cuda, an all-reduce, a reduce-scatter /
+   all-gather round trip and the backend's hierarchical_reduce on card
+   tensors, held exactly; prints the NCCL version. Multi-rank NCCL,
+   FSDP and tensor parallelism need more than one GPU: they are held on
+   the CPU (tests/test_torch_spmd.py).
 Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
@@ -188,7 +210,8 @@ Any failure exits non-zero. The lines before the last hold the
 (run B: 16 a step of each kernel, 16 more forwards per eval batch), and
 the serving, rolling, speculative, router and checkpoint-serving paths
 and the classification paths (resnet50, classifier, vit-b16,
-bert-base), which must run none of them; the flash forward's row also holds its
+bert-base), which must run none of them, and `world_rank0` /
+`world_rank1`, phase 21 (a)'s ranks; the flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -202,6 +225,7 @@ import io
 import json
 import math
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -2181,6 +2205,433 @@ def encoder_phase(name: str, card: str) -> dict:
     return out
 
 
+WORLD_YAML = "examples/gpt-125m.yaml"
+WORLD_STEPS = 3                 # (a): steps of each run
+WORLD_RESUME_STEPS = 5          # (b): the schedule's total and the resumed end
+WORLD_SIGTERM_AFTER = 2         # (b): rank 1's "step 2" line
+WORLD_ROW_TOL = 1e-2            # final params per row, as kernel_check's
+WORLD_LOSS_RTOL = 1e-3
+# The parameter change (final minus initial) of a world against one
+# process's, per row relative to that row of one process's change
+# (kernel_check.errors). The schedule's first learning rates are 0, 3e-6,
+# 6e-6 (warmup 100): the params move by ~1e-5, so their own rows cannot
+# tell a wrong world from a right one, their change can. The limit is
+# set from the sound runs' readings on an H100 (0.074 for (a)'s ranks,
+# 0.076 for (b)'s resume; bf16 rounding at other batch splits, which
+# AdamW's sign-like first steps magnify) against the controls' (1.27 and
+# 0.84): the phase plants a control, the same world with the gradient
+# reduce skipped, that must exceed it.
+WORLD_DELTA_TOL = 0.25
+
+
+def world_config(root, tag: str, data: int, total_steps: int,
+                 checkpoint_every: int = 0) -> dict:
+    """examples/gpt-125m.yaml's model and data shape at full width and
+    depth (gpt-125m, seq 1024, vocab 32000, global batch 64, adamw,
+    remat), on a data-parallel mesh of `data` ranks (the yaml's fsdp 4 x
+    model 2 needs 8 GPUs), a checkpoint directory per run."""
+    from kubeflow_tpu_torch.utils import yaml_lite
+
+    here = Path(__file__).resolve().parent
+    cfg = yaml_lite.loads((here / WORLD_YAML).read_text())
+    cfg.update(mesh={"data": data}, total_steps=total_steps, log_every=1,
+               checkpoint_every=checkpoint_every,
+               checkpoint_dir=str(root / f"{tag}_ckpt"))
+    return cfg
+
+
+def world_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --world-worker DUMP STEPS FAULT LAUNCHER-ARGS...`:
+    the port launcher in this process, as one rank of phase 21. At each
+    global step in STEPS (comma-separated) the trainer's parameter
+    change since fit began (f32, on the host) is saved to
+    `DUMP.<step>.pt` (DUMP `-`: none). FAULT `no-reduce` is the phase's
+    control: the trainer skips its gradient reduce, so each rank steps
+    on its own rows' gradients; `none` runs the port as it is."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime import launcher
+    from kubeflow_tpu_torch.runtime import trainer as T
+
+    dump, steps, fault = argv[:3]
+    steps = {int(x) for x in steps.split(",") if x}
+    fit = T.Trainer.fit
+
+    def params(trainer) -> dict:
+        return {n: p.detach().to("cpu", torch.float32, copy=True)
+                for n, p in trainer.model.named_parameters()}
+
+    def fit_dumping(self, *args, **kwargs):
+        init = params(self)         # a resumed run restores inside fit
+
+        def at_step(i, m):
+            if self.step in steps:
+                torch.save({n: v - init[n] for n, v in params(self).items()},
+                           f"{dump}.{self.step}.pt")
+
+        return fit(self, *args, callback=at_step, **kwargs)
+
+    if dump != "-":
+        T.Trainer.fit = fit_dumping
+    if fault == "no-reduce":
+        T.Trainer._reduce_grads = lambda self: None
+    elif fault != "none":
+        fail(f"world worker: unknown fault {fault!r}")
+    return launcher.main(argv[3:])
+
+
+def _free_port_pair() -> int:
+    """A port p with p + 1 free too (the loopback backend's barrier binds
+    p, its gloo store p + 1)."""
+    import socket
+
+    for _ in range(100):
+        with socket.socket() as a, socket.socket() as b:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            try:
+                b.bind(("127.0.0.1", p + 1))
+            except OSError:
+                continue
+            return p
+    fail("no two adjacent free ports")
+
+
+def _launch_world(cfg: dict, root, tag: str, world: int,
+                  sigterm_after: int | None = None, dump_steps=(),
+                  fault: str = "none") -> list[dict]:
+    """`world` port launchers as subprocesses on one card
+    (`world_worker`), one per JAXJOB_PROCESS_ID around one coordinator,
+    through the loopback collectives backend (a gloo world: NCCL refuses
+    two ranks on one device), `--nproc-per-node 1`; rank 1 is SIGTERMed
+    after its "step N" line when `sigterm_after` is given; each rank's
+    parameter change at `dump_steps` goes to `<tag>.rank<r>.<step>.pt`.
+    Returns each rank's exit code, output, summary, flash launches and
+    spans."""
+    import os
+    import signal
+
+    from kubeflow_tpu_torch.obs import trace as obs_trace
+
+    cfg_path = root / f"{tag}.json"
+    cfg_path.write_text(json.dumps(cfg))
+    port = _free_port_pair()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(world):
+        logs.append(root / f"{tag}.rank{rank}.log")
+        # the ranks split the host's cores
+        env = {**os.environ, "JAXRT_METRICS_PORT": "0",
+               "KFTPU_TRACE_FILE": str(root / f"{tag}.rank{rank}.trace"),
+               "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // world))}
+        if world > 1:
+            env.update(JAXJOB_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAXJOB_NUM_PROCESSES=str(world),
+                       JAXJOB_PROCESS_ID=str(rank),
+                       JAXJOB_COLLECTIVES_BACKEND="loopback")
+        dump = str(root / f"{tag}.rank{rank}") if dump_steps else "-"
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--world-worker",
+             dump, ",".join(map(str, dump_steps)), fault,
+             "--config", str(cfg_path), "--nproc-per-node", "1"],
+            cwd=str(Path(__file__).resolve().parent), env=env,
+            stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + 600
+        if sigterm_after is not None:
+            while not re.search(rf"\bstep {sigterm_after} loss=",
+                                logs[1].read_text()):
+                if time.monotonic() > deadline or procs[1].poll() is not None:
+                    print(logs[1].read_text()[-6000:], flush=True)
+                    fail(f"world {tag}: rank 1 never logged step "
+                         f"{sigterm_after}")
+                time.sleep(0.2)
+            procs[1].send_signal(signal.SIGTERM)
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    runs = []
+    for rank, rc in enumerate(rcs):
+        out = logs[rank].read_text()
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"summary"')]
+        if not lines:
+            print(out[-6000:], flush=True)
+            fail(f"world {tag} rank {rank}: exit {rc} with no summary line")
+        m = re.findall(r"flash kernel launches: (\{.*\})", out)
+        trace = root / f"{tag}.rank{rank}.trace"
+        runs.append({"rc": rc, "out": out, "wall": wall,
+                     "summary": json.loads(lines[-1])["summary"],
+                     "launches": json.loads(m[-1]) if m else None,
+                     "spans": obs_trace.read_jsonl(str(trace))
+                     if trace.exists() else []})
+    return runs
+
+
+def _final_params(run_root, tag: str, step: int | None = None) -> tuple:
+    from kubeflow_tpu_torch.runtime.checkpoint import restore_params
+
+    return restore_params(str(run_root / f"{tag}_ckpt"), step)
+
+
+def _hold_params(name: str, got: tuple, want: tuple, tol: float) -> float:
+    """Every parameter of checkpoint `got` against `want` per row; the
+    largest row error."""
+    (gp, gstep), (wp, wstep) = got, want
+    if gstep != wstep or set(gp) != set(wp):
+        fail(f"{name}: checkpoint step {gstep} vs {wstep}, "
+             f"{len(gp)} vs {len(wp)} params")
+    worst = 0.0
+    for k, w in wp.items():
+        g, w = gp[k].float(), w.float()
+        if g.ndim < 2:
+            g, w = g[None], w[None]
+        e = check_rows(f"{name} {k}", g.reshape(g.shape[0], -1),
+                       w.reshape(w.shape[0], -1), tol)
+        worst = max(worst, e["max_row_err"])
+    return worst
+
+
+def _delta_errors(got_path, want_path) -> dict:
+    """A run's parameter change against one process's (`world_worker`'s
+    dumps), on the card: the largest per-row error over every parameter
+    (kernel_check.errors: each row's L2 error over that row's L2 norm of
+    one process's change), the parameter it is in, and the whole change's
+    L2 error over its L2 norm."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import kernel_check
+
+    got = torch.load(got_path, map_location="cuda", weights_only=True)
+    want = torch.load(want_path, map_location="cuda", weights_only=True)
+    if set(got) != set(want):
+        fail(f"{got_path}: {len(got)} params vs {len(want)}")
+    worst, where, diff2, norm2 = -1.0, "", 0.0, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.ndim < 2:
+            g, w = g[None], w[None]
+        g, w = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
+        e = kernel_check.errors(g, w)["max_row_err"]
+        if e > worst:
+            worst, where = e, k
+        diff2 += float((g - w).square().sum())
+        norm2 += float(w.square().sum())
+    return {"max_row_err": worst, "param": where,
+            "whole": math.sqrt(diff2 / max(norm2, 1e-30))}
+
+
+def _hold_delta(name: str, got_path, want_path, control_path) -> str:
+    """Hold a world's parameter change against one process's within
+    WORLD_DELTA_TOL per row, and the control's beyond it (else the check
+    could not tell a world without its reduce from a right one)."""
+    e = _delta_errors(got_path, want_path)
+    c = _delta_errors(control_path, want_path)
+    if not e["max_row_err"] <= WORLD_DELTA_TOL:
+        fail(f"{name}: parameter change max row err {e['max_row_err']:.4g} "
+             f"in {e['param']} (limit {WORLD_DELTA_TOL}; whole "
+             f"{e['whole']:.4g})")
+    if not c["max_row_err"] > WORLD_DELTA_TOL:
+        fail(f"{name}: the control (no gradient reduce) reads "
+             f"{c['max_row_err']:.4g} per row, within the limit "
+             f"{WORLD_DELTA_TOL}: the check cannot fail a wrong world")
+    return (f"parameter change max row err {e['max_row_err']:.4g} "
+            f"({e['param']}; whole {e['whole']:.4g}) against the control's "
+            f"{c['max_row_err']:.4g} ({c['param']}; whole {c['whole']:.4g}), "
+            f"limit {WORLD_DELTA_TOL}")
+
+
+def _reduce_share(run: dict) -> tuple[float, float]:
+    """(mean metered step s, mean gradient-reduce s): the train.grad_reduce
+    spans (the reduce's time on the card, CUDA events) after the first
+    step's."""
+    reduces = [s.duration for s in run["spans"]
+               if s.name == "train.grad_reduce"][1:]
+    step = run["summary"]["step_time_s"]
+    return step, (sum(reduces) / len(reduces) if reduces else float("nan"))
+
+
+def _world_launches(run: dict, steps: int, tag: str) -> dict:
+    """Each flash kernel's launches on one rank: 12 layers a step; the
+    forward twice under the yaml's remat (policy full replays it)."""
+    want = {"flash_fwd": 2 * 12 * steps, "flash_bwd_dq": 12 * steps,
+            "flash_bwd_dkv": 12 * steps}
+    if run["launches"] != want:
+        fail(f"world {tag}: flash launches {run['launches']}, want {want}")
+    return run["launches"]
+
+
+def _ok(runs: list[dict], tag: str, rc: int = 0) -> None:
+    for r, run in enumerate(runs):
+        if run["rc"] != rc:
+            print(run["out"][-6000:], flush=True)
+            fail(f"world {tag} rank {r}: exit {run['rc']}, want {rc}")
+
+
+def world_phase(root) -> dict:
+    """Phase 21, the world on one card, against one process (5 straight
+    steps of examples/gpt-125m.yaml's model at full width and depth,
+    global batch 64, its parameter change dumped at steps 3 and 5).
+    (a) two port launchers share the card over gloo (mesh data 2, local
+    batch 32) for 3 steps: both print the same losses, each launches each
+    flash kernel 12 times a step (the forward 24: full remat replays it),
+    each rank's parameter change equals one process's per row within
+    WORLD_DELTA_TOL while the control's (the same world with the reduce
+    skipped) does not, the final params per row within 1e-2 and the
+    final loss within 1e-3 relative; prints each rank's step time and
+    the gradient reduce's share of it. (b) the same world with
+    total_steps 5, rank 1 SIGTERMed after step 2: both ranks stop at the
+    same step with exit 75; one process resumes that world-2 checkpoint
+    at world 1 (Preserve: the same global batch) to step 5, held like
+    (a) against the straight steps, and so is the control's checkpoint
+    resumed the same way, which must miss. Returns the launches."""
+    launches = {}
+    straight = _launch_world(
+        world_config(root, "straight", 1, WORLD_RESUME_STEPS,
+                     checkpoint_every=WORLD_STEPS), root, "straight", 1,
+        dump_steps=(WORLD_STEPS, WORLD_RESUME_STEPS))[0]
+    two = _launch_world(world_config(root, "two", 2, WORLD_STEPS), root,
+                        "two", 2, dump_steps=(WORLD_STEPS,))
+    control = _launch_world(world_config(root, "control", 2, WORLD_STEPS),
+                            root, "control", 2, dump_steps=(WORLD_STEPS,),
+                            fault="no-reduce")
+    _ok([straight, *two, *control], "(a)")
+    if "trainer mesh: Mesh(data=2) on 2x " not in two[0]["out"]:
+        fail("world (a): rank 0 did not build the data=2 mesh")
+    losses = [[ln.split("loss=")[1].split()[0] for ln in r["out"].splitlines()
+               if " loss=" in ln] for r in two]
+    if losses[0] != losses[1] or len(losses[0]) < WORLD_STEPS - 1:
+        fail(f"world (a): rank losses differ {losses}")
+    for r, run in enumerate(two):
+        launches[f"world_rank{r}"] = _world_launches(run, WORLD_STEPS,
+                                                     f"(a) rank {r}")
+    _world_launches(straight, WORLD_RESUME_STEPS, "one process")
+    one = root / f"straight.rank0.{WORLD_STEPS}.pt"
+    held = [_hold_delta(f"world (a) rank {r}",
+                        root / f"two.rank{r}.{WORLD_STEPS}.pt", one,
+                        root / f"control.rank0.{WORLD_STEPS}.pt")
+            for r in range(2)]
+    worst = _hold_params("world (a) params", _final_params(root, "two"),
+                         _final_params(root, "straight", WORLD_STEPS),
+                         WORLD_ROW_TOL)
+    lo = two[0]["summary"]["final"]["loss"]
+    lw = float(re.search(rf"\bstep {WORLD_STEPS} loss=(\S+)",
+                         straight["out"]).group(1))
+    if not abs(lo - lw) <= WORLD_LOSS_RTOL * abs(lw):
+        fail(f"world (a): final loss {lo} vs one process {lw}")
+    shares = []
+    for r, run in enumerate(two):
+        step, red = _reduce_share(run)
+        shares.append(f"rank {r}: step {step * 1e3:.1f} ms, gradient reduce "
+                      f"{red * 1e3:.1f} ms ({100 * red / step:.1f}%)")
+    print(f"world (a) data 2 over gloo on one card (the yaml's fsdp 4 x "
+          f"model 2 needs 8 GPUs): losses {losses[0]}; final loss {lo:.6f} "
+          f"vs one process {lw:.4f}; rank 0 {held[0]}; rank 1 {held[1]}; "
+          f"params max row err {worst:.3g}; one process step "
+          f"{straight['summary']['step_time_s'] * 1e3:.1f} ms; "
+          + "; ".join(shares), flush=True)
+    shutil.rmtree(root / "two_ckpt", ignore_errors=True)
+
+    stop = _launch_world(world_config(root, "gang", 2, WORLD_RESUME_STEPS),
+                         root, "gang", 2, sigterm_after=WORLD_SIGTERM_AFTER)
+    _ok(stop, "(b)", rc=75)
+    steps = []
+    for r, run in enumerate(stop):
+        m = [ln for ln in run["out"].splitlines() if "preempted at step" in ln]
+        if not run["summary"].get("preempted") or not m:
+            print(run["out"][-6000:], flush=True)
+            fail(f"world (b) rank {r}: not preempted")
+        steps.append(int(m[-1].split("preempted at step ")[1].split(":")[0]))
+    if steps[0] != steps[1]:
+        fail(f"world (b): ranks stopped at steps {steps}")
+    # one process resumes the world's checkpoint, and the control's
+    res = _launch_world(world_config(root, "gang", 1, WORLD_RESUME_STEPS),
+                        root, "resume", 1,
+                        dump_steps=(WORLD_RESUME_STEPS,))[0]
+    res_control = _launch_world(
+        world_config(root, "control", 1, WORLD_RESUME_STEPS), root,
+        "resume_control", 1, dump_steps=(WORLD_RESUME_STEPS,))[0]
+    _ok([res, res_control], "(b) resume")
+    for name, run, at in (("resume", res, steps[0]),
+                          ("control resume", res_control, WORLD_STEPS)):
+        if run["summary"]["start_step"] != at:
+            fail(f"world (b) {name}: resumed at "
+                 f"{run['summary']['start_step']}, saved at {at}")
+    held = _hold_delta("world (b) resume",
+                       root / f"resume.rank0.{WORLD_RESUME_STEPS}.pt",
+                       root / f"straight.rank0.{WORLD_RESUME_STEPS}.pt",
+                       root / f"resume_control.rank0.{WORLD_RESUME_STEPS}.pt")
+    worst = _hold_params("world (b) params", _final_params(root, "gang"),
+                         _final_params(root, "straight"), WORLD_ROW_TOL)
+    lo = res["summary"]["final"]["loss"]
+    lw = straight["summary"]["final"]["loss"]
+    if not abs(lo - lw) <= WORLD_LOSS_RTOL * abs(lw):
+        fail(f"world (b): final loss {lo} vs straight {lw}")
+    print(f"world (b): SIGTERM to rank 1 after step {WORLD_SIGTERM_AFTER}: "
+          f"both ranks exit 75 at step {steps[0]}; world-2 checkpoint "
+          f"resumed at world 1 to step {WORLD_RESUME_STEPS}: final loss "
+          f"{lo:.6f} vs straight {lw:.6f}, {held}; params max row err "
+          f"{worst:.3g}", flush=True)
+    return launches
+
+
+def nccl_phase() -> None:
+    """Phase 22, NCCL at one rank: a one-rank NCCL world formed through
+    the port's hierarchical backend (`gpu`), its mesh (a DeviceMesh on
+    cuda), then an all-reduce on the world and a reduce-scatter /
+    all-gather round trip on the mesh's data group, on card tensors,
+    held exactly. Multi-rank NCCL, FSDP and tensor parallelism need
+    more than the one GPU this machine has; they are held on the CPU
+    (tests/test_torch_spmd.py)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.parallel import backends as B
+    from kubeflow_tpu_torch.parallel import dist as D
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    gpu = B.get_backend(B.BACKEND_GPU)
+    gpu.form_group(D.DistConfig(f"127.0.0.1:{port}", 1, 0), dev)
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"nccl phase: the group's backend is {dist.get_backend()}")
+        mesh = gpu.mesh({"data": -1}, "cuda")
+        if mesh.device_mesh is None or mesh.device_mesh.device_type != "cuda":
+            fail("nccl phase: no DeviceMesh on cuda")
+        x = torch.arange(4096.0, device=dev).reshape(64, 64)
+        y = x.clone()
+        dist.all_reduce(y)
+        g = mesh.device_mesh.get_group("data")
+        part = torch.empty_like(x)
+        dist.reduce_scatter_tensor(part, x, group=g)
+        back = torch.empty_like(x)
+        dist.all_gather_into_tensor(back, part, group=g)
+        red = gpu.hierarchical_reduce([x.clone()], mesh=mesh)[0]
+        torch.cuda.synchronize()
+        for name, t in (("all_reduce", y), ("reduce_scatter/all_gather", back),
+                        ("hierarchical_reduce", red)):
+            if not torch.equal(t, x):
+                fail(f"nccl phase: {name} differs from its input")
+        print(f"nccl: one rank, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+              ", all_reduce, reduce_scatter/all_gather and the gpu backend's "
+              "hierarchical_reduce exact on card tensors; multi-rank NCCL, "
+              "FSDP and tensor parallelism are held on the CPU only (one GPU "
+              "here)", flush=True)
+    finally:
+        gpu.leave()
+
+
 def main() -> int:
     try:
         import torch
@@ -2327,6 +2778,17 @@ def main() -> int:
         if any(launches[name].values()):
             fail(f"the {name} path launched flash kernels {launches[name]}"
                  ": the reference's classifiers reach no Pallas kernel")
+    # the world on one card: launcher subprocesses (their counts from each
+    # rank's log), then NCCL at one rank
+    world_root = _build.build_dir() / "chip_smoke_world"
+    shutil.rmtree(world_root, ignore_errors=True)
+    world_root.mkdir(parents=True)
+    try:
+        launches.update(timed_phase("world on one card", world_phase,
+                                    world_root))
+    finally:
+        shutil.rmtree(world_root, ignore_errors=True)
+    timed_phase("nccl", nccl_phase)
     for row in rows:
         row["launches"] = launches["pinned"][row["name"]]
         row["launches_by_path"] = {t: n[row["name"]]
@@ -2343,4 +2805,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(world_worker(sys.argv[2:]) if sys.argv[1:2] == ["--world-worker"]
+             else main())

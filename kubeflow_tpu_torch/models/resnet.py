@@ -97,12 +97,17 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("mean", torch.zeros(c, device=device))
         self.register_buffer("var", torch.ones(c, device=device))
+        # the process group of the data-parallel ranks (runtime/trainer.py):
+        # training statistics over the global batch
+        self.group = None
 
     def forward(self, x):
         x = x.to(self.dtype)
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
                                 training=False, eps=BN_EPS)
+        if self.group is not None:
+            return self._global(x)
         # torch moves the running variance toward the UNBIASED batch
         # variance, flax toward the biased one: let torch update a copy
         # (autograd keeps what it was given), then scale its step by
@@ -115,6 +120,49 @@ class BatchNorm(nn.Module):
             kept = self.var * BN_MOMENTUM
             self.var.copy_(kept + (var - kept) * ((n - 1) / n))
         return y
+
+
+    def _global(self, x):
+        """Batch statistics over every rank's rows: the per-channel count,
+        sum and sum of squares in f32, summed over the group (the
+        backward sums too: every rank's output depends on every rank's
+        rows), then flax's biased variance E[x^2] - E[x]^2."""
+        x32 = x.float()
+        stats = torch.cat([x32.sum((0, 2, 3)), x32.square().sum((0, 2, 3)),
+                           x32.new_full((1,), x.numel() // x.shape[1])])
+        stats = _SumOver.apply(stats, self.group)
+        c = x.shape[1]
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            self.mean.mul_(BN_MOMENTUM).add_(mean * (1.0 - BN_MOMENTUM))
+            self.var.mul_(BN_MOMENTUM).add_(var * (1.0 - BN_MOMENTUM))
+        shape = (1, c, 1, 1)
+        y = (x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
+        return (y * self.scale.view(shape) + self.bias.view(shape)).to(
+            self.dtype)
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over `group`, in both passes."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 class ResNetBlock(nn.Module):

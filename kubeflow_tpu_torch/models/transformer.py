@@ -41,7 +41,7 @@ from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops import flash_attention
 from kubeflow_tpu_torch.ops.attention import NEG_FILL, attention
 from kubeflow_tpu_torch.ops.quantize import symmetric_int8
-from kubeflow_tpu_torch.ops.xent import head_logits
+from kubeflow_tpu_torch.ops.xent import chunked_lm_xent, head_logits
 
 
 def as_dtype(dtype: Any) -> torch.dtype:
@@ -142,6 +142,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def _identity(x):
+    return x
 
 
 class RMSNorm(nn.Module):
@@ -337,15 +341,24 @@ class Attention(nn.Module):
         self.k = Dense(d, cfg.n_kv_heads * hd, dt, device)
         self.v = Dense(d, cfg.n_kv_heads * hd, dt, device)
         self.o = Dense(cfg.n_heads * hd, d, dt, device)
+        # tensor parallelism (parallel/shardings.py): the input's and the
+        # output's collectives, and the kv heads this rank's q heads use
+        # when the k/v projections replicate; the head counts are those
+        # of the (local) weights
+        self.tp_in = self.tp_out = _identity
+        self.kv_heads: list[int] | None = None
 
     def forward(self, x, positions, segment_ids=None, decode=None):
         cfg = self.cfg
         b, l, _ = x.shape
-        q = rope(self.q(x).view(b, l, cfg.n_heads, cfg.head_dim), positions,
+        x = self.tp_in(x)
+        q = rope(self.q(x).view(b, l, -1, cfg.head_dim), positions,
                  cfg.rope_theta)
-        k = rope(self.k(x).view(b, l, cfg.n_kv_heads, cfg.head_dim),
-                 positions, cfg.rope_theta)
-        v = self.v(x).view(b, l, cfg.n_kv_heads, cfg.head_dim)
+        k = self.k(x).view(b, l, -1, cfg.head_dim)
+        v = self.v(x).view(b, l, -1, cfg.head_dim)
+        if self.kv_heads is not None:
+            k, v = k[:, :, self.kv_heads], v[:, :, self.kv_heads]
+        k = rope(k, positions, cfg.rope_theta)
         if decode is not None:
             out = self._decode(q, k, v, decode)
         else:
@@ -354,7 +367,7 @@ class Attention(nn.Module):
                             block_q=cfg.flash_block_q,
                             block_k=cfg.flash_block_k,
                             window=cfg.attention_window)
-        return self.o(out.reshape(b, l, cfg.n_heads * cfg.head_dim))
+        return self.tp_out(self.o(out.reshape(b, l, -1)))
 
     def _decode(self, q, k, v, dec: Decode):
         """Write this chunk's k/v into the cache, then attend over it
@@ -526,9 +539,11 @@ class SwiGLU(nn.Module):
         self.gate = Dense(cfg.d_model, cfg.d_ff, dt, device)
         self.up = Dense(cfg.d_model, cfg.d_ff, dt, device)
         self.down = Dense(cfg.d_ff, cfg.d_model, dt, device)
+        self.tp_in = self.tp_out = _identity   # as Attention's
 
     def forward(self, x):
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        x = self.tp_in(x)
+        return self.tp_out(self.down(F.silu(self.gate(x)) * self.up(x)))
 
 
 class LMHead(nn.Module):
@@ -540,9 +555,18 @@ class LMHead(nn.Module):
         self.dtype = cfg.dtype
         self.kernel = nn.Parameter(
             torch.empty(cfg.d_model, cfg.vocab_size, device=device))
+        # the full kernel from this rank's vocab shard under tensor
+        # parallelism (parallel/shardings.py)
+        self.gather = _identity
 
     def forward(self, x):
-        return head_logits(x, self.kernel, self.dtype)
+        return head_logits(x, self.gather(self.kernel), self.dtype)
+
+    def xent(self, hidden, labels, n_chunks: int):
+        """(loss, accuracy) of `hidden` [B, L, d] against `labels`,
+        chunked over the sequence (ops/xent.py)."""
+        return chunked_lm_xent(hidden, self.gather(self.kernel), labels,
+                               n_chunks, compute_dtype=self.dtype)
 
 
 def _save_dots(ctx, func, *args, **kwargs):
@@ -632,6 +656,7 @@ class TransformerLM(nn.Module):
             self.add_module(f"layer_{i}", Block(cfg, dev, f"layer_{i}"))
         self.ln_f = RMSNorm(cfg.d_model, cfg.dtype, dev)
         self.lm_head = LMHead(cfg, dev)
+        self.gather_embedding = _identity   # as LMHead.gather
         if dev.type == "meta":          # shapes only: nothing to draw
             return
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -670,7 +695,8 @@ class TransformerLM(nn.Module):
         k/v are written into `cache` in place before it attends.
         `pad_len` [B] masks each row's left padding."""
         cfg = self.cfg
-        x = F.embedding(tokens, self.embedding.to(cfg.dtype))
+        x = F.embedding(tokens,
+                        self.gather_embedding(self.embedding).to(cfg.dtype))
         if decode_index is not None:
             if cache is None:
                 raise ValueError("decode needs cache= (init_cache or "

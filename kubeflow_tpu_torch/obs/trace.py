@@ -210,8 +210,11 @@ class Tracer:
         span._token = None if detached else _CURRENT.set(span.context())
         return span
 
-    def finish(self, span: Span) -> Span:
-        span.end = span.start + (time.perf_counter() - span._t0)
+    def finish(self, span: Span, duration: float | None = None) -> Span:
+        """Close `span` now, or at start + `duration` seconds when that
+        is given (work timed on the device, read after it ended)."""
+        span.end = span.start + (time.perf_counter() - span._t0
+                                 if duration is None else duration)
         token = getattr(span, "_token", None)
         if token is not None:
             span._token = None

@@ -1,0 +1,380 @@
+"""Parameter placement on a mesh (port of kubeflow_tpu/parallel/shardings.py).
+
+`partition_specs` names, for each parameter, the mesh axes each of its
+dims is split over, in the reference's flax layout: the table copies the
+reference's `_part` annotations (kubeflow_tpu/models/transformer.py:
+q/k/v (fsdp, model, None) :466-470, o (model, None, fsdp) :691,
+gate/up (fsdp, model) and down (model, fsdp) :714-725, the LM head
+(fsdp, model) :748, the embedding ((model, fsdp), None) :830), with the
+reference's drop of an axis that does not divide its dim (2 KV heads
+under model 4 replicate) and its FSDP heuristic for bare leaves
+(`_fsdp_spec`).
+
+The specs are then applied to the port's modules:
+- `model`: Megatron-style tensor parallelism on local weight shards
+  (`apply_tensor_parallel`): each rank keeps its slice of the
+  column-parallel q/k/v, gate and up weights and of the row-parallel o
+  and down weights; an identity whose backward all-reduces over the
+  model group enters each block half, an all-reduce whose backward is
+  the identity leaves it. Attention gets plain local tensors at the
+  local head counts, so the flash kernels run per rank unchanged. When
+  the k/v heads replicate, each rank picks the kv heads its q heads
+  belong to and the k/v weight gradients are summed over the model
+  group. The embedding and the LM head keep their vocab shard and
+  all-gather it for use (the backward keeps this rank's slice of the
+  gradient, which every rank of the group computes whole).
+- `fsdp`: FSDP2 `fully_shard` on the annotated dim (`apply_fsdp`), per
+  block, the head and the root, gradients reduce-scattered as sums.
+- `data` / `dcn`: the backend's `hierarchical_reduce` of the gradients
+  (runtime/trainer.py), the counterpart of GSPMD's psum over the batch
+  axes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import torch
+
+from kubeflow_tpu_torch.convert import flax_layout
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_MODEL,
+    Mesh,
+)
+
+# port parameter name suffix -> the reference's annotation (flax layout)
+_ANNOTATED = {
+    ("attn", "q", "weight"): (AXIS_FSDP, AXIS_MODEL, None),
+    ("attn", "k", "weight"): (AXIS_FSDP, AXIS_MODEL, None),
+    ("attn", "v", "weight"): (AXIS_FSDP, AXIS_MODEL, None),
+    ("attn", "o", "weight"): (AXIS_MODEL, None, AXIS_FSDP),
+    ("mlp", "gate", "weight"): (AXIS_FSDP, AXIS_MODEL),
+    ("mlp", "up", "weight"): (AXIS_FSDP, AXIS_MODEL),
+    ("mlp", "down", "weight"): (AXIS_MODEL, AXIS_FSDP),
+    ("lm_head", "kernel"): (AXIS_FSDP, AXIS_MODEL),
+    ("embedding",): ((AXIS_MODEL, AXIS_FSDP), None),
+}
+
+
+def _fsdp_spec(shape: tuple[int, ...], fsdp_size: int,
+               min_size: int = 2**14) -> tuple:
+    """Shard the largest divisible dim over fsdp (ties to the later dim);
+    tensors under min_size elements replicate."""
+    if fsdp_size <= 1 or not shape:
+        return (None,) * len(shape)
+    total = 1
+    for d in shape:
+        total *= d
+    if total < min_size:
+        return (None,) * len(shape)
+    order = sorted(range(len(shape)), key=lambda i: (shape[i], i), reverse=True)
+    for i in order:
+        if shape[i] % fsdp_size == 0:
+            spec = [None] * len(shape)
+            spec[i] = AXIS_FSDP
+            return tuple(spec)
+    return (None,) * len(shape)
+
+
+def _sizes(mesh) -> Mapping[str, int]:
+    return mesh.shape if hasattr(mesh, "shape") else mesh
+
+
+def _annotation(model, name: str):
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+
+    if not isinstance(model, TransformerLM):
+        from kubeflow_tpu_torch.models.bert import BertEncoder
+        from kubeflow_tpu_torch.models.vit import ViT
+
+        if isinstance(model, (BertEncoder, ViT)):
+            raise NotImplementedError(
+                f"{type(model).__name__} on an fsdp or model mesh: its "
+                "annotations are not ported yet (ROADMAP Queue 1 item 17c)")
+        return None
+    parts = tuple(name.split("."))
+    for suffix, names in _ANNOTATED.items():
+        if parts[-len(suffix):] == suffix and (len(suffix) > 1
+                                               or parts == suffix):
+            return names
+    return None
+
+
+def _head_dim(model) -> int | None:
+    return getattr(getattr(model, "cfg", None), "head_dim", None)
+
+
+def partition_specs(model, mesh, *, fsdp: bool = True) -> dict[str, tuple]:
+    """{parameter name: a tuple with the mesh axes (an axis name, a tuple
+    of names, or None) of each dim of the parameter's flax shape}.
+    `mesh` is a Mesh or a mapping of axis sizes; the model may live on
+    the meta device. Batch statistics (buffers) are not parameters."""
+    sizes = _sizes(mesh)
+    fsdp_size = sizes.get(AXIS_FSDP, 1) if fsdp else 1
+    out = {}
+    for name, p in model.named_parameters():
+        view, perm = flax_layout(name, p.shape, _head_dim(model))
+        shape = tuple(view[i] for i in perm)
+        names = _annotation(model, name) if (
+            sizes.get(AXIS_MODEL, 1) > 1 or fsdp_size > 1) else None
+        if names is None:
+            out[name] = _fsdp_spec(shape, fsdp_size)
+            continue
+
+        def size(n):
+            ns = n if isinstance(n, tuple) else (n,)
+            k = 1
+            for a in ns:
+                k *= sizes.get(a, 1)
+            return k
+
+        out[name] = tuple(n if n is not None and shape[i] % size(n) == 0
+                          else None for i, n in enumerate(names))
+    return out
+
+
+# -- from flax-layout specs to port-layout shards ------------------------------
+
+
+def _view_dims(shape, view) -> list[int]:
+    """The port dim each dim of `view` (a reshape of `shape` that only
+    splits dims) comes from."""
+    out, i, acc = [], 0, 1
+    for v in view:
+        out.append(i)
+        acc *= v
+        if acc == shape[i]:
+            i, acc = i + 1, 1
+    return out
+
+
+@dataclasses.dataclass
+class ParamShard:
+    """How one parameter is split: `port` lists (port dim, axis) in the
+    order of slicing (model before fsdp: model is the major part of a
+    dim both split); `flax` the same in the flax layout; `partial_model`
+    marks a weight replicated over the model group whose gradient is a
+    per-rank part (the k/v projections when their heads replicate)."""
+
+    port: list[tuple[int, str]]
+    flax: list[tuple[int, str]]
+    partial_model: bool = False
+
+    def dim(self, axis: str) -> int | None:
+        return next((d for d, a in self.port if a == axis), None)
+
+
+def shard_plan(model, mesh) -> dict[str, ParamShard]:
+    """ParamShard per parameter of `model` (full, unsharded) on `mesh`."""
+    sizes = _sizes(mesh)
+    specs = partition_specs(model, mesh)
+    plan = {}
+    for name, p in model.named_parameters():
+        spec = specs[name]
+        view, perm = flax_layout(name, p.shape, _head_dim(model))
+        vdims = _view_dims(tuple(p.shape), view)
+        port, flax = [], []
+        for axis in (AXIS_MODEL, AXIS_FSDP):
+            if sizes.get(axis, 1) <= 1:
+                continue
+            for fdim, names in enumerate(spec):
+                ns = names if isinstance(names, tuple) else (names,)
+                if axis not in ns:
+                    continue
+                pdim = vdims[perm[fdim]]
+                lead = vdims.index(pdim)
+                if perm[fdim] != lead:
+                    raise ValueError(f"{name}: axis {axis} on an inner part "
+                                     f"of port dim {pdim}")
+                port.append((pdim, axis))
+                flax.append((fdim, axis))
+        plan[name] = ParamShard(port, flax)
+    # k/v left whole while q is split: each rank uses a part of them
+    for name, sh in plan.items():
+        if name.endswith(("attn.k.weight", "attn.v.weight")):
+            q = plan[name.rsplit(".", 2)[0] + ".q.weight"]
+            sh.partial_model = (sh.dim(AXIS_MODEL) is None
+                                and q.dim(AXIS_MODEL) is not None)
+    return plan
+
+
+def shard_local(full: torch.Tensor, shards, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of `full` under `shards` ((dim, axis) pairs in
+    slicing order)."""
+    for dim, axis in shards:
+        full = full.chunk(mesh.shape[axis], dim)[mesh.coords[axis]]
+    return full.contiguous()
+
+
+def gather_full(local: torch.Tensor, shards, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block (a collective over the
+    groups of `shards`): the inverse of shard_local."""
+    import torch.distributed as dist
+
+    for dim, axis in reversed(list(shards)):
+        parts = [torch.empty_like(local) for _ in range(mesh.shape[axis])]
+        dist.all_gather(parts, local.contiguous(), group=mesh.group((axis,)))
+        local = torch.cat(parts, dim)
+    return local
+
+
+# -- tensor parallelism ---------------------------------------------------------
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; the backward sums the gradient over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Exit(torch.autograd.Function):
+    """Sum over the group; the backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along `dim`; the backward keeps this rank's slice (every
+    rank of the group computed the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, n, rank):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.n, ctx.rank = dim, n, rank
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.chunk(ctx.n, ctx.dim)[ctx.rank].contiguous(), None, None,
+                None, None)
+
+
+def _kv_heads(n_heads: int, n_kv: int, m: int, rank: int) -> list[int]:
+    """The kv heads the q heads of `rank` (of `m`) use, one entry per
+    local kv head: GQA over the distinct ones when they split the local
+    q heads evenly and in order, else one per q head."""
+    per = n_heads // m
+    group = n_heads // n_kv
+    kv = [(rank * per + j) // group for j in range(per)]
+    uniq = sorted(set(kv))
+    if per % len(uniq) == 0 and kv == [u for u in uniq
+                                       for _ in range(per // len(uniq))]:
+        return uniq
+    return kv
+
+
+def apply_tensor_parallel(model, plan: dict[str, ParamShard],
+                          mesh: Mesh) -> None:
+    """Cut each model-split parameter to this rank's slice and wire the
+    collectives into the blocks, the embedding and the head."""
+    m = mesh.shape[AXIS_MODEL]
+    if m <= 1:
+        return
+    group, rank = mesh.group((AXIS_MODEL,)), mesh.coords[AXIS_MODEL]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            d = plan[name].dim(AXIS_MODEL)
+            if d is not None:
+                p.data = p.data.chunk(m, d)[rank].contiguous()
+
+    def enter(x):
+        return _Enter.apply(x, group)
+
+    def leave(x):
+        return _Exit.apply(x, group)
+
+    cfg = model.cfg
+    for i, blk in enumerate(model.blocks()):
+        pre = f"layer_{i}."
+        if plan[pre + "attn.q.weight"].dim(AXIS_MODEL) is not None:
+            blk.attn.tp_in, blk.attn.tp_out = enter, leave
+            if plan[pre + "attn.k.weight"].dim(AXIS_MODEL) is None:
+                blk.attn.kv_heads = _kv_heads(cfg.n_heads, cfg.n_kv_heads,
+                                              m, rank)
+        if plan[pre + "mlp.gate.weight"].dim(AXIS_MODEL) is not None:
+            blk.mlp.tp_in, blk.mlp.tp_out = enter, leave
+    if plan["embedding"].dim(AXIS_MODEL) is not None:
+        model.gather_embedding = lambda w: _Gather.apply(w, group, 0, m, rank)
+    if plan["lm_head.kernel"].dim(AXIS_MODEL) is not None:
+        model.lm_head.gather = lambda w: _Gather.apply(w, group, 1, m, rank)
+
+
+def apply_fsdp(model, plan: dict[str, ParamShard], mesh: Mesh) -> None:
+    """FSDP2 over the fsdp axis: each parameter whose spec names fsdp is
+    sharded on that dim; the rest are left out (replicated, their
+    gradients summed with the data axes'). Units: each block, the LM
+    head, then the root. Gradients are reduce-scattered as sums: the
+    trainer divides by the global count of valid targets."""
+    if mesh.shape[AXIS_FSDP] <= 1:
+        return
+    from torch.distributed.fsdp import (
+        fully_shard,
+        register_fsdp_forward_method,
+    )
+    from torch.distributed.tensor import Shard
+
+    dims = {p: plan[n].dim(AXIS_FSDP) for n, p in model.named_parameters()}
+    ignored = {p for p, d in dims.items() if d is None}
+    fsdp_mesh = mesh.device_mesh[AXIS_FSDP]
+
+    def place(p):
+        return Shard(dims[p])
+
+    units = [*getattr(model, "blocks", lambda: [])()]
+    if hasattr(model, "lm_head"):
+        units.append(model.lm_head)
+    for unit in [*units, model]:
+        fully_shard(unit, mesh=fsdp_mesh, shard_placement_fn=place,
+                    ignored_params=ignored)
+        # sums, set on every unit (each keeps its own); gloo has no
+        # PREMUL_SUM
+        unit.set_gradient_divide_factor(1.0)
+        unit.set_force_sum_reduction_for_comms(True)
+    if hasattr(model, "lm_head"):
+        register_fsdp_forward_method(model.lm_head, "xent")
+
+
+def grad_groups(plan: dict[str, ParamShard], mesh: Mesh, names) -> dict:
+    """{reduce axes: [parameter names]}: the axes over which each
+    gradient is still to be summed after the backward: the batch axes
+    (dcn, data; fsdp too for a parameter FSDP does not shard)."""
+    out: dict[tuple, list] = {}
+    for n in names:
+        axes = (AXIS_DATA,) if plan[n].dim(AXIS_FSDP) is not None or \
+            mesh.shape[AXIS_FSDP] <= 1 else (AXIS_DATA, AXIS_FSDP)
+        out.setdefault(axes, []).append(n)
+    return out
+
+
+def unwrap(t: Any) -> torch.Tensor:
+    """The local tensor of a DTensor (FSDP2's parameters, their
+    gradients and optimizer states), else t."""
+    return t.to_local() if hasattr(t, "to_local") else t
+

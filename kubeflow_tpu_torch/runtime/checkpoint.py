@@ -28,6 +28,17 @@ Contract, as the reference's:
   `slice_counts`) is written atomically after saves finalize.
 - `checkpoint_failures_total{op=save|restore}` is registered at 0.
 - `restore_variables` reads params only, never the optimizer state.
+
+On a world of several processes the save is collective: the caller
+gathers the whole state on every rank (runtime/trainer.py `payload`),
+rank 0 alone writes it, and `save` and `wait`/`close` end with rank 0
+broadcasting what came of it (saved, skipped or failed) once its part
+is done, whether it raised or not: every rank meets there, the others
+raise CheckpointError when rank 0 failed, and after `wait` rank 0's
+write has landed, so a world that re-forms (an elastic resize) finds
+the step on disk. Each rank restores the whole payload and cuts
+its own shards from it (`load_payload`): a checkpoint restores onto any
+world and mesh, as orbax restores onto a template.
 """
 
 from __future__ import annotations
@@ -49,6 +60,13 @@ log = logging.getLogger("kubeflow_tpu_torch.checkpoint")
 PARAMS_FILE = "params.pt"
 OPT_FILE = "opt_state.pt"
 _TMP_PREFIX = ".tmp-"
+# what came of rank 0's save or wait, broadcast to the world
+_SKIPPED, _SAVED, _FAILED = 0, 1, 2
+
+
+class CheckpointError(RuntimeError):
+    """Rank 0's save or write failed: what the other ranks of the world
+    raise."""
 
 
 def _normalize_dir(directory: str) -> str:
@@ -134,8 +152,14 @@ class Checkpointer:
     A restore target is any object with `load_payload(payload)`."""
 
     def __init__(self, directory: str, keep: int = 3,
-                 world_size: int | None = None, num_slices: int | None = None):
+                 world_size: int | None = None, num_slices: int | None = None,
+                 rank: int = 0, collective=None):
+        """`rank` and `collective` (an object with `agree(int) -> int`,
+        rank 0's value on every rank) for a world of several
+        processes."""
         self.directory = _normalize_dir(directory)
+        self.rank = rank
+        self._collective = collective
         self.keep = keep
         # the failure counter starts at 0 for both ops: an alert on its
         # increase() needs a sample before the first failure
@@ -147,7 +171,8 @@ class Checkpointer:
         self._slice_counts: dict[int, int] = {}
         self._writer: threading.Thread | None = None
         self._write_error: BaseException | None = None
-        self._remove_stale_temps()
+        if rank == 0:
+            self._remove_stale_temps()
 
     def _remove_stale_temps(self) -> None:
         """Temp directories of saves whose process is gone (killed
@@ -184,6 +209,9 @@ class Checkpointer:
         from kubeflow_tpu_torch.obs import trace as obs_trace
 
         step = int(step)
+        if self.rank != 0:
+            return self._agree(None) == _SAVED
+        status = _FAILED
         try:
             # one write in flight: the previous one lands (or raises) first
             self._join_writer()
@@ -192,6 +220,7 @@ class Checkpointer:
                     log.warning("checkpoint: step %d already exists in %s; "
                                 "skipping (pass force=True to overwrite)",
                                 step, self.directory)
+                    status = _SKIPPED
                     return False
                 shutil.rmtree(os.path.join(self.directory, str(step)))
             # the window this call blocks the step loop for: the
@@ -199,13 +228,16 @@ class Checkpointer:
             with obs_trace.TRACER.span("train.checkpoint", step=step) as sp:
                 host = _to_host(state)
                 nbytes = sp.attrs["bytes"] = _nbytes(host)
+            self._writer = threading.Thread(
+                target=self._write, args=(step, host), daemon=False,
+                name=f"checkpoint-{step}")
+            self._writer.start()
+            status = _SAVED
         except Exception:
             _count_failure("save")
             raise
-        self._writer = threading.Thread(
-            target=self._write, args=(step, host), daemon=False,
-            name=f"checkpoint-{step}")
-        self._writer.start()
+        finally:
+            self._agree(status)     # every rank meets here, raised or not
         if self.world_size:
             self._world_sizes[step] = self.world_size
         if self.num_slices:
@@ -214,6 +246,17 @@ class Checkpointer:
                  "blocked %.3f s)", step, self.directory, nbytes,
                  sp.duration)
         return True
+
+    def _agree(self, status: int | None) -> int | None:
+        """Rank 0's `status` on every rank of a world (the others pass
+        None); they raise CheckpointError when it is a failure."""
+        if self._collective is None:
+            return status
+        got = self._collective.agree(_FAILED if status is None else status)
+        if self.rank != 0 and got == _FAILED:
+            raise CheckpointError(
+                f"checkpoint: rank 0 failed to save to {self.directory}")
+        return got
 
     def _write(self, step: int, host: dict) -> None:
         t0 = time.perf_counter()
@@ -332,14 +375,22 @@ class Checkpointer:
             log.warning("checkpoint: manifest write failed: %s", e)
 
     def wait(self) -> None:
-        """Block until the queued save is durably finalized."""
+        """Block until the queued save is durably finalized (on every rank
+        of a world: they meet at rank 0's status after its write, and
+        raise CheckpointError when that write failed)."""
+        if self.rank != 0:
+            self._agree(None)
+            return
+        status = _FAILED
         try:
             self._join_writer()
+            status = _SAVED
         except Exception:
             _count_failure("save")
             raise
         finally:
             self._write_manifest()
+            self._agree(status)
 
     def close(self) -> None:
         self.wait()

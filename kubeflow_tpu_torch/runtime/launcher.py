@@ -1,7 +1,19 @@
 """In-pod launcher of the port (port of kubeflow_tpu/runtime/launcher.py).
 
-- runs the built-in trainer (`--config` JSON/YAML -> TrainConfig) on one
-  device, or a user command given after `--`;
+- forms the world the JAXJOB_* env describes (parallel/dist.py,
+  through the collectives backend $JAXJOB_COLLECTIVES_BACKEND) and runs
+  the built-in trainer (`--config` JSON/YAML -> TrainConfig) on this
+  process's device, or a user command given after `--` (which gets the
+  env and forms its own world);
+- one process per GPU: with `--nproc-per-node` N > 1 (default: the
+  CUDA device count; 1 on the CPU) it starts N local workers, local rank
+  r on cuda:r, global rank JAXJOB_PROCESS_ID x N + r in a world of
+  JAXJOB_NUM_PROCESSES x N, forwards SIGTERM to them and exits with
+  their code (75 when one was preempted and none failed);
+- with $JAXJOB_WORLD_FILE and `--config` the elastic coordinator forms
+  and re-forms the world from the stamp in that file instead
+  (runtime/elastic.py): shrink or grow in place, resuming from the
+  checkpoint;
 - serves the metrics registry at $JAXRT_METRICS_PORT (default 9100);
 - attaches the job's trace context ($TRACEPARENT) and runs the trainer
   inside a `worker` span; $KFTPU_TRACE_FILE receives the span dump at
@@ -14,12 +26,13 @@
 
 The device is cuda unless `--device cpu` is given; with no GPU and no
 `--device cpu` it fails rather than train on the CPU. `--wait-devices`
-waits until torch sees a CUDA device. Multi-process world formation
-from the JAXJOB_* env and the elastic world file wait for the port's
-parallel/dist.py (ROADMAP Queue 1 items 15b, 16).
+waits until torch sees a CUDA device.
 
 Usage:
     python -m kubeflow_tpu_torch.runtime.launcher --config cfg.yaml [--device cpu]
+    JAXJOB_COORDINATOR_ADDRESS=host:8476 JAXJOB_NUM_PROCESSES=2 \
+        JAXJOB_PROCESS_ID=0 python -m kubeflow_tpu_torch.runtime.launcher \
+        --config cfg.yaml --nproc-per-node 8
     python -m kubeflow_tpu_torch.runtime.launcher -- python my_train.py --flag
 """
 
@@ -29,19 +42,16 @@ import argparse
 import json
 import logging
 import os
+import signal
 import subprocess
 import sys
 import time
 
 from kubeflow_tpu_torch.obs import trace as obs_trace
+from kubeflow_tpu_torch.parallel import dist as D
 
 log = logging.getLogger("kubeflow_tpu_torch.launcher")
 
-# the gang env the JAXJob controller stamps (the reference's parallel/dist.py)
-ENV_NPROC = "JAXJOB_NUM_PROCESSES"
-ENV_PID = "JAXJOB_PROCESS_ID"
-ENV_NAME = "JAXJOB_NAME"
-ENV_WORLD_FILE = "JAXJOB_WORLD_FILE"
 ENV_METRICS_PORT = "JAXRT_METRICS_PORT"
 ENV_TRACE_FILE = "KFTPU_TRACE_FILE"
 
@@ -90,19 +100,38 @@ def run_builtin_trainer(cfg_dict: dict, device: str = "cuda") -> int:
         # the worker span: a child of the job's root span (TRACEPARENT,
         # attached in main), with train.fit and its steps inside
         with obs_trace.TRACER.span("worker",
-                                   process=os.environ.get(ENV_PID, ""),
-                                   job=os.environ.get(ENV_NAME, "")):
+                                   process=os.environ.get(D.ENV_PID, ""),
+                                   job=os.environ.get(D.ENV_NAME, "")):
             cfg = TrainConfig.from_dict(cfg_dict)
             # SIGTERM (pod eviction, node maintenance) => save and exit
             # EX_TEMPFAIL, so the controller gang-restarts and resumes
             notice.install()
-            trainer = Trainer(cfg, device=device)
-            summary = trainer.fit(stop=notice)
-            if trainer.device.type == "cuda":
+            world_file = os.environ.get(D.ENV_WORLD_FILE)
+            if world_file:
+                import socket
+
+                from kubeflow_tpu_torch.runtime.elastic import (
+                    ElasticCoordinator,
+                    file_world_source,
+                )
+
+                coord = ElasticCoordinator(
+                    file_world_source(world_file),
+                    my_name=os.environ.get("HOSTNAME")
+                    or socket.gethostname(),
+                    notice=notice, device=device,
+                    batch_policy=os.environ.get(D.ENV_BATCH_POLICY,
+                                                D.BATCH_PRESERVE))
+                summary = coord.run(cfg, full_world=int(
+                    os.environ.get(D.ENV_NPROC, "1")))
+            else:
+                trainer = Trainer(cfg, device=device)
+                summary = trainer.fit(stop=notice)
+            if device.startswith("cuda"):
                 import torch
 
                 log.info("peak device memory: %.3f GB",
-                         torch.cuda.max_memory_allocated(trainer.device) / 1e9)
+                         torch.cuda.max_memory_allocated(device) / 1e9)
     finally:
         notice.uninstall()
         _dump_trace()
@@ -148,33 +177,100 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--wait-devices", action="store_true",
                    help="block until a CUDA device is visible before starting")
     p.add_argument("--device-timeout", type=float, default=300.0)
+    p.add_argument("--nproc-per-node", type=int, default=None,
+                   help="local worker processes, one per device (default: "
+                   "the CUDA device count; 1 with --device cpu)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if args.device not in ("cuda", "cpu"):
+        p.error(f"--device {args.device}: cuda or cpu")
+    if args.config is None and not user_cmd:
+        p.error("need --config or a user command after --")
 
-    nproc = int(os.environ.get(ENV_NPROC) or 1)
-    if nproc > 1:
-        raise NotImplementedError(
-            f"{ENV_NPROC}={nproc}: multi-process training waits for the "
-            "port's parallel/dist.py (ROADMAP Queue 1 item 16)")
-    if os.environ.get(ENV_WORLD_FILE):
-        log.warning("%s is set: elastic resize waits for the port's "
-                    "parallel/dist.py (ROADMAP Queue 1 items 15b, 16); "
-                    "running as one process", ENV_WORLD_FILE)
+    if args.wait_devices and args.device != "cpu":
+        wait_for_devices(args.device_timeout)
 
     # adopt the job's trace context before any span opens
     ctx = obs_trace.context_from_env()
     if ctx is not None:
         obs_trace.TRACER.attach(ctx)
 
-    if args.wait_devices and args.device != "cpu":
-        wait_for_devices(args.device_timeout)
-    if args.config:
-        return run_builtin_trainer(load_config(args.config), args.device)
-    if user_cmd:
+    if not args.config:
         return run_user_command(user_cmd)
-    p.error("need --config or a user command after --")
-    return 2
+    import torch
+
+    from kubeflow_tpu_torch.device import resolve_device
+    from kubeflow_tpu_torch.parallel import backends as B
+
+    nproc = args.nproc_per_node
+    if nproc is None:
+        nproc = 1 if args.device == "cpu" else max(1, torch.cuda.device_count())
+    if nproc > 1 and D.ENV_LOCAL_RANK not in os.environ:
+        return run_local_workers(argv, nproc)
+    local_rank = int(os.environ.get(D.ENV_LOCAL_RANK) or 0)
+    device = "cpu" if args.device == "cpu" else f"cuda:{local_rank}"
+    if device != "cpu":
+        torch.cuda.set_device(resolve_device(device))
+
+    log.info("collectives backend: %s", B.get_backend().name)
+    if os.environ.get(D.ENV_WORLD_FILE):
+        # the env describes the full gang, the stamp the live members:
+        # the elastic coordinator forms the world from the stamp
+        log.info("elastic world file %s set: deferring world formation "
+                 "to the elastic coordinator",
+                 os.environ[D.ENV_WORLD_FILE])
+    else:
+        cfg = D.initialize_from_env(device=device)
+        log.info("process %d/%d (job=%s) on %s", cfg.process_id,
+                 cfg.num_processes, cfg.job_name or "-", device)
+    try:
+        return run_builtin_trainer(load_config(args.config), device)
+    finally:
+        D.shutdown()
+
+
+def run_local_workers(argv: list[str], nproc: int) -> int:
+    """Start `nproc` copies of this launcher, local rank r with the env of
+    global rank JAXJOB_PROCESS_ID x nproc + r; forward SIGTERM; return the
+    first failing code, else 75 when one was preempted, else 0."""
+    from kubeflow_tpu_torch.runtime.preemption import EX_TEMPFAIL
+
+    if "--nproc-per-node" in argv:
+        i = argv.index("--nproc-per-node")
+        argv = argv[:i] + argv[i + 2:]
+    argv = [a for a in argv if not a.startswith("--nproc-per-node=")]
+    procs = []
+    for r in range(nproc):
+        env = D.expand_local(dict(os.environ), nproc, r)
+        # one span dump and one metrics port per worker
+        if env.get(ENV_TRACE_FILE):
+            env[ENV_TRACE_FILE] = f"{env[ENV_TRACE_FILE]}.local{r}"
+        port = int(env.get(ENV_METRICS_PORT, "9100"))
+        env[ENV_METRICS_PORT] = str(port + r if port else 0)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.runtime.launcher",
+             *argv], env=env))
+    log.info("started %d local workers", nproc)
+
+    def forward(signum, _frame):
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signum)
+
+    old = signal.signal(signal.SIGTERM, forward)
+    try:
+        codes = [proc.wait() for proc in procs]
+    finally:
+        signal.signal(signal.SIGTERM, old)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    failed = [c for c in codes if c not in (0, EX_TEMPFAIL)]
+    if failed:
+        return failed[0]
+    return EX_TEMPFAIL if EX_TEMPFAIL in codes else 0
 
 
 if __name__ == "__main__":

@@ -39,17 +39,23 @@ def peak_flops(device_kind: str) -> float | None:
 
 
 class StepMeter:
-    """Step wall time, examples/sec and MFU over the last `window` steps,
-    on one device. The caller synchronizes the device before stop().
+    """Step wall time, examples/sec and MFU over the last `window` steps.
+    `flops_per_step` is the whole world's step, so MFU is over the peak
+    of the world's `n_chips` devices, as the reference divides by the
+    mesh's device count. The caller synchronizes the device before
+    stop().
 
     With ``tracer`` set (an ``obs.trace.Tracer``), each start/stop pair
     also emits a ``train.step`` span under the ambient trace context,
     its ``step`` attribute ``step_base`` + the metered count."""
 
     def __init__(self, flops_per_step: float, device_kind: str = "",
-                 window: int = 20, tracer=None, step_base: int = 0):
+                 window: int = 20, tracer=None, step_base: int = 0,
+                 n_chips: int = 1):
         self.flops_per_step = float(flops_per_step)
-        self.peak = peak_flops(device_kind)
+        self.n_chips = max(1, n_chips)
+        peak = peak_flops(device_kind)
+        self.peak = peak * self.n_chips if peak else None
         self._times: deque[float] = deque(maxlen=window)
         self._t0: float | None = None
         self.steps = 0

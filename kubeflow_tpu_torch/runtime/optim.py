@@ -22,6 +22,16 @@ port's [out, in] = [2048, 2048] weight would be factored. Each parameter
 is therefore viewed in its flax layout (`convert.flax_layout`) and the
 state lives in that shape. `torch.optim.Adafactor` has other semantics
 (beta2_decay, an eps pair, no parameter scale) and is not used.
+
+On a mesh a parameter may be a block of a larger one (FSDP2's DTensor
+shard, a tensor-parallel slice): `shards` names, per parameter, the
+flax dims that are split and the process group each is split over,
+and `global_shapes` the whole parameter's flax shape. Factoring follows
+the global shape, and every mean (the factored statistics, the row
+factor's normalizer, the update's and the parameter's RMS) is taken
+over the whole parameter: the local sum, all-reduced over the groups of
+the split dims it reduces, over the global count. The state lives in
+the same blocks.
 """
 
 from __future__ import annotations
@@ -52,8 +62,31 @@ def factored_dims(shape: Sequence[int]) -> tuple[int, int] | None:
     return int(order[-2]), int(order[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    return x.square().mean().sqrt()
+def _mean(x: torch.Tensor, dims: Sequence[int], shards, gshape,
+          keepdim: bool = False) -> torch.Tensor:
+    """x's mean over `dims`, taken over the whole tensor whose block x is
+    (`shards`: (dim, group) of each split dim; `gshape`: whole shape)."""
+    if not shards:
+        return x.mean(tuple(dims), keepdim=keepdim)
+    import torch.distributed as dist
+
+    s = x.sum(tuple(dims), keepdim=keepdim)
+    for d, group in shards:
+        if d in dims:
+            dist.all_reduce(s, group=group)
+    return s / float(np.prod([gshape[d] for d in dims]))
+
+
+def _rms(x: torch.Tensor, shards=(), gshape=None) -> torch.Tensor:
+    if not shards:
+        return x.square().mean().sqrt()
+    return _mean(x.square(), range(x.ndim), shards, gshape).sqrt()
+
+
+def _drop(shards, gshape, d: int):
+    """shards and shape with dim d reduced away."""
+    return ([(k - (k > d), g) for k, g in shards if k != d],
+            [n for i, n in enumerate(gshape) if i != d])
 
 
 class Adafactor(torch.optim.Optimizer):
@@ -64,7 +97,9 @@ class Adafactor(torch.optim.Optimizer):
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 0.0, *,
                  layouts: Sequence[Layout | None] | None = None,
-                 weight_decay: float | None = None):
+                 weight_decay: float | None = None,
+                 shards: Sequence[list] | None = None,
+                 global_shapes: Sequence[tuple] | None = None):
         params = list(params)
         layouts = [None] * len(params) if layouts is None else list(layouts)
         if len(layouts) != len(params):
@@ -73,10 +108,16 @@ class Adafactor(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr))
         self.layouts = {p: lay for p, lay in zip(params, layouts)
                         if lay is not None}
+        self.shards = {p: list(s) for p, s in zip(params, shards or ())
+                       if s}
+        self.global_shapes = {p: tuple(s) for p, s in
+                              zip(params, global_shapes or ())}
         self.weight_decay = weight_decay
 
     def _ref(self, p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """x (p or its gradient) as a view in p's reference layout."""
+        """x (p or its gradient; their local block on a mesh) as a view
+        in p's reference layout."""
+        x = x.to_local() if hasattr(x, "to_local") else x
         lay = self.layouts.get(p)
         return x if lay is None else x.view(lay[0]).permute(lay[1])
 
@@ -92,7 +133,9 @@ class Adafactor(torch.optim.Optimizer):
     def _update(self, p: torch.Tensor, lr: float) -> None:
         g, w = self._ref(p, p.grad), self._ref(p, p)
         state = self.state[p]
-        dims = factored_dims(g.shape)
+        sh = self.shards.get(p, [])
+        gshape = self.global_shapes.get(p, tuple(g.shape))
+        dims = factored_dims(gshape)
         if not state:
             state["step"] = 0
             if dims is None:
@@ -118,15 +161,16 @@ class Adafactor(torch.optim.Optimizer):
         else:
             d1, d0 = dims
             v_row, v_col = state["v_row"], state["v_col"]
-            v_row.mul_(keep).add_(g2.mean(d0) * take)
-            v_col.mul_(keep).add_(g2.mean(d1) * take)
+            v_row.mul_(keep).add_(_mean(g2, [d0], sh, gshape) * take)
+            v_col.mul_(keep).add_(_mean(g2, [d1], sh, gshape) * take)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)
+            row_factor = (v_row / _mean(v_row, [reduced_d1],
+                                        *_drop(sh, gshape, d0), keepdim=True)
                           ).pow(-0.5)
             u = g * row_factor.unsqueeze(d0) * v_col.pow(-0.5).unsqueeze(d1)
-        u = u / (_rms(u) / CLIPPING_THRESHOLD).clamp_min(1.0)
+        u = u / (_rms(u, sh, gshape) / CLIPPING_THRESHOLD).clamp_min(1.0)
         u = u * lr
-        u = u * _rms(w).clamp_min(MIN_PARAM_SCALE)
+        u = u * _rms(w, sh, gshape).clamp_min(MIN_PARAM_SCALE)
         if self.weight_decay is not None:
             u = u + self.weight_decay * w
         w.sub_(u)

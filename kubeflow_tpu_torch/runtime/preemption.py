@@ -9,9 +9,9 @@ checkpoint instead of losing the interval since the last periodic save.
 
 The notice also records a *grace deadline*: the kubelet enforces
 terminationGracePeriodSeconds after SIGTERM, and ``remaining_grace()``
-says how much wall time is left before SIGKILL. Nothing in the port
-reads it yet: the elastic coordinator that would waits for the port's
-distributed runtime (ROADMAP Queue 1 item 16), and the checkpointer
+says how much wall time is left before SIGKILL. The elastic coordinator
+(runtime/elastic.py) logs it when a notice makes it exit for a gang
+restart instead of re-forming the world in place; the checkpointer
 always makes its one kind of save.
 
 Usage (wired by the launcher):

@@ -18,6 +18,20 @@ saves and evals, a profiler window, a `stop` flag polled once a step
 (preemption), `train.fit` / `train.step` spans and the jaxrt_* gauges.
 The first step (kernel builds, allocator warm-up) stays out of the
 meter. It returns the reference's summary dict.
+
+On a mesh (`TrainConfig.mesh`, built through the collectives backend
+over the process group's world; parallel/mesh.py) every rank builds the
+same model from the seed, then keeps its shards (parallel/shardings.py:
+tensor parallelism over `model`, FSDP2 over `fsdp`). Every rank draws
+the same global batch and keeps its contiguous block of rows over the
+batch axes, as each JAX process `device_put`s the global array under
+the batch sharding; microbatches are strided within it. The loss and
+its gradient are those of the global mean over valid targets: each
+rank's gradient weighs by its valid count, the backend's
+`hierarchical_reduce` sums them over the batch axes, and the sum is
+divided by the all-reduced count. Eval metrics are global, the stop
+flag is agreed over the world every step (any rank's stop stops all at
+that step), and the checkpoint holds the whole state, written by rank 0.
 """
 
 from __future__ import annotations
@@ -33,17 +47,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.convert import flax_layout
+from kubeflow_tpu_torch.convert import flax_layout, flax_shape
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import get_model
-from kubeflow_tpu_torch.parallel.mesh import MeshSpec
+from kubeflow_tpu_torch.models.resnet import BatchNorm
+from kubeflow_tpu_torch.parallel import shardings as S
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_DCN,
+    AXIS_FSDP,
+    AXIS_MODEL,
+    BATCH_AXES,
+    Mesh,
+    MeshSpec,
+    local_batch_size,
+    mesh_summary,
+)
 from kubeflow_tpu_torch.runtime import metrics as rt_metrics
 from kubeflow_tpu_torch.runtime.data import (
     synthetic_images,
     synthetic_token_classes,
     synthetic_tokens,
 )
-from kubeflow_tpu_torch.runtime.optim import Adafactor
+from kubeflow_tpu_torch.runtime.optim import Adafactor, factored_dims
 
 log = logging.getLogger("kubeflow_tpu_torch.trainer")
 
@@ -52,8 +77,8 @@ log = logging.getLogger("kubeflow_tpu_torch.trainer")
 class TrainConfig:
     """Declarative training config: the reference's keys and defaults, so
     the same JSON/YAML loads. A feature the port lacks yet raises in
-    Trainer, naming its ROADMAP item; a mesh above one device raises in
-    MeshSpec."""
+    Trainer, naming its ROADMAP item; a pipe, expert or seq axis above 1
+    raises in MeshSpec."""
 
     model: str = "resnet50"
     model_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -138,15 +163,16 @@ def warmup_cosine_lr(step: int, cfg: TrainConfig) -> float:
     return peak * 0.5 * (1.0 + math.cos(math.pi * count / decay))
 
 
-def make_optimizer(cfg: TrainConfig, params,
-                   layouts=None) -> torch.optim.Optimizer:
+def make_optimizer(cfg: TrainConfig, params, layouts=None, shards=None,
+                   global_shapes=None) -> torch.optim.Optimizer:
     """adamw: b1 .9, b2 .95, eps 1e-8, decoupled decay on every param
     (optax.adamw). sgdm: decay added to the gradient, then nesterov
     momentum .9 (optax add_decayed_weights + sgd). adafactor: optax's, as
     the reference builds it (runtime/optim.py), factoring each parameter
     in its reference shape, which `layouts` (one (view, perm) per
-    parameter, `convert.flax_layout`) gives. The learning rate is set
-    from warmup_cosine_lr before each update."""
+    parameter, `convert.flax_layout`) gives, with its statistics over
+    the whole parameter on a mesh (`shards`, `global_shapes`). The
+    learning rate is set from warmup_cosine_lr before each update."""
     params = list(params)
     if cfg.optimizer == "sgdm":
         return torch.optim.SGD(params, lr=0.0, momentum=0.9, nesterov=True,
@@ -156,7 +182,8 @@ def make_optimizer(cfg: TrainConfig, params,
                                  weight_decay=cfg.weight_decay)
     if cfg.optimizer == "adafactor":
         return Adafactor(params, layouts=layouts,
-                         weight_decay=cfg.weight_decay or None)
+                         weight_decay=cfg.weight_decay or None,
+                         shards=shards, global_shapes=global_shapes)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
@@ -176,11 +203,45 @@ def _xent_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (ce * valid).sum() / valid.sum().clamp_min(1)
 
 
+class _World:
+    """The world-wide collectives of the loop: the gang-agreed stop and
+    the checkpoint's agreement on rank 0's status (runtime/checkpoint.py)."""
+
+    def __init__(self, device: torch.device):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.device = device
+        self.rank, self.size = dist.get_rank(), dist.get_world_size()
+
+    def stop(self, local_stop: Callable[[], bool]) -> Callable[[], bool]:
+        """Every poll all-reduces (max) the local flag over the world: a
+        stop on any rank stops every rank at the same step."""
+        def agreed() -> bool:
+            flag = torch.tensor([float(bool(local_stop()))],
+                                device=self.device)
+            self._dist.all_reduce(flag, op=self._dist.ReduceOp.MAX)
+            return bool(flag.item())
+
+        return agreed
+
+    def agree(self, status: int) -> int:
+        """Rank 0's status on every rank."""
+        t = torch.tensor([float(status)], device=self.device)
+        self._dist.broadcast(t, src=0)
+        return int(t.item())
+
+
 class Trainer:
     """Builds the model and optimizer from a TrainConfig, on `device`
-    (cuda unless "cpu" is asked for)."""
+    (the active world's device, else cuda unless "cpu" is asked for),
+    over `mesh` (default: the collectives backend's mesh of cfg.mesh
+    over the process group's world)."""
 
-    def __init__(self, cfg: TrainConfig, device=None):
+    def __init__(self, cfg: TrainConfig, device=None, mesh: Mesh | None = None):
+        from kubeflow_tpu_torch.parallel import backends as B
+        from kubeflow_tpu_torch.parallel import dist as D
+
         if cfg.task not in TASKS:
             raise ValueError(f"unknown task {cfg.task!r} ({' | '.join(TASKS)})")
         missing = _unported(cfg)
@@ -195,16 +256,59 @@ class Trainer:
                 f"global_batch {cfg.global_batch} not divisible by "
                 f"grad_accum_steps {self.accum}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            device if device is not None else D.active_device())
+        self.backend = D.active_backend() or B.get_backend()
+        self.mesh = mesh if mesh is not None else self.backend.mesh(
+            cfg.mesh, self.device.type)
+        log.info("trainer mesh: %s", mesh_summary(self.mesh))
+        self.dp = self._dp_size()
+        local_batch_size(self.mesh, cfg.global_batch)
+        if self.accum > 1 and (cfg.global_batch // self.accum) % self.dp:
+            raise ValueError(
+                f"microbatch {cfg.global_batch // self.accum} not divisible "
+                f"by the {self.dp}-way batch sharding (dcn*data*fsdp*expert)")
+        sharded = self.mesh.shape[AXIS_FSDP] > 1 or \
+            self.mesh.shape[AXIS_MODEL] > 1
+        if sharded and cfg.task != "lm":
+            raise NotImplementedError(
+                f"task={cfg.task!r} on an fsdp or model mesh: the "
+                "classifiers' annotations are not ported yet (ROADMAP "
+                "Queue 1 item 17c); data and dcn meshes are")
+        # every rank draws the same weights from the seed, then keeps its
+        # shards of them
         self.model = get_model(cfg.model, device=self.device, seed=cfg.seed,
                                **self._model_kwargs())
         self.n_params = sum(p.numel() for p in self.model.parameters())
         head_dim = getattr(self.model.cfg, "head_dim", None)
+        full = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        self.plan = (S.shard_plan(self.model, self.mesh)
+                     if self.mesh.size > 1 else None)
+        self._reduce_span = None     # (span, start, end) of the last reduce
+        if sharded:
+            S.apply_tensor_parallel(self.model, self.plan, self.mesh)
+            S.apply_fsdp(self.model, self.plan, self.mesh)
+        if self.dp > 1:
+            group = self.mesh.group(BATCH_AXES)
+            for mod in self.model.modules():
+                if isinstance(mod, BatchNorm):   # global statistics
+                    mod.group = group
         named = list(self.model.named_parameters())
         self.opt = make_optimizer(
             cfg, [p for _, p in named],
-            layouts=[flax_layout(n, p.shape, head_dim) for n, p in named])
+            layouts=[flax_layout(n, S.unwrap(p).shape, head_dim)
+                     for n, p in named],
+            shards=[[(d, self.mesh.group((a,))) for d, a in
+                     self.plan[n].flax] if self.plan else []
+                    for n, _ in named],
+            global_shapes=[flax_shape(n, full[n], head_dim)
+                           for n, _ in named])
+        self.world = _World(self.device) if self.mesh.size > 1 else None
         self.step = 0          # optimizer updates applied so far
+
+    def _dp_size(self) -> int:
+        """Ways the batch axis is sharded (dcn * data * fsdp * expert)."""
+        return self.mesh.extent(BATCH_AXES)
 
     def _model_kwargs(self) -> dict:
         """The model's kwargs: the config's, plus what the reference's
@@ -279,9 +383,27 @@ class Trainer:
         return self.data_iter(data_path=cfg.eval_data_path or cfg.data_path,
                               seed=cfg.seed + 1)
 
-    def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.array(a)).to(self.device)
+    def _shard(self, batch: dict) -> dict:
+        """This rank's contiguous block of rows of a global host batch
+        (its index over the batch axes)."""
+        if self.dp == 1:
+            return batch
+        i = self.mesh.index(BATCH_AXES)
+        return {k: a[i * len(a) // self.dp:(i + 1) * len(a) // self.dp]
                 for k, a in batch.items()}
+
+    def _sharded(self, it: Iterator[dict]) -> Iterator[dict]:
+        try:
+            for b in it:
+                yield self._shard(b)
+        finally:
+            if hasattr(it, "close"):
+                it.close()       # a native reader's thread
+
+    def _to_device(self, batch: dict) -> dict:
+        """This rank's rows of a global host batch, on the device."""
+        return {k: torch.from_numpy(np.array(a)).to(self.device)
+                for k, a in self._shard(batch).items()}
 
     def _device_iter(self, it: Iterator[dict]) -> Iterator[dict]:
         """Copy each distinct host batch to the device once: the synthetic
@@ -296,40 +418,100 @@ class Trainer:
 
     # -- checkpoint payload --------------------------------------------------
 
+    def _shards(self, name: str, key: str | None = None) -> list:
+        """(dim, axis) pairs of parameter `name`'s split dims (of its
+        optimizer state `key`: Adafactor's lives in the flax layout, its
+        factored statistics without the reduced dim)."""
+        if self.plan is None:
+            return []
+        sh = self.plan[name]
+        if key is None or not isinstance(self.opt, Adafactor):
+            return sh.port
+        if key == "v":
+            return sh.flax
+        gshape = self.opt.global_shapes[dict(
+            self.model.named_parameters())[name]]
+        d1, d0 = factored_dims(gshape)
+        drop = d0 if key == "v_row" else d1
+        return [(d - (d > drop), a) for d, a in sh.flax if d != drop]
+
+    @staticmethod
+    def _is_state_tensor(key: str, v) -> bool:
+        return isinstance(v, torch.Tensor) and key != "step"
+
     def payload(self) -> dict:
         """The training state as the checkpoint payload (live device
         tensors; runtime/checkpoint.py copies them to the host): the
         update count, the model's parameters, its BatchNorm statistics
-        (`batch_stats`: the buffers of the state_dict, empty for the LM,
-        ViT and BERT), and each parameter's optimizer state by parameter
-        name."""
+        (`batch_stats`: the model's buffers, empty for the LM, ViT and
+        BERT), and each parameter's optimizer state by parameter name.
+        On a mesh each sharded tensor is gathered whole: a collective,
+        so every rank calls this at the same step."""
+        def whole(t, shards):
+            t = S.unwrap(t.detach())
+            return S.gather_full(t, shards, self.mesh) if shards else t
+
         named = dict(self.model.named_parameters())
-        sd = self.model.state_dict()
-        state = {n: self.opt.state[p] for n, p in named.items()
-                 if p in self.opt.state}
+        state = {n: {k: whole(v, self._shards(n, k))
+                     if self._is_state_tensor(k, v) else v
+                     for k, v in self.opt.state[p].items()}
+                 for n, p in named.items() if p in self.opt.state}
         return {"step": self.step,
-                "params": {n: t for n, t in sd.items() if n in named},
-                "batch_stats": {n: t for n, t in sd.items()
-                                if n not in named},
+                "params": {n: whole(p, self._shards(n))
+                           for n, p in named.items()},
+                "batch_stats": {n: b.detach()
+                                for n, b in self.model.named_buffers()},
                 "opt_state": state}
 
     def load_payload(self, payload: dict) -> None:
-        """Load a checkpoint payload into the model and the optimizer
-        (rebuilt from the config: only its state is data)."""
-        self.model.load_state_dict(
-            {**payload["params"], **(payload.get("batch_stats") or {})},
-            strict=True)
-        names = [n for n, _ in self.model.named_parameters()]
+        """Load a checkpoint payload (the whole state, from any world)
+        into the model and the optimizer (rebuilt from the config: only
+        its state is data), each rank cutting its own shards."""
+        named = dict(self.model.named_parameters())
+        buffers = dict(self.model.named_buffers())
+        params, stats = payload["params"], payload.get("batch_stats") or {}
+        want, have = set(named) | set(buffers), set(params) | set(stats)
+        if set(params) != set(named) or set(stats) != set(buffers):
+            raise RuntimeError(
+                "checkpoint does not match the model: missing "
+                f"{sorted(want - have)[:5]}, unexpected "
+                f"{sorted(have - want)[:5]}")
         opt_state = payload.get("opt_state") or {}
-        unknown = set(opt_state) - set(names)
+        unknown = set(opt_state) - set(named)
         if unknown:
             raise ValueError(f"optimizer state for unknown parameters "
                              f"{sorted(unknown)[:5]}")
-        groups = self.opt.state_dict()["param_groups"]
-        self.opt.load_state_dict({
-            "state": {i: opt_state[n] for i, n in enumerate(names)
-                      if n in opt_state},
-            "param_groups": groups})
+
+        def local(t, shards, like):
+            t = S.shard_local(t, shards, self.mesh) if shards else t
+            if tuple(t.shape) != tuple(like.shape):
+                raise RuntimeError(f"size mismatch: checkpoint {tuple(t.shape)}"
+                                   f", model {tuple(like.shape)}")
+            return t.to(device=like.device, dtype=like.dtype)
+
+        with torch.no_grad():
+            for n, p in named.items():
+                dst = S.unwrap(p)
+                dst.copy_(local(params[n], self._shards(n), dst))
+            for n, b in buffers.items():
+                b.copy_(local(stats[n], [], b))
+        for n, p in named.items():
+            if n not in opt_state:
+                continue
+            st = {}
+            for k, v in opt_state[n].items():
+                if self._is_state_tensor(k, v):
+                    like = S.unwrap(p)
+                    v = S.shard_local(v, self._shards(n, k), self.mesh) \
+                        if self.plan else v
+                    v = v.to(device=like.device, dtype=like.dtype)
+                    if hasattr(p, "device_mesh") and not isinstance(
+                            self.opt, Adafactor):
+                        from torch.distributed.tensor import DTensor
+
+                        v = DTensor.from_local(v, p.device_mesh, p.placements)
+                st[k] = v
+            self.opt.state[p] = st
         self.step = int(payload["step"])
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -341,19 +523,17 @@ class Trainer:
             return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
         seg = batch.get("segment_ids")
         if cfg.xent_chunks > 1:
-            from kubeflow_tpu_torch.ops.xent import chunked_lm_xent
-
             hidden = self.model(x, segment_ids=seg, return_hidden=True)
-            return chunked_lm_xent(hidden, self.model.lm_head.kernel, y,
-                                   cfg.xent_chunks,
-                                   compute_dtype=self.model.cfg.dtype)
+            return self.model.lm_head.xent(hidden, y, cfg.xent_chunks)
         logits = self.model(x, segment_ids=seg)
         return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
 
     def train_step(self, batch: dict) -> dict:
-        """One update. Returns {"loss", "accuracy"} as device scalars."""
+        """One update on this rank's rows (`_to_device` of the global
+        batch). Returns {"loss", "accuracy"} as device scalars, global
+        over the world."""
         self.opt.zero_grad(set_to_none=True)
-        if self.accum > 1:
+        if self.accum > 1 or self.plan is not None:
             loss, acc = self._accumulate(batch)
         else:
             loss, acc = self.loss(batch)
@@ -367,8 +547,9 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
-        """{"loss", "accuracy"} of one batch in eval mode (BatchNorm on
-        its running statistics), as device scalars; the chunked head when
+        """{"loss", "accuracy"} of one batch (this rank's rows) in eval
+        mode (BatchNorm on its running statistics), as device scalars,
+        weighted by valid targets over the world; the chunked head when
         training chunks it (a config that only fits because of the
         chunks must not run out of memory at its first eval)."""
         was_training = self.model.training
@@ -377,16 +558,33 @@ class Trainer:
             loss, acc = self.loss(batch)
         finally:
             self.model.train(was_training)
+        if self.dp > 1:
+            n = (_batch_xy(self.cfg, batch)[1] >= 0).sum().float()
+            sums = self._batch_sum(torch.stack([loss * n, acc * n, n]))
+            n = sums[2].clamp_min(1.0)
+            loss, acc = sums[0] / n, sums[1] / n
         return {"loss": loss, "accuracy": acc}
+
+    def _batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the batch axes (in place)."""
+        import torch.distributed as dist
+
+        group = self.mesh.group(BATCH_AXES)
+        if group is not None:
+            dist.all_reduce(x, group=group)
+        return x
 
     def _accumulate(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """The gradients of `accum` microbatches in the parameters' .grad,
         as the reference's train_step_accum combines them: row r goes to
-        microbatch r % accum; each microbatch's loss is the mean over its
-        valid (>= 0) targets and weighs by its valid count n_i, so grads =
-        sum(g_i n_i) / max(sum(n_i), 1), the full batch's token-weighted
-        mean however unevenly the targets are masked. Returns the loss and
-        accuracy combined with the same weights."""
+        microbatch r % accum (within this rank's rows: each microbatch
+        draws from every rank's block); each microbatch's loss is the
+        mean over its valid (>= 0) targets and weighs by its valid count
+        n_i, so grads = sum(g_i n_i) / max(sum(n_i), 1) with the sums over
+        the microbatches and the world: the global batch's token-weighted
+        mean however unevenly the targets are masked, never the mean of
+        per-rank means. Returns the loss and accuracy combined with the
+        same weights."""
         loss_sum = acc_sum = n_sum = 0.0
         for m in range(self.accum):
             micro = {k: v[m::self.accum] for k, v in batch.items()}
@@ -396,11 +594,60 @@ class Trainer:
             loss_sum = loss_sum + loss.detach() * n
             acc_sum = acc_sum + acc.detach() * n
             n_sum = n_sum + n
+        if self.plan is not None:
+            from kubeflow_tpu_torch.obs import trace as obs_trace
+
+            # the span takes the reduce's time on the card, read once the
+            # step loop has synchronized (`_close_reduce_span`): the
+            # reduce queues behind the backward with no host sync
+            self._close_reduce_span()
+            span = obs_trace.TRACER.begin("train.grad_reduce", detached=True,
+                                          dp=self.dp)
+            start = self._mark()
+            self._reduce_grads()
+            loss_sum, acc_sum, n_sum = self._batch_sum(
+                torch.stack([loss_sum, acc_sum, n_sum]))
+            self._reduce_span = (span, start, self._mark())
         n = n_sum.clamp_min(1.0)
         for p in self.model.parameters():
             if p.grad is not None:
-                p.grad = (p.grad / n).to(p.dtype)
+                if hasattr(p.grad, "to_local"):    # an FSDP2 shard
+                    p.grad.div_(float(n))
+                else:
+                    p.grad = (p.grad / n).to(p.dtype)
         return loss_sum / n, acc_sum / n
+
+    def _reduce_grads(self) -> None:
+        """Sum the gradients over the world where they are partial: over
+        the model group for the k/v weights whose heads replicate under
+        tensor parallelism, then over the batch axes through the
+        backend's hierarchical_reduce (fast level: data, and fsdp for a
+        parameter FSDP2 left whole; slow level: dcn), one flat buffer per
+        group of axes and dtype. FSDP2 reduce-scattered its shards over
+        fsdp in the backward already."""
+        import torch.distributed as dist
+
+        named = {n: p for n, p in self.model.named_parameters()
+                 if p.grad is not None}
+        model_group = self.mesh.group((AXIS_MODEL,))
+        for n, p in named.items():
+            if self.plan[n].partial_model:
+                dist.all_reduce(S.unwrap(p.grad), group=model_group)
+        if self.dp == 1:
+            return
+        for axes, names in S.grad_groups(self.plan, self.mesh, named).items():
+            by_dtype: dict = {}
+            for n in names:
+                g = S.unwrap(named[n].grad)
+                by_dtype.setdefault(g.dtype, []).append(g)
+            for grads in by_dtype.values():
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                flat = self.backend.hierarchical_reduce(
+                    flat, axis=AXIS_DCN, ici_axes=axes, mesh=self.mesh)
+                i = 0
+                for g in grads:
+                    g.copy_(flat[i:i + g.numel()].view_as(g))
+                    i += g.numel()
 
     def flops_per_step(self) -> float:
         """Analytic train-step FLOPs (2 per MAC, train = 3x forward), as
@@ -425,6 +672,32 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _mark(self):
+        """A point in the stream's time: a recorded CUDA event on the
+        card, the host clock on the CPU (where collectives block)."""
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def _close_reduce_span(self) -> None:
+        """Finish the pending train.grad_reduce span at the time between
+        its marks (waiting for the end mark, which a synchronized step
+        has passed already)."""
+        if self._reduce_span is None:
+            return
+        from kubeflow_tpu_torch.obs import trace as obs_trace
+
+        span, start, end = self._reduce_span
+        self._reduce_span = None
+        if isinstance(start, float):
+            dt = end - start
+        else:
+            end.synchronize()
+            dt = start.elapsed_time(end) / 1e3
+        obs_trace.TRACER.finish(span, duration=dt)
+
     def fit(self, steps: int | None = None,
             callback: Callable[[int, dict], None] | None = None,
             stop: Callable[[], bool] | None = None) -> dict:
@@ -439,17 +712,27 @@ class Trainer:
         resumed run sees the batches an uninterrupted one would. `stop`
         is polled once per step (runtime.preemption's SIGTERM notice):
         when it returns True the loop saves the step (unless it is saved
-        already) and returns early with summary["preempted"] = True."""
+        already) and returns early with summary["preempted"] = True. On a
+        world of several processes the flag is agreed over the world
+        every step, so the gang stops at one step."""
         from kubeflow_tpu_torch.obs import trace as obs_trace
+        from kubeflow_tpu_torch.parallel import dist as D
 
         cfg = self.cfg
         steps = steps or cfg.total_steps
+        if stop is not None and self.world is not None:
+            stop = self.world.stop(stop)
         ckpt = None
         if cfg.checkpoint_dir:
             from kubeflow_tpu_torch.runtime.checkpoint import Checkpointer
 
-            ckpt = Checkpointer(cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
-                                world_size=1, num_slices=1)
+            world = D.active_world()
+            ckpt = Checkpointer(
+                cfg.checkpoint_dir, keep=cfg.checkpoint_keep,
+                world_size=self.world.size if self.world else 1,
+                num_slices=world.num_slices if world else 1,
+                rank=self.world.rank if self.world else 0,
+                collective=self.world)
             if cfg.resume:
                 try:
                     # loads into self; the host copy is not kept
@@ -474,7 +757,8 @@ class Trainer:
         # the first step, hence the +1 global-step base
         meter = rt_metrics.StepMeter(self.flops_per_step(), kind,
                                      tracer=obs_trace.TRACER,
-                                     step_base=start_step + 1)
+                                     step_base=start_step + 1,
+                                     n_chips=self.mesh.size)
         last: dict = {}
         last_saved = -1
         last_eval: dict = {}
@@ -539,7 +823,7 @@ class Trainer:
                 it = self.data_iter()
                 for _ in range(start_step):
                     next(it)     # the batches of the steps before the resume
-                data = Prefetcher(it, self.device)
+                data = Prefetcher(self._sharded(it), self.device)
             else:
                 data = self._device_iter(self.data_iter())
             for i in range(steps - start_step):
@@ -563,6 +847,7 @@ class Trainer:
                                                compile=True):
                         m = self.train_step(batch)
                         self._sync()
+                        self._close_reduce_span()
                     first_dt = time.perf_counter() - t0
                     log.info("first step (incl. kernel build): %.2fs", first_dt)
                     last = {k: float(v) for k, v in m.items()}
@@ -571,6 +856,7 @@ class Trainer:
                     m = self.train_step(batch)
                     self._sync()
                     meter.stop()
+                    self._close_reduce_span()
                     if (i + 1) % cfg.log_every == 0 or i == steps - start_step - 1:
                         last = {k: float(v) for k, v in m.items()}
                         self._publish(meter, last)

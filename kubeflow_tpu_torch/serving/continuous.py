@@ -147,7 +147,7 @@ class SlotDecoder:
                  metrics_name: str | None = None, clock=None):
         if mesh is not None:
             raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP Queue 1, slice 4)")
+                "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
         self.model = model
         self.S = slots
         self.P = prompt_len

@@ -29,7 +29,7 @@ only; a missing or empty directory fails at registration), else random
 from `seed` (the draft's from `seed + 1`), on the device (cuda unless
 device="cpu"), then cast or quantized per `param_dtype`. Mesh serving
 is not ported yet and raises NotImplementedError with its ROADMAP item
-(Queue 1 item 17).
+(Queue 1 item 17b).
 
 Usage:
     python -m kubeflow_tpu_torch.serving [--device cpu]    # mnist=resnet18
@@ -545,7 +545,7 @@ def serve_flax_classifier(name: str, model_name: str,
 
     if mesh is not None:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1 item 17)")
+            "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
     dev = resolve_device(device)
     built: list = []
     lock = threading.Lock()
@@ -668,7 +668,7 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
             f"no checkpoint under {draft_checkpoint_dir}")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1 item 17)")
+            "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
     # the verify chunk writes up to draft_k positions past the last token
     seq_budget = prompt_len + max_new_tokens + (draft_k if draft_model else 0)
     if kv_pages and not continuous_batching:
@@ -925,7 +925,7 @@ def main(argv: list[str] | None = None) -> int:
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if args.mesh:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1 item 17)")
+            "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
     # the default classifier only when nothing at all was asked for
     models = args.model or ([] if args.lm else ["mnist=resnet18"])
     if args.checkpoint_dir and len(models) > 1:

@@ -34,6 +34,10 @@ def test_import_pulls_in_no_jax_or_triton():
     bad = [m for m in new if m.split(".")[0] in (*FORBIDDEN, "triton")]
     assert not bad, bad
     assert "kubeflow_tpu_torch.runtime.trainer" in new
+    # the distributed runtime and the mesh are scanned like the rest
+    for mod in ("parallel.dist", "parallel.backends", "parallel.mesh",
+                "parallel.shardings", "runtime.elastic"):
+        assert f"kubeflow_tpu_torch.{mod}" in new, mod
 
 
 @pytest.mark.parametrize("path", sorted(

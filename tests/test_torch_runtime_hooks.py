@@ -432,9 +432,13 @@ def test_launcher_user_command_and_refusals(monkeypatch):
                           "import sys; sys.exit(3)"]) == 3
     with pytest.raises(SystemExit):
         launcher.main([])
+    # a multi-process world forms from the env (tests/test_torch_gang.py);
+    # a user command gets the env and forms its own; an incomplete gang
+    # env is refused before anything forms
     monkeypatch.setenv("JAXJOB_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        launcher.main(["--", sys.executable, "-c", "pass"])
+    assert launcher.main(["--", sys.executable, "-c", "pass"]) == 0
+    with pytest.raises(ValueError, match="JAXJOB_COORDINATOR_ADDRESS unset"):
+        launcher.main(["--config", "unused.json", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(TimeoutError, match="no CUDA devices"):
         launcher.wait_for_devices(timeout_s=0.0)
