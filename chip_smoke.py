@@ -93,7 +93,8 @@
    window, for generate() and the slot decoder, dense and int8 cache,
    and its tensors are W-sized; (b) phase 10's point with window 256
    and the rolling cache (prompts up to 511 tokens wrap it at
-   prefill): the cache must hold exactly 402,653,184 bytes; the same
+   prefill), 16 requests (phase 10's 32 halved to keep the script in
+   its time): the cache must hold exactly 402,653,184 bytes; the same
    figures and tick profile as phase 10.
 13. Speculative decoding: (a) 4 layers, f32: speculative_generate and
    the lockstep slot decoder, dense and paged target, equal greedy
@@ -202,6 +203,52 @@
    tensors, held exactly; prints the NCCL version. Multi-rank NCCL,
    FSDP and tensor parallelism need more than one GPU: they are held on
    the CPU (tests/test_torch_spmd.py).
+23. MoE training: gpt-moe-8e (24 layers, 8 experts top-2 every second
+   layer) through the port launcher at the reference's MoE point: batch
+   4, seq 2048, dots remat, adafactor, 8 xent chunks, flash attention,
+   synthetic tokens, 7 steps: a finite loss, moe_sparse_dispatch 1.0
+   (the trainer's one-rank mesh takes the sparse path) and 24 launches a
+   step of each flash kernel (dots saves the forward's out and lse);
+   then `kubeflow_tpu_torch.bench`'s run_lm at that point, 2 warm-up and
+   5 timed steps: ms per step, tokens/s, MFU over active parameters,
+   peak memory and the moe_* keys; then phase 8's profile of that
+   config, with the device time inside the MoE forward's moe.router,
+   moe.dispatch, moe.experts and moe.combine ranges.
+24. MoE block at gpt-moe-8e's width (batch 2, seq 2048, bf16, capacity
+   factor 4, so no token drops): the sparse dispatch's output and
+   gradients against the dense one-hot oracle's per row within
+   MOE_BLOCK_TOL; a planted control (one routed token's gate zeroed)
+   must exceed it; fill and drop of both paths at capacity factor 1.25.
+25. MoE card vs CPU: gpt-moe-8e at 2 layers, f32, TF32 off, batch 2,
+   seq 256, the same weights: losses of two sgdm steps within 1e-3
+   relative and the parameters after them within 1e-2 per row (phase
+   18's limits).
+26. MoE serving: gpt-moe-8e at full depth in f32 through
+   serve_lm_generator, the generator (batching window 50 ms) and the
+   continuous slot decoder (4 slots), 4 greedy requests of 32 new
+   tokens at concurrency 4 each:
+   tokens/s, and equal tokens (neither has a mesh, so both take the
+   reference's meshless dense dispatch); no flash launch.
+27. Long-context dispatch at one rank: llama-1b cut to 4 layers and
+   batch 2, seq 2048, through the launcher with attention_impl flash,
+   ulysses, reference and ring, 3 steps each: Ulysses launches the
+   flash kernels exactly as flash (4 a step of each), ring none, as
+   reference; final losses ulysses vs flash and ring vs reference within
+   1e-3 relative, flash vs reference within 2e-2.
+28. gloo on CUDA tensors: two `--gloo-probe` ranks sharing the card over
+   gloo try all_to_all and send/recv of CUDA tensors (nothing staged
+   through the host by the probe) and print what gloo answers (on
+   torch 2.11: all_to_all works, send/recv crashes the sender).
+29. Expert 2 on one card: two port launchers over gloo, mesh data 1 x
+   expert 2 (gpt-moe-8e cut to 4 layers, seq 1024, batch 8, capacity
+   factor 4, adamw, 3 steps, f32 with TF32 off and the plain attention,
+   so no flash launch), the sparse dispatch's all-to-all across the
+   ranks, against one process on the dense oracle: equal rank losses,
+   moe_sparse_dispatch 1.0 on the ranks and 0.0 on the one process,
+   each rank's parameter change per row within 1e-2 of one process's
+   (its slice of the experts against that slice), a
+   planted control (the all-to-all returning its input) beyond it, the
+   final loss within 1e-3 relative.
 Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
@@ -210,8 +257,11 @@ Any failure exits non-zero. The lines before the last hold the
 (run B: 16 a step of each kernel, 16 more forwards per eval batch), and
 the serving, rolling, speculative, router and checkpoint-serving paths
 and the classification paths (resnet50, classifier, vit-b16,
-bert-base), which must run none of them, and `world_rank0` /
-`world_rank1`, phase 21 (a)'s ranks; the flash forward's row also holds its
+bert-base), which must run none of them, `world_rank0` /
+`world_rank1`, phase 21 (a)'s ranks, `moe_train` (phase 23's 7 steps),
+`moe_serving` (none), `ulysses` and `ring` (phase 27's 3 steps), and
+`expert_rank0` / `expert_rank1` (phase 29's ranks);
+the flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -272,6 +322,7 @@ DENSE_CACHE_BYTES = 24 * 2 * 16 * 576 * 16 * 64 * 2       # 905,969,664
 ROLLING_WINDOW = 256
 ROLLING_CACHE_BYTES = 24 * 2 * 16 * ROLLING_WINDOW * 16 * 64 * 2  # 402,653,184
 ROLL_W, ROLL_P, ROLL_N = 16, 24, 24   # the rolling check wraps W twice
+ROLLING_REQUESTS = 16
 SPEC_K, SPEC_REQUESTS = 4, 16
 SPEC_DRAFT = "gpt-125m"
 ROUTER_P, ROUTER_N, ROUTER_REQUESTS = 64, 16, 16
@@ -520,10 +571,11 @@ def remat_check(fa) -> None:
     torch.cuda.empty_cache()
 
 
-def main_path(fa, _build, cfg: dict, tag: str) -> tuple[dict, float]:
-    """Train `cfg` through the port launcher; every kernel must launch
-    once per layer per step and the loss be finite. Returns the launches
-    and the mean metered step time (s)."""
+def launch_in_process(fa, _build, cfg: dict, tag: str
+                      ) -> tuple[dict, dict, float]:
+    """Train `cfg` through the port launcher in this process, the flash
+    launch counts set to 0 just before; fails on a non-zero exit or a
+    loss that is not finite. Returns (summary, launches, wall s)."""
     from kubeflow_tpu_torch.runtime import launcher
 
     path = _build.build_dir() / f"chip_smoke_{tag}.json"
@@ -537,11 +589,20 @@ def main_path(fa, _build, cfg: dict, tag: str) -> tuple[dict, float]:
     launches = dict(fa.LAUNCHES)
     print(buf.getvalue(), end="", flush=True)
     if rc != 0:
-        fail(f"launcher exit {rc}")
+        fail(f"{tag}: launcher exit {rc}")
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])["summary"]
     loss = summary["final"].get("loss")
     if loss is None or not math.isfinite(loss):
-        fail(f"main path loss {loss}")
+        fail(f"{tag}: loss {loss}")
+    return summary, launches, wall
+
+
+def main_path(fa, _build, cfg: dict, tag: str) -> tuple[dict, float]:
+    """Train `cfg` through the port launcher; every kernel must launch
+    once per layer per step and the loss be finite. Returns the launches
+    and the mean metered step time (s)."""
+    summary, launches, wall = launch_in_process(fa, _build, cfg, tag)
+    loss = summary["final"]["loss"]
     for name, n in launches.items():
         if n != LAYERS * STEPS:
             fail(f"{name} launched {n} times in {STEPS} steps, want "
@@ -610,6 +671,23 @@ def _kernel_ms(prof, steps: int) -> dict[str, float]:
     return kernels
 
 
+def _range_ms(prof, steps: int, prefix: str) -> dict[str, float]:
+    """Device time per step inside each `record_function` range whose
+    name starts with `prefix` (the MoE forward's moe.router,
+    moe.dispatch, moe.experts and moe.combine): the range's device-side
+    annotation, which spans the kernels launched inside it. The
+    backward's kernels run outside these ranges."""
+    import torch
+
+    out: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if (evt.key.startswith(prefix)
+                and evt.device_type == torch.autograd.DeviceType.CUDA):
+            us = getattr(evt, "device_time_total", 0.0)
+            out[evt.key] = out.get(evt.key, 0.0) + us / 1e3 / steps
+    return out
+
+
 def profile_phase(cfg: dict, tag: str, steps: int = 3) -> None:
     """Device time of a step of `cfg` by kind of kernel, under
     torch.profiler, the device's busy share of the step (the rest is the
@@ -639,6 +717,7 @@ def profile_phase(cfg: dict, tag: str, steps: int = 3) -> None:
     device_ms = sum(kernels.values())
     if device_ms == 0:
         fail("the profiler saw no device time")
+    ranges = _range_ms(prof, steps, "moe.")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=activities) as prof_opt:
         t0 = time.perf_counter()
@@ -661,11 +740,14 @@ def profile_phase(cfg: dict, tag: str, steps: int = 3) -> None:
         print(f"  {ms:9.3f} ms  [{kind}] {100 * ms / device_ms:.1f}%")
     print(f"  optimizer update alone: {optimizer_ms:.3f} ms of kernels, "
           f"{opt_wall_ms:.3f} ms on the host clock")
+    for name, ms in sorted(ranges.items()):
+        print(f"  {ms:9.3f} ms  [{name}, forward range]")
     print(f"profile {tag}: " + json.dumps({
         "step_ms": wall_ms, "device_ms": device_ms,
         "device_busy_share": device_ms / wall_ms, "by_kind_ms": by_kind,
         "optimizer_ms": optimizer_ms, "optimizer_wall_ms": opt_wall_ms,
-        "peak_mem_gb": peak_gb}), flush=True)
+        "peak_mem_gb": peak_gb, **({"ranges_ms": ranges} if ranges else {})}),
+        flush=True)
     del trainer, batch, prof, prof_opt
     gc.collect()
     torch.cuda.empty_cache()
@@ -2247,7 +2329,10 @@ def world_worker(argv: list[str]) -> int:
     change since fit began (f32, on the host) is saved to
     `DUMP.<step>.pt` (DUMP `-`: none). FAULT `no-reduce` is the phase's
     control: the trainer skips its gradient reduce, so each rank steps
-    on its own rows' gradients; `none` runs the port as it is."""
+    on its own rows' gradients; `no-exchange` is phase 29's: the MoE
+    all-to-all returns its input, so each rank's tokens meet its own
+    experts only (the reference's dropped all_to_all); `none` runs the
+    port as it is."""
     import torch
 
     from kubeflow_tpu_torch.runtime import launcher
@@ -2275,6 +2360,10 @@ def world_worker(argv: list[str]) -> int:
         T.Trainer.fit = fit_dumping
     if fault == "no-reduce":
         T.Trainer._reduce_grads = lambda self: None
+    elif fault == "no-exchange":
+        from kubeflow_tpu_torch.ops import moe
+
+        moe.all_to_all = lambda x, group: x
     elif fault != "none":
         fail(f"world worker: unknown fault {fault!r}")
     return launcher.main(argv[3:])
@@ -2397,12 +2486,14 @@ def _hold_params(name: str, got: tuple, want: tuple, tol: float) -> float:
     return worst
 
 
-def _delta_errors(got_path, want_path) -> dict:
+def _delta_errors(got_path, want_path, rank: int = 0) -> dict:
     """A run's parameter change against one process's (`world_worker`'s
     dumps), on the card: the largest per-row error over every parameter
     (kernel_check.errors: each row's L2 error over that row's L2 norm of
     one process's change), the parameter it is in, and the whole change's
-    L2 error over its L2 norm."""
+    L2 error over its L2 norm. A parameter the rank holds a dim-0 slice
+    of (experts under `expert`) is held against that slice, `rank` its
+    index."""
     import torch
 
     from kubeflow_tpu_torch.ops import kernel_check
@@ -2414,6 +2505,8 @@ def _delta_errors(got_path, want_path) -> dict:
     worst, where, diff2, norm2 = -1.0, "", 0.0, 0.0
     for k, w in want.items():
         g = got[k]
+        if g.shape != w.shape:
+            w = w.chunk(w.shape[0] // g.shape[0], 0)[rank]
         if g.ndim < 2:
             g, w = g[None], w[None]
         g, w = g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1)
@@ -2426,24 +2519,24 @@ def _delta_errors(got_path, want_path) -> dict:
             "whole": math.sqrt(diff2 / max(norm2, 1e-30))}
 
 
-def _hold_delta(name: str, got_path, want_path, control_path) -> str:
+def _hold_delta(name: str, got_path, want_path, control_path,
+                rank: int = 0, tol: float = WORLD_DELTA_TOL) -> str:
     """Hold a world's parameter change against one process's within
-    WORLD_DELTA_TOL per row, and the control's beyond it (else the check
-    could not tell a world without its reduce from a right one)."""
-    e = _delta_errors(got_path, want_path)
-    c = _delta_errors(control_path, want_path)
-    if not e["max_row_err"] <= WORLD_DELTA_TOL:
+    `tol` per row, and the control's beyond it (else the check could not
+    tell a world without its reduce from a right one)."""
+    e = _delta_errors(got_path, want_path, rank)
+    c = _delta_errors(control_path, want_path, rank)
+    if not e["max_row_err"] <= tol:
         fail(f"{name}: parameter change max row err {e['max_row_err']:.4g} "
-             f"in {e['param']} (limit {WORLD_DELTA_TOL}; whole "
-             f"{e['whole']:.4g})")
-    if not c["max_row_err"] > WORLD_DELTA_TOL:
-        fail(f"{name}: the control (no gradient reduce) reads "
-             f"{c['max_row_err']:.4g} per row, within the limit "
-             f"{WORLD_DELTA_TOL}: the check cannot fail a wrong world")
+             f"in {e['param']} (limit {tol}; whole {e['whole']:.4g})")
+    if not c["max_row_err"] > tol:
+        fail(f"{name}: the control (the planted fault) reads "
+             f"{c['max_row_err']:.4g} per row, within the limit {tol}: the "
+             "check cannot fail a wrong world")
     return (f"parameter change max row err {e['max_row_err']:.4g} "
             f"({e['param']}; whole {e['whole']:.4g}) against the control's "
             f"{c['max_row_err']:.4g} ({c['param']}; whole {c['whole']:.4g}), "
-            f"limit {WORLD_DELTA_TOL}")
+            f"limit {tol}")
 
 
 def _reduce_share(run: dict) -> tuple[float, float]:
@@ -2632,6 +2725,468 @@ def nccl_phase() -> None:
         gpu.leave()
 
 
+# -- phases 23-28: mixture-of-experts, sequence and pipeline parallelism -----
+
+# the reference's first MoE point (BASELINE.md: gpt-moe-8e at batch 4,
+# dots remat, sparse dispatch), with the port's main-path optimizer and
+# xent chunks; 2 warm-up steps, then 5 timed
+MOE_MODEL, MOE_LAYERS, MOE_BATCH = "gpt-moe-8e", 24, 4
+MOE_WARMUP, MOE_STEPS = 2, 5
+MOE_TRAIN = {
+    "model": MOE_MODEL, "task": "lm",
+    "model_kwargs": {"attention_impl": "auto"},
+    "global_batch": MOE_BATCH, "seq_len": L, "vocab_size": 32000,
+    "optimizer": "adafactor", "learning_rate": 3e-4, "weight_decay": 1e-4,
+    "warmup_steps": 5, "total_steps": MOE_WARMUP + MOE_STEPS, "remat": True,
+    "remat_policy": "dots", "xent_chunks": 8, "seed": 0, "log_every": 1,
+}
+# phase 24: one block at gpt-moe-8e's width; sparse vs dense at capacity
+# factor 4 (no token drops), bf16, per row
+MOE_BLOCK_B, MOE_BLOCK_CF = 2, 4.0
+MOE_BLOCK_TOL = 1e-2
+# phase 26: the served MoE
+MOE_SERVE_P, MOE_SERVE_N, MOE_SERVE_SLOTS, MOE_SERVE_REQUESTS = 64, 32, 4, 4
+# phase 27: llama-1b cut to 4 layers and batch 2 (the plain attention of
+# `reference` and of ring at one rank holds [2, 32, 2048, 2048] f32 scores
+# per layer), 3 steps per attention_impl
+LONGCTX_LAYERS, LONGCTX_BATCH, LONGCTX_STEPS = 4, 2, 3
+LONGCTX_SAME_RTOL = 1e-3     # same attention code: phase 15's loss limit
+LONGCTX_PAIR_RTOL = 2e-2     # flash vs reference: phase 4's row limit
+
+
+def _flash_per_step(layers: int, policy: str | None) -> dict:
+    """Flash launches a training step makes: one forward per layer (two
+    under `full`, which replays it) and one of each backward kernel."""
+    fwd = layers * (2 if policy == "full" else 1)
+    return {"flash_fwd": fwd, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+
+
+def moe_train_phase(fa, _build) -> dict:
+    """Phase 23: gpt-moe-8e through the port launcher at the reference's
+    MoE point (batch 4, seq 2048, dots remat, adafactor, flash attention,
+    synthetic tokens): the sparse dispatch (moe_sparse_dispatch 1.0), a
+    finite loss, and the flash launches per step that the layer count and
+    the policy give; then `python -m kubeflow_tpu_torch.bench`'s run_lm at
+    the same point, 2 warm-up and 5 timed steps: ms per step, tokens/s,
+    MFU over active parameters, peak memory and the moe_* keys."""
+    import torch
+
+    from kubeflow_tpu_torch import bench
+
+    steps = MOE_WARMUP + MOE_STEPS
+    summary, launches, wall = launch_in_process(fa, _build, MOE_TRAIN,
+                                                "moe_train")
+    final = summary["final"]
+    want = {k: v * steps for k, v in
+            _flash_per_step(MOE_LAYERS, MOE_TRAIN["remat_policy"]).items()}
+    if launches != want:
+        fail(f"gpt-moe-8e: launches {launches} in {steps} steps, want {want}")
+    if final.get("moe_sparse_dispatch") != 1.0:
+        fail(f"gpt-moe-8e: moe_sparse_dispatch {final.get('moe_sparse_dispatch')}"
+             ", want 1.0: the trainer's one-rank mesh takes the sparse path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = bench.parse_args([
+        "--lm-model", MOE_MODEL, "--lm-batch", str(MOE_BATCH),
+        "--seq-len", str(L), "--lm-remat-policy", "dots",
+        "--lm-attention", "auto", "--lm-xent-chunks", "8",
+        "--warmup", str(MOE_WARMUP), "--steps", str(MOE_STEPS)])
+    line = bench.run_lm(args)
+    if line.get("moe_sparse_dispatch") != 1.0:
+        fail(f"gpt-moe-8e bench: {line}")
+    print(f"gpt-moe-8e train (launcher, {steps} steps in {wall:.1f}s): final "
+          f"loss {final['loss']:.4f}, moe_fill {final['moe_fill']:.4f}, "
+          f"moe_drop {final['moe_drop']:.4f}, moe_sparse_dispatch "
+          f"{final['moe_sparse_dispatch']}, launches {launches}", flush=True)
+    print("gpt-moe-8e bench: " + json.dumps(line), flush=True)
+    return launches
+
+
+def moe_block_phase() -> None:
+    """Phase 24: one MoE block at gpt-moe-8e's width (d 1024, d_ff 4096,
+    8 experts, top-2), batch 2, seq 2048, bf16, capacity factor 4 (no
+    token drops): the sparse dispatch's output and its gradients (of x
+    and of the three expert weights) against the dense one-hot oracle's,
+    per row within MOE_BLOCK_TOL; a planted control, the sparse path with
+    one routed token's gate zeroed, must exceed it. Then the default
+    capacity factor 1.25 on a fresh random batch: fill and drop of both
+    paths, printed."""
+    import torch
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import kernel_check, moe
+
+    cfg = TransformerConfig(d_model=1024, d_ff=4096, n_experts=8,
+                            expert_top_k=2, moe_every=2)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    block = moe.MoEBlock(cfg, "cuda")
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    d, k = cfg.d_model, cfg.expert_top_k
+
+    def batch():
+        return torch.randn(MOE_BLOCK_B, L, d, device="cuda", generator=gen,
+                           dtype=torch.bfloat16)
+
+    x = batch()
+    ct = torch.randn(x.shape, device="cuda", generator=gen,
+                     dtype=torch.bfloat16)
+    with torch.no_grad():
+        _, gates, idx = moe.router(x, block.router.weight, k)
+    weights = (block.w_gate, block.w_up, block.w_down)
+
+    def run(sparse: bool, g, cf=MOE_BLOCK_CF, xx=x):
+        xi = xx.detach().requires_grad_(True)
+        for w in weights:
+            w.grad = None
+        if sparse:
+            y, kept, routed, slots = moe.sparse_dispatch_mlp(
+                xi.reshape(-1, d), g.reshape(-1, k), idx.reshape(-1, k),
+                *weights, cf, torch.bfloat16)
+            y = y.reshape(xi.shape)
+        else:
+            y, kept, routed, slots = moe.dense_dispatch_mlp(
+                xi, g, idx, *weights, cf, torch.bfloat16)
+        (y.float() * ct.float()).sum().backward()
+        return ({"y": y.detach(), "dx": xi.grad,
+                 **{n: w.grad.clone() for n, w in
+                    zip(("dw_gate", "dw_up", "dw_down"), weights)}},
+                float(kept), float(routed), float(slots))
+
+    dense, kd, rd, _ = run(False, gates)
+    sparse, ks, rs, _ = run(True, gates)
+    if not kd == rd == ks == rs:
+        fail(f"moe block: tokens dropped at capacity factor {MOE_BLOCK_CF}: "
+             f"dense {kd}/{rd}, sparse {ks}/{rs}")
+    errs = {}
+    for name, want in dense.items():
+        row = want.shape[-1]
+        errs[name] = check_rows(f"moe block sparse vs dense {name}",
+                                sparse[name].reshape(-1, row),
+                                want.reshape(-1, row),
+                                MOE_BLOCK_TOL)["max_row_err"]
+    planted = gates.clone()
+    planted[0, 0, 0] = 0.0
+    control, *_ = run(True, planted)
+    ctl = kernel_check.errors(control["y"].reshape(-1, d),
+                              dense["y"].reshape(-1, d))["max_row_err"]
+    if not ctl > MOE_BLOCK_TOL:
+        fail(f"moe block: the planted control (one gate zeroed) reads "
+             f"{ctl:.4g}, within the limit {MOE_BLOCK_TOL}")
+    x2 = batch()
+    with torch.no_grad():
+        _, gates, idx = moe.router(x2, block.router.weight, k)
+    fills = {}
+    for tag, sp in (("dense", False), ("sparse", True)):
+        _, kept, routed, slots = run(sp, gates, cf=cfg.moe_capacity_factor,
+                                     xx=x2)
+        fills[tag] = (kept / slots, 1.0 - kept / routed)
+    print("moe block (d 1024, d_ff 4096, 8 experts top-2, batch 2, seq "
+          f"2048, bf16, capacity factor {MOE_BLOCK_CF}): sparse vs dense max "
+          "row err " + ", ".join(f"{n} {e:.4g}" for n, e in errs.items())
+          + f" (limit {MOE_BLOCK_TOL}); planted control {ctl:.4g}; at "
+          f"capacity factor {cfg.moe_capacity_factor}: "
+          + ", ".join(f"{t} fill {f:.4f} drop {dr:.4f}"
+                      for t, (f, dr) in fills.items()), flush=True)
+
+
+def moe_card_vs_cpu_phase() -> None:
+    """Phase 25: gpt-moe-8e at 2 layers (layer 1 an MoE block), f32, TF32
+    off, batch 2, seq 256, the same weights on the card and on the CPU,
+    both through the Trainer (the sparse path): the loss before and after
+    one sgdm step within CPU_REL_TOL relative and every parameter after
+    it within 1e-2 per row, the limits phase 18 holds ResNet-50 to."""
+    import torch
+
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    cfg = TrainConfig.from_dict({
+        "model": MOE_MODEL, "task": "lm", "global_batch": 2, "seq_len": 256,
+        "vocab_size": 32000, "optimizer": "sgdm", "learning_rate": 0.1,
+        "warmup_steps": 0, "total_steps": 10,
+        "model_kwargs": {"dtype": "float32", "n_layers": 2,
+                         "attention_impl": "reference"}})
+    cpu = Trainer(cfg, device="cpu")
+    init = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    host = next(cpu.data_iter())
+    runs = {}
+    for tag, dev in (("cpu", "cpu"), ("card", "cuda")):
+        t = cpu if dev == "cpu" else Trainer(cfg, device=dev)
+        t.model.load_state_dict(init)
+        batch = t._to_device(host)
+        m1 = t.train_step(batch)
+        m2 = t.train_step(batch)
+        runs[tag] = {"losses": [float(m1["loss"]), float(m2["loss"])],
+                     "sparse": float(m1["moe_sparse_dispatch"]),
+                     "params": {n: p.detach().cpu() for n, p in
+                                t.model.named_parameters()}}
+        del t
+    want, got = runs["cpu"], runs["card"]
+    if got["sparse"] != 1.0 or want["sparse"] != 1.0:
+        fail(f"moe card vs cpu: dispatch {got['sparse']} / {want['sparse']}")
+    for a, b in zip(got["losses"], want["losses"]):
+        if not abs(a - b) <= CPU_REL_TOL * abs(b):
+            fail(f"moe card vs cpu: losses {got['losses']} vs {want['losses']}")
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1]) if t.ndim > 1 else t[None]
+
+    worst = max(check_rows(f"moe card vs cpu {n}", rows(got["params"][n]),
+                           rows(p), 1e-2)["max_row_err"]
+                for n, p in want["params"].items())
+    print(f"moe card vs cpu (gpt-moe-8e, 2 layers, f32, batch 2, seq 256): "
+          f"losses card {got['losses']} cpu {want['losses']}, params after "
+          f"two sgdm steps max row err {worst:.3g}", flush=True)
+
+
+def moe_serving_phase() -> None:
+    """Phase 26: gpt-moe-8e at full depth served through the port's
+    serve_lm_generator, the LM generator (a 50 ms batching window, so the
+    4 concurrent requests make one batch) and the continuous slot decoder
+    (4 slots), in f32 with TF32 off: a warm-up, then 4 greedy requests
+    of 32 new tokens at concurrency 4 each; tokens/s printed. Neither
+    path has a mesh, so both take the reference's meshless dense
+    dispatch, and their tokens must be equal."""
+    import concurrent.futures as cf
+
+    import torch
+
+    from kubeflow_tpu_torch.serving.server import serve_lm_generator
+
+    rng = random.Random(5)
+    prompts = [[rng.randrange(1, 32000) for _ in range(rng.randint(8, 64))]
+               for _ in range(MOE_SERVE_REQUESTS)]
+    toks, rates = {}, {}
+    for tag, cont in (("generator", False), ("slot decoder", True)):
+        served = serve_lm_generator(
+            "moe", MOE_MODEL, prompt_len=MOE_SERVE_P,
+            max_new_tokens=MOE_SERVE_N, device="cuda", param_dtype="float32",
+            dtype="float32", continuous_batching=cont,
+            decode_slots=MOE_SERVE_SLOTS, max_batch=MOE_SERVE_SLOTS,
+            batch_window_ms=0.0 if cont else 50.0)
+        try:
+            served.predict([{"tokens": prompts[0]}])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with cf.ThreadPoolExecutor(max_workers=MOE_SERVE_SLOTS) as pool:
+                toks[tag] = list(pool.map(
+                    lambda pr: [int(t) for t in
+                                served.predict([{"tokens": pr}])[0]],
+                    prompts))
+            dt = time.perf_counter() - t0
+        finally:
+            served.close()
+        rates[tag] = sum(map(len, toks[tag])) / dt
+        gc.collect()
+        torch.cuda.empty_cache()
+    if any(len(t) != MOE_SERVE_N for t in toks["generator"]):
+        fail("moe serving: a response without 32 ids")
+    if toks["generator"] != toks["slot decoder"]:
+        same = sum(a == b for ra, rb in zip(toks["generator"],
+                                            toks["slot decoder"])
+                   for a, b in zip(ra, rb))
+        fail(f"moe serving: the two paths differ in f32 ({same} of "
+             f"{MOE_SERVE_REQUESTS * MOE_SERVE_N} tokens equal)")
+    print(f"moe serving (gpt-moe-8e, 24 layers, f32, {MOE_SERVE_REQUESTS} "
+          f"requests of {MOE_SERVE_N} new tokens at concurrency "
+          f"{MOE_SERVE_SLOTS}, dense dispatch): generator "
+          f"{rates['generator']:.1f} tokens/s, slot decoder "
+          f"{rates['slot decoder']:.1f} tokens/s; tokens equal", flush=True)
+
+
+def longctx_phase(fa, _build) -> dict:
+    """Phase 27: llama-1b cut to LONGCTX_LAYERS layers, batch
+    LONGCTX_BATCH, seq 2048, through the port launcher at one rank with
+    attention_impl flash, ulysses, reference and ring, LONGCTX_STEPS steps
+    each (adafactor, slim remat). Ulysses at one rank is the local
+    dispatch: it must launch the flash kernels exactly as flash does;
+    ring at one rank is the plain attention: it must launch none, as
+    reference. The final losses: ulysses against flash and ring against
+    reference within LONGCTX_SAME_RTOL, flash against reference within
+    LONGCTX_PAIR_RTOL. Returns the launches of ulysses and ring."""
+    out, launches = {}, {}
+    for impl in ("flash", "ulysses", "reference", "ring"):
+        cfg = {**MAIN_PATH, "global_batch": LONGCTX_BATCH,
+               "total_steps": LONGCTX_STEPS,
+               "model_kwargs": {"attention_impl": impl,
+                                "n_layers": LONGCTX_LAYERS}}
+        summary, launches[impl], _ = launch_in_process(
+            fa, _build, cfg, f"longctx_{impl}")
+        out[impl] = summary
+    flash = {k: v * LONGCTX_STEPS for k, v in
+             _flash_per_step(LONGCTX_LAYERS, "slim").items()}
+    none = {k: 0 for k in flash}
+    for impl, want in (("flash", flash), ("ulysses", flash),
+                       ("reference", none), ("ring", none)):
+        if launches[impl] != want:
+            fail(f"longctx {impl}: launches {launches[impl]}, want {want}")
+    loss = {k: v["final"]["loss"] for k, v in out.items()}
+    for a, b, tol in (("ulysses", "flash", LONGCTX_SAME_RTOL),
+                      ("ring", "reference", LONGCTX_SAME_RTOL),
+                      ("flash", "reference", LONGCTX_PAIR_RTOL)):
+        if not abs(loss[a] - loss[b]) <= tol * abs(loss[b]):
+            fail(f"longctx: {a} loss {loss[a]} vs {b} {loss[b]} (limit "
+                 f"{tol} relative)")
+    print(f"longctx (llama-1b, {LONGCTX_LAYERS} layers, batch "
+          f"{LONGCTX_BATCH}, seq {L}, {LONGCTX_STEPS} steps): final losses "
+          + ", ".join(f"{k} {v:.6f}" for k, v in loss.items())
+          + "; step ms " + ", ".join(
+              f"{k} {v['step_time_s'] * 1e3:.1f}" for k, v in out.items())
+          + f"; launches ulysses {launches['ulysses']}, ring "
+          f"{launches['ring']}", flush=True)
+    return {"ulysses": launches["ulysses"], "ring": launches["ring"]}
+
+
+def gloo_probe_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --gloo-probe MODE RANK PORT`: one of two ranks that
+    share the card in a gloo world (the loopback backend's transport)
+    tries MODE (`all_to_all` or `send_recv`) on CUDA tensors and prints
+    one JSON line: "ok", "wrong" or the error. Nothing is staged through
+    the host."""
+    import torch
+    import torch.distributed as dist
+
+    mode, rank, port = argv[0], int(argv[1]), int(argv[2])
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    x = torch.arange(8.0, device="cuda") + 100 * rank
+    try:
+        if mode == "all_to_all":
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x)
+            want = torch.cat([torch.arange(4.0) + 4 * rank,
+                              torch.arange(4.0) + 4 * rank + 100]).cuda()
+        else:
+            out = torch.empty_like(x)
+            if rank == 0:
+                dist.send(x, 1)
+                dist.recv(out, 1)
+            else:
+                dist.recv(out, 0)
+                dist.send(x, 0)
+            want = torch.arange(8.0, device="cuda") + 100 * (1 - rank)
+        torch.cuda.synchronize()
+        res = "ok" if torch.equal(out, want) else f"wrong: {out.tolist()}"
+    except Exception as e:          # the probe reports what gloo says
+        res = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    print(json.dumps({"mode": mode, "rank": rank, "result": res}),
+          flush=True)
+    return 0
+
+
+def gloo_probe_phase() -> dict:
+    """Phase 28: can two ranks sharing the card over gloo (the loopback
+    backend) all_to_all and send/recv CUDA tensors? Two pairs of
+    `--gloo-probe` processes, one per mode, each with its own port;
+    prints each rank's answer (a crash or a hang past 120 s counts as a
+    no). The answer decides where expert, seq and pipe above 1 can run:
+    this phase records it; it fails only if a probe cannot start."""
+    procs = []
+    for mode in ("all_to_all", "send_recv"):
+        port = _free_port_pair()
+        for rank in (0, 1):
+            procs.append((mode, rank, subprocess.Popen(
+                [sys.executable, __file__, "--gloo-probe", mode, str(rank),
+                 str(port)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    answers = {}
+    for mode, rank, p in procs:
+        try:
+            out, _ = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            out += "\n(timed out)"
+        line = next((json.loads(s) for s in out.splitlines()
+                     if s.startswith('{"mode"')), None)
+        answers[f"{mode} rank {rank}"] = (
+            line["result"] if line else
+            f"exit {p.returncode}: {out.strip().splitlines()[-1:]}")
+    works = {m: all(v == "ok" for k, v in answers.items() if k.startswith(m))
+             for m in ("all_to_all", "send_recv")}
+    print("gloo on CUDA tensors, two ranks sharing the card: " + json.dumps(
+        answers), flush=True)
+    print("gloo probe verdict: " + json.dumps(works), flush=True)
+    return works
+
+
+# phase 29: expert 2 on the card over gloo (phase 28 found that gloo's
+# all_to_all takes CUDA tensors): gpt-moe-8e cut to 4 layers (2 MoE
+# layers), seq 1024, global batch 8, capacity factor 4 (no drops), adamw,
+# f32 with TF32 off and the plain attention: in bf16 the dense path's
+# gates are rounded (its combine is a bf16 einsum) and adamw's sign-like
+# first steps blow that rounding up, so the hold would measure bf16, not
+# the exchange
+EP_STEPS = 3
+EP_DELTA_TOL = 1e-2          # per row, the parameter change (kernel_check's)
+
+
+def _ep_config(impl: str, mesh: dict | None) -> dict:
+    return {"model": MOE_MODEL, "task": "lm",
+            "model_kwargs": {"n_layers": 4, "moe_impl": impl,
+                             "moe_capacity_factor": 4.0, "dtype": "float32",
+                             "attention_impl": "reference"},
+            "global_batch": 8, "seq_len": 1024, "vocab_size": 32000,
+            "optimizer": "adamw", "learning_rate": 3e-4,
+            "warmup_steps": 1, "total_steps": EP_STEPS, "seed": 0,
+            "log_every": 1, **({"mesh": mesh} if mesh else {})}
+
+
+def expert_world_phase(root) -> dict:
+    """Phase 29: two port launchers share the card over gloo with mesh
+    data 1 x expert 2 (each holds 4 of the 8 experts; the sparse
+    dispatch's all-to-all crosses the ranks) for 3 steps, against one
+    process on the dense one-hot oracle: both ranks print the same
+    losses and moe_sparse_dispatch 1.0 (the one process 0.0), each rank's
+    parameter change (its slice of the experts against the same slice)
+    equals one process's per row within EP_DELTA_TOL, and a planted
+    control, the same world with the all-to-all returning its input (the
+    reference's dropped all_to_all), misses it; the final loss within
+    1e-3 relative. f32 with the plain attention: no flash launch. Returns
+    the flash launches of each rank."""
+    one = _launch_world(_ep_config("dense", None), root, "ep_one", 1,
+                        dump_steps=(EP_STEPS,))[0]
+    two = _launch_world(_ep_config("sparse", {"data": 1, "expert": 2}),
+                        root, "ep_two", 2, dump_steps=(EP_STEPS,))
+    control = _launch_world(_ep_config("sparse", {"data": 1, "expert": 2}),
+                            root, "ep_control", 2, dump_steps=(EP_STEPS,),
+                            fault="no-exchange")
+    _ok([one, *two, *control], "expert 2")
+    want = {k: 0 for k in _flash_per_step(4, None)}
+    for r, run in enumerate([one, *two]):
+        if run["launches"] != want:
+            fail(f"expert 2 run {r}: launches {run['launches']}, want {want}")
+    losses = [[ln.split("loss=")[1].split()[0] for ln in r["out"].splitlines()
+               if " loss=" in ln] for r in two]
+    if losses[0] != losses[1] or len(losses[0]) < EP_STEPS - 1:
+        fail(f"expert 2: rank losses differ {losses}")
+    dispatch = [r["summary"]["final"].get("moe_sparse_dispatch")
+                for r in (one, *two)]
+    if dispatch != [0.0, 1.0, 1.0]:
+        fail(f"expert 2: moe_sparse_dispatch {dispatch}, want dense on one "
+             "process and sparse on the ranks")
+    held = [_hold_delta(f"expert 2 rank {r}",
+                        root / f"ep_two.rank{r}.{EP_STEPS}.pt",
+                        root / f"ep_one.rank0.{EP_STEPS}.pt",
+                        root / f"ep_control.rank{r}.{EP_STEPS}.pt", rank=r,
+                        tol=EP_DELTA_TOL)
+            for r in range(2)]
+    lo, lw = (two[0]["summary"]["final"]["loss"],
+              one["summary"]["final"]["loss"])
+    if not abs(lo - lw) <= WORLD_LOSS_RTOL * abs(lw):
+        fail(f"expert 2: final loss {lo} vs one process {lw}")
+    print(f"expert 2 over gloo on one card (gpt-moe-8e, 4 layers, seq 1024, "
+          f"batch 8, capacity factor 4): losses {losses[0]}; final loss "
+          f"{lo:.6f} vs one process (dense) {lw:.6f}; rank 0 {held[0]}; "
+          f"rank 1 {held[1]}; step ms one process "
+          f"{one['summary']['step_time_s'] * 1e3:.1f}, ranks "
+          + ", ".join(f"{r['summary']['step_time_s'] * 1e3:.1f}" for r in two),
+          flush=True)
+    return {f"expert_rank{r}": run["launches"] for r, run in enumerate(two)}
+
+
 def main() -> int:
     try:
         import torch
@@ -2716,8 +3271,9 @@ def main() -> int:
     launches["serving"] = dict(fa.LAUNCHES)
     timed_phase("rolling check", rolling_check)
     fa.reset_launches()
+    # 16 requests (the pinned point's 32 halved): the script's time
     timed_phase("rolling pinned", serving_pinned, card, tag="rolling pinned",
-                cache_bytes=ROLLING_CACHE_BYTES,
+                requests=ROLLING_REQUESTS, cache_bytes=ROLLING_CACHE_BYTES,
                 attention_window=ROLLING_WINDOW, rolling_kv_cache=True)
     launches["rolling"] = dict(fa.LAUNCHES)
     timed_phase("speculative check", speculative_check)
@@ -2789,6 +3345,28 @@ def main() -> int:
     finally:
         shutil.rmtree(world_root, ignore_errors=True)
     timed_phase("nccl", nccl_phase)
+    # mixture-of-experts, sequence and pipeline parallelism at one rank
+    launches["moe_train"] = timed_phase("moe train", moe_train_phase, fa,
+                                        _build)
+    timed_phase("profile moe", profile_phase, MOE_TRAIN, MOE_MODEL)
+    timed_phase("moe block", moe_block_phase)
+    timed_phase("moe card vs cpu", moe_card_vs_cpu_phase)
+    fa.reset_launches()
+    timed_phase("moe serving", moe_serving_phase)
+    launches["moe_serving"] = dict(fa.LAUNCHES)
+    if any(launches["moe_serving"].values()):
+        fail(f"the moe serving path launched flash kernels "
+             f"{launches['moe_serving']}: decode attends by bmm")
+    launches.update(timed_phase("long context", longctx_phase, fa, _build))
+    timed_phase("gloo probe", gloo_probe_phase)
+    ep_root = _build.build_dir() / "chip_smoke_expert"
+    shutil.rmtree(ep_root, ignore_errors=True)
+    ep_root.mkdir(parents=True)
+    try:
+        launches.update(timed_phase("expert 2 on one card",
+                                    expert_world_phase, ep_root))
+    finally:
+        shutil.rmtree(ep_root, ignore_errors=True)
     for row in rows:
         row["launches"] = launches["pinned"][row["name"]]
         row["launches_by_path"] = {t: n[row["name"]]
@@ -2805,5 +3383,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(world_worker(sys.argv[2:]) if sys.argv[1:2] == ["--world-worker"]
-             else main())
+    if sys.argv[1:2] == ["--world-worker"]:
+        sys.exit(world_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        sys.exit(gloo_probe_worker(sys.argv[2:]))
+    sys.exit(main())

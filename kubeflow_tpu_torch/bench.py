@@ -22,6 +22,9 @@ JSON line with the reference's fields, plus the card and the peak device
 memory. Runs on a CUDA device only: without one it raises.
 `--resnet-remat` raises: the reference's whole-forward remat would
 replay the BatchNorm updates here (ROADMAP Queue 1 item 19b).
+An MoE model (`--lm-model gpt-moe-8e`) adds the reference's moe_fill,
+moe_drop and moe_sparse_dispatch keys to the line, read from the last
+warm-up step, so the dispatch path that ran is on record.
 """
 
 from __future__ import annotations
@@ -112,9 +115,18 @@ def resnet_config(args: argparse.Namespace):
     ))
 
 
-def _timed(trainer, steps: int, warmup: int) -> tuple[float, float, str]:
+def moe_keys(metrics: dict) -> dict:
+    """The moe_* step metrics, rounded as the reference's bench rounds
+    them (bench.py:178-184)."""
+    return {k: round(float(v), 4) for k, v in sorted(metrics.items())
+            if k.startswith("moe_")}
+
+
+def _timed(trainer, steps: int, warmup: int
+           ) -> tuple[float, float, str, dict]:
     """Mean step seconds of `steps` chained steps on one resident batch
-    after `warmup` steps, the final loss and the card's name."""
+    after `warmup` steps, the final loss, the card's name and the last
+    warm-up step's metrics."""
     import torch
 
     kind = torch.cuda.get_device_name(trainer.device)
@@ -122,6 +134,7 @@ def _timed(trainer, steps: int, warmup: int) -> tuple[float, float, str]:
     torch.cuda.reset_peak_memory_stats()
     for _ in range(max(1, warmup)):
         m = trainer.train_step(batch)
+    warm = {k: float(v) for k, v in m.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -131,7 +144,7 @@ def _timed(trainer, steps: int, warmup: int) -> tuple[float, float, str]:
     final_loss = float(m["loss"])
     if not math.isfinite(final_loss):
         raise RuntimeError(f"{trainer.cfg.model} loss is {final_loss}")
-    return dt, final_loss, kind
+    return dt, final_loss, kind, warm
 
 
 def _mfu(trainer, dt: float, kind: str) -> float | None:
@@ -148,7 +161,7 @@ def run_resnet(args: argparse.Namespace) -> dict:
     from kubeflow_tpu_torch.runtime.trainer import Trainer
 
     trainer = Trainer(resnet_config(args), device="cuda")
-    dt, final_loss, kind = _timed(trainer, args.steps, args.warmup)
+    dt, final_loss, kind, _ = _timed(trainer, args.steps, args.warmup)
     mfu = _mfu(trainer, dt, kind)
     return {
         "model": args.model,
@@ -170,7 +183,7 @@ def run_lm(args: argparse.Namespace) -> dict:
     from kubeflow_tpu_torch.runtime.trainer import Trainer
 
     trainer = Trainer(train_config(args), device="cuda")
-    dt, final_loss, kind = _timed(trainer, args.steps, args.warmup)
+    dt, final_loss, kind, warm = _timed(trainer, args.steps, args.warmup)
     mfu = _mfu(trainer, dt, kind)
     return {
         "model": args.lm_model,
@@ -187,6 +200,7 @@ def run_lm(args: argparse.Namespace) -> dict:
         "grad_accum": args.lm_grad_accum,
         **({"window": args.lm_window} if args.lm_window else {}),
         "n_params_m": round(trainer.n_params / 1e6, 1),
+        **moe_keys(warm),
         "final_loss": final_loss,
         "device": kind,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,

@@ -11,6 +11,14 @@ Layouts of the reference trees (kubeflow_tpu/models/):
   `patch_embed` (ViT) and BERT's `head` as Dense kernels [in, out];
   ViT's `pos_embed` and `head_kernel` [d, classes], BERT's `embedding`
   and `pos_embedding`, as they are;
+- MoE blocks: `layer_i/moe/router/kernel` [d, e] (a Dense kernel) and
+  `layer_i/moe/{w_gate, w_up}` [e, d, f], `w_down` [e, f, d], as they
+  are;
+- pipeline stages: the reference's stage-stacked tree
+  `pipeline/ticks/stages/block_p/...` (each leaf stacked over the
+  stages: stage s's block_p is layer s * n/pp + p) maps to and from the
+  port's sequential `layer_i` names (`unstack_pipeline`,
+  `stack_pipeline`); params and elementwise optimizer states alike;
 - ResNet: conv kernels (`conv_init`, `Conv_i`, `conv_proj`) HWIO
   [kh, kw, in, out]; BatchNorm `scale` and `bias` in params, `mean` and
   `var` in the batch_stats collection (the port's buffers of the same
@@ -88,14 +96,49 @@ def _leaf_to_port(path: str, a: np.ndarray) -> np.ndarray:
     return a
 
 
+def unstack_pipeline(tree: Mapping[str, Any]) -> dict:
+    """The reference's pipelined tree with its stage-stacked blocks
+    (`pipeline/ticks/stages/block_p`, leaves [pp, ...]) as the
+    sequential tree (`layer_{s * n/pp + p}`); any other tree as it is."""
+    stages = tree.get("pipeline", {}).get("ticks", {}).get("stages") \
+        if isinstance(tree.get("pipeline"), Mapping) else None
+    if stages is None:
+        return dict(tree)
+    out = {k: v for k, v in tree.items() if k != "pipeline"}
+    lps = len(stages)
+    for p, block in stages.items():
+        flat = _flatten(block)
+        pp = next(iter(flat.values())).shape[0]
+        for s in range(pp):
+            out[f"layer_{s * lps + int(p[len('block_'):])}"] = _nest(
+                {k: a[s] for k, a in flat.items()})
+    return out
+
+
+def stack_pipeline(tree: Mapping[str, Any], stages: int) -> dict:
+    """The inverse of unstack_pipeline: `layer_i` subtrees stacked into
+    the reference's `pipeline/ticks/stages/block_p` over `stages`."""
+    layers = sorted((k for k in tree if k.startswith("layer_")),
+                    key=lambda k: int(k[len("layer_"):]))
+    lps = len(layers) // stages
+    out = {k: v for k, v in tree.items() if not k.startswith("layer_")}
+    blocks = {}
+    for p in range(lps):
+        per = [_flatten(tree[f"layer_{s * lps + p}"]) for s in range(stages)]
+        blocks[f"block_{p}"] = _nest({k: np.stack([f[k] for f in per])
+                                      for k in per[0]})
+    out["pipeline"] = {"ticks": {"stages": blocks}}
+    return out
+
+
 def flax_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Map a flax `params` tree (nested dicts of arrays) to the port
     model's state_dict entries of those parameters; every tensor is f32
     on the CPU. A `batch_stats` tree maps the same way, to the
-    BatchNorm buffers."""
+    BatchNorm buffers; a pipelined tree to the sequential names."""
     return {_port_name(path): torch.tensor(np.ascontiguousarray(
                 _leaf_to_port(path, a)))
-            for path, a in _flatten(params).items()}
+            for path, a in _flatten(unstack_pipeline(params)).items()}
 
 
 def _to_flax_leaf(name: str, t: torch.Tensor, head_dim: int) -> np.ndarray:
@@ -116,13 +159,17 @@ def _nest(flat: Mapping[str, Any]) -> dict:
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
-                       head_dim: int | None) -> dict:
+                       head_dim: int | None,
+                       pipeline_stages: int = 0) -> dict:
     """The inverse of `flax_to_state_dict`: port parameters (or
     BatchNorm buffers) as a nested flax tree of f32 numpy arrays, in the
     flax layout. `head_dim` is the attention head width (None for a
-    ResNet)."""
-    return _nest({flax_name(n): _to_flax_leaf(n, t, head_dim)
+    ResNet); pipeline_stages > 1 stacks the blocks as the reference's
+    pipelined model holds them."""
+    tree = _nest({flax_name(n): _to_flax_leaf(n, t, head_dim)
                   for n, t in state_dict.items()})
+    return stack_pipeline(tree, pipeline_stages) \
+        if pipeline_stages > 1 else tree
 
 
 def flax_layout(name: str, shape, head_dim: int | None
@@ -263,11 +310,13 @@ def opt_state_to_port(opt_state, params: Mapping[str, Any], optimizer: str
     {port parameter name: that parameter's state}."""
     from kubeflow_tpu_torch.runtime.optim import factored_dims
 
-    flat_params = _flatten(params)
+    if "pipeline" in params and optimizer == "adafactor":
+        raise ValueError(_ADAFACTOR_STACKED)
+    flat_params = _flatten(unstack_pipeline(params))
     if optimizer == "adamw":
         node = _find(opt_state, "count", "mu", "nu")
         count = float(np.asarray(node.count))
-        mu, nu = _flatten(node.mu), _flatten(node.nu)
+        mu, nu = (_flatten(unstack_pipeline(t)) for t in (node.mu, node.nu))
         return {_port_name(p): {
                     "step": torch.tensor(count, dtype=torch.float32),
                     "exp_avg": torch.tensor(np.ascontiguousarray(
@@ -276,7 +325,7 @@ def opt_state_to_port(opt_state, params: Mapping[str, Any], optimizer: str
                         _leaf_to_port(p, nu[p])))}
                 for p in flat_params}
     if optimizer == "sgdm":
-        trace = _flatten(_find(opt_state, "trace").trace)
+        trace = _flatten(unstack_pipeline(_find(opt_state, "trace").trace))
         return {_port_name(p): {"momentum_buffer": torch.tensor(
                     np.ascontiguousarray(_leaf_to_port(p, trace[p])))}
                 for p in flat_params}
@@ -298,6 +347,11 @@ def opt_state_to_port(opt_state, params: Mapping[str, Any], optimizer: str
                      f"{optimizer!r} (adamw, sgdm, adafactor)")
 
 
+_ADAFACTOR_STACKED = (
+    "adafactor state of a pipelined tree: the reference factors and clips "
+    "each stage-stacked tensor as a whole, which no per-layer state holds")
+
+
 def _port_count(opt_state: Mapping[str, dict]) -> int:
     steps = {int(st["step"]) for st in opt_state.values() if "step" in st}
     if len(steps) > 1:
@@ -310,13 +364,16 @@ def _port_count(opt_state: Mapping[str, dict]) -> int:
 
 def opt_state_to_flax(opt_state: Mapping[str, dict],
                       params: Mapping[str, torch.Tensor], template,
-                      head_dim: int | None, step: int | None = None):
+                      head_dim: int | None, step: int | None = None,
+                      pipeline_stages: int = 0):
     """The port's optimizer state over `params` (the model's parameters)
     as an optax state shaped like `template` (e.g. `tx.init(params)` of
     the reference's make_optimizer): each node of the template is
     rebuilt with numpy leaves, adam moments and sgd traces in the flax
     layout, the unused adafactor statistics as shape-(1,) zeros. The
-    count is `step`, else the state's own (SGD keeps none)."""
+    count is `step`, else the state's own (SGD keeps none).
+    pipeline_stages > 1 stacks the blocks' states as the pipelined
+    model's (adamw, sgdm)."""
     from kubeflow_tpu_torch.runtime.optim import factored_dims
 
     count = np.asarray(_port_count(opt_state) if step is None else step,
@@ -328,7 +385,9 @@ def opt_state_to_flax(opt_state: Mapping[str, dict],
         return st.get(key)
 
     def tree(fn) -> dict:
-        return _nest({flax_name(n): fn(n, t) for n, t in params.items()})
+        out = _nest({flax_name(n): fn(n, t) for n, t in params.items()})
+        return stack_pipeline(out, pipeline_stages) \
+            if pipeline_stages > 1 else out
 
     def layout_leaf(key):
         def f(n, t):
@@ -364,6 +423,8 @@ def opt_state_to_flax(opt_state: Mapping[str, dict],
             if fields == ("trace",):
                 return node._replace(trace=tree(layout_leaf("momentum_buffer")))
             if {"v_row", "v_col", "v"} <= set(fields):
+                if pipeline_stages > 1:
+                    raise ValueError(_ADAFACTOR_STACKED)
                 return node._replace(count=count,
                                      v_row=tree(factored_leaf("v_row")),
                                      v_col=tree(factored_leaf("v_col")),

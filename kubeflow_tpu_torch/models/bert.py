@@ -7,8 +7,11 @@ position table, both cast to the model dtype; pre-norm encoder blocks
 reference does: segment ids `tokens != 0`, so pads attend to pads and
 tokens to tokens (not a key-padding mask); a final RMSNorm; [CLS]
 pooling at position 0 in f32 and an f32 classifier head. Attention is
-the plain `reference_attention`; `attention_impl="ring"` waits for the
-port's ring attention (ROADMAP Queue 1 item 18).
+the plain `reference_attention`; `attention_impl="ring"` is the
+bidirectional ring (ops/ring_attention.py) with no padding mask, as the
+reference's long-context path: over the `seq` group when one is set
+(`BertEncoder.seq`, this rank's tokens a block of positions; the [CLS]
+row comes from the group's first rank), else the plain attention.
 """
 
 from __future__ import annotations
@@ -40,10 +43,7 @@ class BertConfig:
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "dtype", as_dtype(self.dtype))
-        if self.attention_impl == "ring":
-            raise NotImplementedError(
-                "ring attention is not ported yet (ROADMAP Queue 1 item 18)")
-        if self.attention_impl != "reference":
+        if self.attention_impl not in ("reference", "ring"):
             raise ValueError(f"unknown attention_impl "
                              f"{self.attention_impl!r} (reference | ring)")
 
@@ -60,6 +60,7 @@ class BertEncoder(nn.Module):
     def __init__(self, cfg: BertConfig, device=None, seed: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.seq = None          # the seq axis' AxisGroup (ring)
         dev = resolve_device(device)
         self.embedding = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, device=dev))
@@ -83,15 +84,21 @@ class BertEncoder(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         l = tokens.shape[1]
+        start = self.seq.rank * l if self.seq is not None else 0
         x = (F.embedding(tokens, self.embedding.to(cfg.dtype))
-             + self.pos_embedding[:l].to(cfg.dtype))
-        # the padding mask as segment ids (token 0 is [PAD])
-        seg = (tokens != 0).to(torch.int32)
+             + self.pos_embedding[start:start + l].to(cfg.dtype))
+        ring = cfg.attention_impl == "ring"
+        # the padding mask as segment ids (token 0 is [PAD]); the ring
+        # attends over everything
+        seg = None if ring else (tokens != 0).to(torch.int32)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, seg)
+            x = getattr(self, f"layer_{i}")(x, seg, ring, self.seq)
         x = self.ln_f(x)
         # [CLS] pooling (position 0) -> classifier, f32
-        return self.head(x[:, 0])
+        cls = x[:, 0]
+        if self.seq is not None:
+            cls = _FromFirst.apply(cls, self.seq.group, self.seq.rank)
+        return self.head(cls)
 
     def flops_per_token(self, seq_len: int | None = None) -> float:
         """Train FLOPs per token (2*MAC, 6*N plus the unhalved
@@ -102,6 +109,28 @@ class BertEncoder(nn.Module):
         if seq_len:
             flops += 12.0 * cfg.n_layers * cfg.d_model * seq_len
         return flops
+
+
+class _FromFirst(torch.autograd.Function):
+    """The first rank's x on every rank of the group; the backward sums
+    the gradients onto the first rank (the adjoint of a broadcast)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank):
+        import torch.distributed as dist
+
+        ctx.group, ctx.rank = group, rank
+        x = x.clone() if rank == 0 else torch.zeros_like(x)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g if ctx.rank == 0 else torch.zeros_like(g)), None, None
 
 
 def _build(device=None, seed: int = 0, **kw) -> BertEncoder:

@@ -34,13 +34,23 @@ class EncoderBlock(nn.Module):
         self.fc2 = Dense(d_ff, d_model, dtype, device, bias=True)
 
     def forward(self, x: torch.Tensor,
-                segment_ids: torch.Tensor | None = None) -> torch.Tensor:
+                segment_ids: torch.Tensor | None = None, ring: bool = False,
+                seq=None) -> torch.Tensor:
+        """`ring`: the bidirectional ring attention over `seq` (a
+        mesh.AxisGroup; x is then this rank's block of positions), the
+        plain attention without one."""
         b, l, _ = x.shape
         qkv = self.qkv(self.ln_attn(x)).view(b, l, 3, self.n_heads,
                                               self.d_head)
         q, k, v = qkv.unbind(2)
-        att = reference_attention(q, k, v, causal=False,
-                                  segment_ids=segment_ids)
+        if ring:
+            from kubeflow_tpu_torch.ops.ring_attention import ring_attention
+
+            att = ring_attention(q, k, v, seq=seq, causal=False,
+                                 segment_ids=segment_ids)
+        else:
+            att = reference_attention(q, k, v, causal=False,
+                                      segment_ids=segment_ids)
         x = x + self.o(att.reshape(b, l, -1))
         y = self.fc2(F.gelu(self.fc1(self.ln_mlp(x)), approximate="tanh"))
         return x + y

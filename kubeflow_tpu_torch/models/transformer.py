@@ -17,9 +17,19 @@ writes), its int8 variant with the scales applied to the scores and
 folded into the probabilities, the rolling-window cache (W slots,
 attend then write), and the paged pool with page 0 as the trash page.
 The cache is explicit state, a flat dict of per-layer tensors under the
-flax names (`layer_3/attn/cached_key`), written in place. Ring/Ulysses
-attention, MoE and pipeline stages are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+flax names (`layer_3/attn/cached_key`), written in place.
+
+Every `moe_every`-th block (`(i + 1) % moe_every == 0`, the reference's
+indexing) runs `ops/moe.py`'s MoEBlock in place of the SwiGLU, in
+training and decode alike. Sequence parallelism: with `seq` set (a
+mesh.AxisGroup, by the trainer) the tokens are this rank's block of
+positions, RoPE takes their global positions, and `attention_impl`
+ring or ulysses exchanges K/V or heads over the group
+(`ops/ring_attention.py`, `ops/ulysses.py`); without it both run on
+the whole sequence, ring as the plain reference attention and Ulysses
+as the local dispatch. Pipeline stages (`pipeline_stages > 1`) are run
+by `parallel/pipeline.py`, which calls `embed`, `run_blocks` and
+`head` per stage; the model keeps the sequential layer names.
 """
 
 from __future__ import annotations
@@ -87,7 +97,7 @@ class TransformerConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16
-    attention_impl: str = "auto"   # auto | flash | reference (ring, ulysses: later)
+    attention_impl: str = "auto"   # auto | flash | reference | ring | ulysses
     flash_block_q: int = 0
     flash_block_k: int = 0
     kv_cache_dtype: str = "auto"
@@ -118,16 +128,6 @@ class TransformerConfig:
                 raise ValueError(
                     f"unknown remat_policy {self.remat_policy!r} "
                     "(full|dots|mlp|slim)")
-        if self.moe_every:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP Queue 1 item 18)")
-        if self.pipeline_stages > 1:
-            raise NotImplementedError(
-                "pipeline stages are not ported yet (ROADMAP Queue 1 item 18)")
-        if self.attention_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"{self.attention_impl} attention is not ported yet (ROADMAP "
-                "Queue 1 item 18)")
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -344,9 +344,11 @@ class Attention(nn.Module):
         # tensor parallelism (parallel/shardings.py): the input's and the
         # output's collectives, and the kv heads this rank's q heads use
         # when the k/v projections replicate; the head counts are those
-        # of the (local) weights
+        # of the (local) weights, split `model_size` ways
         self.tp_in = self.tp_out = _identity
         self.kv_heads: list[int] | None = None
+        self.model_size = 1
+        self.seq = None       # the seq axis' AxisGroup (ring, ulysses)
 
     def forward(self, x, positions, segment_ids=None, decode=None):
         cfg = self.cfg
@@ -361,6 +363,21 @@ class Attention(nn.Module):
         k = rope(k, positions, cfg.rope_theta)
         if decode is not None:
             out = self._decode(q, k, v, decode)
+        elif cfg.attention_impl == "ring":
+            from kubeflow_tpu_torch.ops.ring_attention import ring_attention
+
+            out = ring_attention(q, k, v, seq=self.seq,
+                                 segment_ids=segment_ids,
+                                 window=cfg.attention_window)
+        elif cfg.attention_impl == "ulysses":
+            from kubeflow_tpu_torch.ops.ulysses import ulysses_attention
+
+            out = ulysses_attention(q, k, v, seq=self.seq,
+                                    segment_ids=segment_ids,
+                                    block_q=cfg.flash_block_q,
+                                    block_k=cfg.flash_block_k,
+                                    window=cfg.attention_window,
+                                    model_size=self.model_size)
         else:
             out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
                             segment_ids=segment_ids,
@@ -594,12 +611,23 @@ def _direct(fn, *args):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device, name: str = ""):
+    def __init__(self, cfg: TransformerConfig, device, name: str = "",
+                 use_moe: bool = False):
         super().__init__()
         self.ln_attn = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.attn = Attention(cfg, device, f"{name}/attn/")
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = SwiGLU(cfg, device)
+        if use_moe:
+            from kubeflow_tpu_torch.ops.moe import MoEBlock
+
+            self.moe = MoEBlock(cfg, device)
+        else:
+            self.mlp = SwiGLU(cfg, device)
+
+    @property
+    def ffn(self) -> nn.Module:
+        """The MLP half: the MoEBlock or the SwiGLU."""
+        return self.moe if hasattr(self, "moe") else self.mlp
 
     def forward(self, x, positions, segment_ids=None, remat=None,
                 decode=None):
@@ -627,7 +655,7 @@ class Block(nn.Module):
         never a value."""
         if decode is not None:
             x = x + self.attn(self.ln_attn(x), positions, decode=decode)
-            return x + self.mlp(self.ln_mlp(x))
+            return x + self.ffn(self.ln_mlp(x))
         if remat in ("full", "dots"):
             extra = {"context_fn": _dots_contexts} if remat == "dots" else {}
             return checkpoint(self._body, x, positions, segment_ids, None,
@@ -638,7 +666,7 @@ class Block(nn.Module):
         norm = _replayed if remat == "slim" else _direct
         mlp = _replayed if remat in ("mlp", "slim") else _direct
         x = x + self.attn(norm(self.ln_attn, x), positions, segment_ids)
-        return x + mlp(self.mlp, norm(self.ln_mlp, x))
+        return x + mlp(self.ffn, norm(self.ln_mlp, x))
 
 
 class TransformerLM(nn.Module):
@@ -653,10 +681,17 @@ class TransformerLM(nn.Module):
         self.embedding = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, device=dev))
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg, dev, f"layer_{i}"))
+            self.add_module(f"layer_{i}", Block(
+                cfg, dev, f"layer_{i}",
+                use_moe=bool(cfg.moe_every) and (i + 1) % cfg.moe_every == 0))
         self.ln_f = RMSNorm(cfg.d_model, cfg.dtype, dev)
         self.lm_head = LMHead(cfg, dev)
         self.gather_embedding = _identity   # as LMHead.gather
+        # the layers this process runs (a pipeline stage keeps its own,
+        # parallel/pipeline.py) and the seq axis' AxisGroup (this rank's
+        # tokens are block seq.rank of the sequence)
+        self.layer_ids = list(range(cfg.n_layers))
+        self.seq = None
         if dev.type == "meta":          # shapes only: nothing to draw
             return
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -668,7 +703,11 @@ class TransformerLM(nn.Module):
                 p.normal_(0.0, std, generator=gen)
 
     def blocks(self):
-        return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
+        return [getattr(self, f"layer_{i}") for i in self.layer_ids]
+
+    def moe_blocks(self):
+        """The MoEBlocks of the layers this process runs."""
+        return [b.moe for b in self.blocks() if hasattr(b, "moe")]
 
     @property
     def device(self) -> torch.device:
@@ -695,8 +734,10 @@ class TransformerLM(nn.Module):
         k/v are written into `cache` in place before it attends.
         `pad_len` [B] masks each row's left padding."""
         cfg = self.cfg
-        x = F.embedding(tokens,
-                        self.gather_embedding(self.embedding).to(cfg.dtype))
+        if decode_index is not None and cfg.pipeline_stages > 1:
+            raise ValueError("decode is not supported under pipeline "
+                             "parallelism yet")
+        x = self.embed(tokens)
         if decode_index is not None:
             if cache is None:
                 raise ValueError("decode needs cache= (init_cache or "
@@ -715,18 +756,64 @@ class TransformerLM(nn.Module):
             for blk in self.blocks():
                 x = blk(x, positions, decode=dec)
             return self.lm_head(self.ln_f(x))
-        positions = torch.arange(tokens.shape[1], device=tokens.device
-                                 ).expand(tokens.shape)
+        if cfg.pipeline_stages > 1:
+            self.check_pipeline(tokens.shape[0], segment_ids)
+        x = self.run_blocks(x, self.positions(tokens), segment_ids)
+        return self.head(x, return_hidden)
+
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(
+            tokens, self.gather_embedding(self.embedding).to(self.cfg.dtype))
+
+    def positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, L] positions of `tokens`: this rank's block of the sequence
+        under a seq group."""
+        l = tokens.shape[1]
+        start = self.seq.rank * l if self.seq is not None else 0
+        return torch.arange(start, start + l, device=tokens.device
+                            ).expand(tokens.shape)
+
+    def run_blocks(self, x, positions, segment_ids=None):
+        """The blocks this process runs, under the remat policy."""
+        cfg = self.cfg
         policy, k_mix = (_split_policy(cfg.remat_policy) if cfg.remat
                          else (None, None))
         for i, blk in enumerate(self.blocks()):
             # policy@K: the first K blocks remat, the rest save everything
             remat = policy if k_mix is None or i < k_mix else None
             x = blk(x, positions, segment_ids, remat)
+        return x
+
+    def head(self, x, return_hidden: bool = False):
         x = self.ln_f(x)
-        if return_hidden:
-            return x
-        return self.lm_head(x)
+        return x if return_hidden else self.lm_head(x)
+
+    def check_pipeline(self, batch: int, segment_ids=None) -> int:
+        """The reference's refusals for pipeline stages, in its order;
+        returns the microbatch count (1 for a batch smaller than
+        pp_microbatches, as the reference's shape-only paths)."""
+        cfg = self.cfg
+        if cfg.n_layers % cfg.pipeline_stages:
+            raise ValueError(
+                f"n_layers={cfg.n_layers} not divisible by "
+                f"pipeline_stages={cfg.pipeline_stages}")
+        if (cfg.moe_every or cfg.attention_impl in ("ring", "ulysses")
+                or segment_ids is not None):
+            raise ValueError("pipeline stages support dense blocks with "
+                             "local attention only (no moe/ring/ulysses/"
+                             "segments yet)")
+        n_mb = cfg.pp_microbatches
+        if n_mb <= 0 or batch % n_mb:
+            if batch >= n_mb:
+                raise ValueError(
+                    f"batch {batch} not divisible by n_microbatches {n_mb}")
+            n_mb = 1
+        if cfg.remat and _split_policy(cfg.remat_policy)[1] is not None:
+            raise ValueError(
+                f"mixed remat policy {cfg.remat_policy!r} is not "
+                "supported under pipeline parallelism (stages would "
+                "carry unequal activation memory)")
+        return n_mb
 
     def flops_per_token(self, seq_len: int | None = None) -> float:
         return flops_per_token(self.cfg, seq_len)
@@ -779,6 +866,12 @@ CONFIGS = {
                      head_dim=64, d_ff=8192),
     "llama-1b-hd128": dict(d_model=2048, n_layers=16, n_heads=16,
                            n_kv_heads=4, head_dim=128, d_ff=8192),
+    "moe-test": dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                     n_kv_heads=4, head_dim=16, d_ff=128, moe_every=2,
+                     n_experts=4, expert_top_k=2),
+    "gpt-moe-8e": dict(d_model=1024, n_layers=24, n_heads=16, n_kv_heads=16,
+                       head_dim=64, d_ff=4096, moe_every=2, n_experts=8,
+                       expert_top_k=2),
 }
 for _name, _base in CONFIGS.items():
     _registered(_name, _base)

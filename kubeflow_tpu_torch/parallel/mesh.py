@@ -6,9 +6,12 @@ The reference's axis vocabulary, in its outer-to-inner order:
 - ``data``   data parallelism (gradient all-reduce);
 - ``fsdp``   data parallelism with the parameters and the optimizer
              state sharded (FSDP2 `fully_shard`);
-- ``pipe``, ``expert``, ``seq``  pipeline, expert and sequence
-             parallelism: not ported yet (ROADMAP item 18), any of them
-             above 1 raises;
+- ``pipe``   pipeline stages (parallel/pipeline.py: GPipe over
+             send/recv);
+- ``expert`` data parallelism that also splits the MoE experts (the
+             sparse dispatch exchanges tokens over it, ops/moe.py);
+- ``seq``    sequence parallelism: each rank holds L/seq positions of
+             every row (ops/ring_attention.py, ops/ulysses.py);
 - ``model``  tensor parallelism (Megatron-style column/row shards).
 
 One process drives one device, so a mesh is an array of global ranks:
@@ -42,7 +45,6 @@ AXIS_NAMES: tuple[str, ...] = _AXIS_ORDER
 # the axes the global batch is sharded over
 BATCH_AXES = (AXIS_DCN, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT)
 
-_UNPORTED_AXES = (AXIS_PIPELINE, AXIS_EXPERT, AXIS_SEQ)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,14 +59,6 @@ class MeshSpec:
     expert: int = 1
     seq: int = 1
     model: int = 1
-
-    def __post_init__(self) -> None:
-        big = {a: getattr(self, a) for a in _UNPORTED_AXES
-               if getattr(self, a) != 1}
-        if big:
-            raise NotImplementedError(
-                f"mesh axes {big}: pipeline, expert and sequence "
-                "parallelism are not ported yet (ROADMAP Queue 1 item 18)")
 
     def resolve(self, n_devices: int) -> "MeshSpec":
         """Resolve data=-1 against the device count; validate divisibility."""
@@ -186,6 +180,32 @@ class Mesh:
             mine, _ = dist.new_subgroups_by_enumeration(self.group_ranks(axes))
             self._groups[axes] = mine
         return self._groups[axes]
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks along some mesh axes that this rank exchanges with:
+    the process group, this rank's index in it and its size. Ops take
+    one (None when the axes have extent 1) in place of the reference's
+    named axis inside shard_map."""
+
+    group: Any
+    rank: int
+    size: int
+
+    @property
+    def ranks(self) -> list[int]:
+        import torch.distributed as dist
+
+        return dist.get_process_group_ranks(self.group)
+
+
+def axis_group(mesh: "Mesh | None", axes: Sequence[str]) -> AxisGroup | None:
+    """The AxisGroup of `axes` on `mesh` (None without a mesh or when
+    their extent is 1). Collective on first use, as Mesh.group."""
+    if mesh is None or mesh.extent(axes) == 1:
+        return None
+    return AxisGroup(mesh.group(axes), mesh.index(axes), mesh.extent(axes))
 
 
 def mesh_from_ranks(ranks: np.ndarray, device_type: str = "cuda") -> Mesh:

@@ -25,6 +25,15 @@ The specs are then applied to the port's modules:
   gradient, which every rank of the group computes whole).
 - `fsdp`: FSDP2 `fully_shard` on the annotated dim (`apply_fsdp`), per
   block, the head and the root, gradients reduce-scattered as sums.
+- `expert`: the MoE expert weights keep their slice of the experts
+  (dim 0; `apply_moe`, which also makes the reference's dispatch choice
+  for the mesh); every other weight replicates over it and its gradient
+  is summed over it as over the other batch axes.
+- `seq`: every weight replicates; the model holds this rank's block of
+  positions (`apply_seq`) and gradients are summed over seq.
+- `pipe`: each stage holds its own blocks (parallel/pipeline.py); the
+  embedding, final norm and head replicate and their gradients are
+  summed over pipe.
 - `data` / `dcn`: the backend's `hierarchical_reduce` of the gradients
   (runtime/trainer.py), the counterpart of GSPMD's psum over the batch
   axes.
@@ -40,9 +49,14 @@ import torch
 from kubeflow_tpu_torch.convert import flax_layout
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
+    AXIS_EXPERT,
     AXIS_FSDP,
     AXIS_MODEL,
+    AXIS_PIPELINE,
+    AXIS_SEQ,
+    BATCH_AXES,
     Mesh,
+    axis_group,
 )
 
 # port parameter name suffix -> the reference's annotation (flax layout)
@@ -56,6 +70,11 @@ _ANNOTATED = {
     ("mlp", "down", "weight"): (AXIS_MODEL, AXIS_FSDP),
     ("lm_head", "kernel"): (AXIS_FSDP, AXIS_MODEL),
     ("embedding",): ((AXIS_MODEL, AXIS_FSDP), None),
+    # kubeflow_tpu/ops/moe.py:60-62, 191-199
+    ("moe", "router", "weight"): (AXIS_FSDP, None),
+    ("moe", "w_gate"): (AXIS_EXPERT, AXIS_FSDP, AXIS_MODEL),
+    ("moe", "w_up"): (AXIS_EXPERT, AXIS_FSDP, AXIS_MODEL),
+    ("moe", "w_down"): (AXIS_EXPERT, AXIS_MODEL, AXIS_FSDP),
 }
 
 
@@ -119,7 +138,8 @@ def partition_specs(model, mesh, *, fsdp: bool = True) -> dict[str, tuple]:
         view, perm = flax_layout(name, p.shape, _head_dim(model))
         shape = tuple(view[i] for i in perm)
         names = _annotation(model, name) if (
-            sizes.get(AXIS_MODEL, 1) > 1 or fsdp_size > 1) else None
+            sizes.get(AXIS_MODEL, 1) > 1 or fsdp_size > 1
+            or sizes.get(AXIS_EXPERT, 1) > 1) else None
         if names is None:
             out[name] = _fsdp_spec(shape, fsdp_size)
             continue
@@ -157,11 +177,13 @@ class ParamShard:
     order of slicing (model before fsdp: model is the major part of a
     dim both split); `flax` the same in the flax layout; `partial_model`
     marks a weight replicated over the model group whose gradient is a
-    per-rank part (the k/v projections when their heads replicate)."""
+    per-rank part (the k/v projections when their heads replicate);
+    `stage` is set for a block's weight under pipeline stages."""
 
     port: list[tuple[int, str]]
     flax: list[tuple[int, str]]
     partial_model: bool = False
+    stage: int | None = None     # the pipeline stage that holds it
 
     def dim(self, axis: str) -> int | None:
         return next((d for d, a in self.port if a == axis), None)
@@ -177,7 +199,7 @@ def shard_plan(model, mesh) -> dict[str, ParamShard]:
         view, perm = flax_layout(name, p.shape, _head_dim(model))
         vdims = _view_dims(tuple(p.shape), view)
         port, flax = [], []
-        for axis in (AXIS_MODEL, AXIS_FSDP):
+        for axis in (AXIS_EXPERT, AXIS_MODEL, AXIS_FSDP):
             if sizes.get(axis, 1) <= 1:
                 continue
             for fdim, names in enumerate(spec):
@@ -192,6 +214,12 @@ def shard_plan(model, mesh) -> dict[str, ParamShard]:
                 port.append((pdim, axis))
                 flax.append((fdim, axis))
         plan[name] = ParamShard(port, flax)
+    pp = sizes.get(AXIS_PIPELINE, 1)
+    if pp > 1:
+        per = model.cfg.n_layers // pp
+        for name, sh in plan.items():
+            if name.startswith("layer_"):
+                sh.stage = int(name.split(".")[0][len("layer_"):]) // per
     # k/v left whole while q is split: each rank uses a part of them
     for name, sh in plan.items():
         if name.endswith(("attn.k.weight", "attn.v.weight")):
@@ -311,15 +339,18 @@ def apply_tensor_parallel(model, plan: dict[str, ParamShard],
         return _Exit.apply(x, group)
 
     cfg = model.cfg
-    for i, blk in enumerate(model.blocks()):
+    for i, blk in zip(model.layer_ids, model.blocks()):
         pre = f"layer_{i}."
         if plan[pre + "attn.q.weight"].dim(AXIS_MODEL) is not None:
             blk.attn.tp_in, blk.attn.tp_out = enter, leave
+            blk.attn.model_size = m
             if plan[pre + "attn.k.weight"].dim(AXIS_MODEL) is None:
                 blk.attn.kv_heads = _kv_heads(cfg.n_heads, cfg.n_kv_heads,
                                               m, rank)
-        if plan[pre + "mlp.gate.weight"].dim(AXIS_MODEL) is not None:
-            blk.mlp.tp_in, blk.mlp.tp_out = enter, leave
+        ffn = pre + ("moe.w_gate" if hasattr(blk, "moe")
+                     else "mlp.gate.weight")
+        if plan[ffn].dim(AXIS_MODEL) is not None:
+            blk.ffn.tp_in, blk.ffn.tp_out = enter, leave
     if plan["embedding"].dim(AXIS_MODEL) is not None:
         model.gather_embedding = lambda w: _Gather.apply(w, group, 0, m, rank)
     if plan["lm_head.kernel"].dim(AXIS_MODEL) is not None:
@@ -361,15 +392,90 @@ def apply_fsdp(model, plan: dict[str, ParamShard], mesh: Mesh) -> None:
         register_fsdp_forward_method(model.lm_head, "xent")
 
 
+def moe_sparse_ok(cfg, mesh) -> bool:
+    """The reference's dispatch choice (`MoEBlock._sparse_ok`) under an
+    ambient mesh: sparse unless moe_impl is dense or the mesh has fsdp,
+    model, seq or pipe above 1 or experts that do not divide over
+    `expert`; forced sparse on such a mesh is refused."""
+    if cfg.moe_impl == "dense":
+        return False
+    ep = mesh.shape[AXIS_EXPERT]
+    ok = all(mesh.shape[a] == 1 for a in
+             (AXIS_FSDP, AXIS_MODEL, AXIS_SEQ, AXIS_PIPELINE)) \
+        and cfg.n_experts % ep == 0
+    if cfg.moe_impl == "sparse" and not ok:
+        raise ValueError(
+            f"moe_impl='sparse' requires fsdp/model/seq/pipe mesh axes "
+            f"of size 1 and n_experts % expert_axis == 0; got mesh "
+            f"{dict(mesh.shape)} with n_experts={cfg.n_experts}")
+    return ok
+
+
+def apply_moe(model, plan: dict[str, ParamShard] | None, mesh: Mesh) -> None:
+    """Place the MoE blocks on `mesh` (the trainer's, so a mesh is
+    ambient as in the reference's trainer): the dispatch choice, this
+    rank's slice of the experts when `expert` splits them, the group of
+    the token shards (batch axes and seq) and the seq group."""
+    blocks = model.moe_blocks()
+    if not blocks:
+        return
+    sparse = moe_sparse_ok(model.cfg, mesh)
+    tokens = axis_group(mesh, BATCH_AXES + (AXIS_SEQ,))
+    seq = axis_group(mesh, (AXIS_SEQ,))
+    expert = axis_group(mesh, (AXIS_EXPERT,))
+    for i, blk in zip(model.layer_ids, model.blocks()):
+        if not hasattr(blk, "moe"):
+            continue
+        moe = blk.moe
+        moe.sparse, moe.tokens, moe.seq = sparse, tokens, seq
+        pre = f"layer_{i}.moe."
+        if plan is None or plan[pre + "w_gate"].dim(AXIS_EXPERT) is None:
+            continue
+        moe.expert = expert
+        with torch.no_grad():
+            for leaf in ("w_gate", "w_up", "w_down"):
+                p = getattr(moe, leaf)
+                d = plan[pre + leaf].dim(AXIS_EXPERT)
+                p.data = p.data.chunk(expert.size, d)[expert.rank].contiguous()
+
+
+def apply_seq(model, seq) -> None:
+    """Sequence parallelism over `seq` (the seq axis' AxisGroup, None at
+    extent 1): the model holds this rank's block of the sequence and its
+    attention exchanges over the group, which needs attention_impl ring
+    or ulysses."""
+    if seq is None:
+        return
+    impl = model.cfg.attention_impl
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"a seq axis of {seq.size} shards the sequence over ranks: "
+            f"attention_impl {impl!r} attends within this rank's block "
+            "only; use ring or ulysses")
+    model.seq = seq
+    for blk in model.blocks():
+        blk.attn.seq = seq
+
+
 def grad_groups(plan: dict[str, ParamShard], mesh: Mesh, names) -> dict:
     """{reduce axes: [parameter names]}: the axes over which each
     gradient is still to be summed after the backward: the batch axes
-    (dcn, data; fsdp too for a parameter FSDP does not shard)."""
+    (dcn, data; fsdp for a parameter FSDP does not shard; expert for one
+    not split over expert), seq, and pipe for a parameter every stage
+    holds."""
     out: dict[tuple, list] = {}
     for n in names:
-        axes = (AXIS_DATA,) if plan[n].dim(AXIS_FSDP) is not None or \
-            mesh.shape[AXIS_FSDP] <= 1 else (AXIS_DATA, AXIS_FSDP)
-        out.setdefault(axes, []).append(n)
+        sh = plan[n]
+        axes = [AXIS_DATA]
+        if mesh.shape[AXIS_FSDP] > 1 and sh.dim(AXIS_FSDP) is None:
+            axes.append(AXIS_FSDP)
+        if mesh.shape[AXIS_EXPERT] > 1 and sh.dim(AXIS_EXPERT) is None:
+            axes.append(AXIS_EXPERT)
+        if mesh.shape[AXIS_SEQ] > 1:
+            axes.append(AXIS_SEQ)
+        if mesh.shape[AXIS_PIPELINE] > 1 and sh.stage is None:
+            axes.append(AXIS_PIPELINE)
+        out.setdefault(tuple(axes), []).append(n)
     return out
 
 

@@ -32,6 +32,17 @@ rank's gradient weighs by its valid count, the backend's
 divided by the all-reduced count. Eval metrics are global, the stop
 flag is agreed over the world every step (any rank's stop stops all at
 that step), and the checkpoint holds the whole state, written by rank 0.
+
+The LM's other axes: `seq` cuts every row into blocks of positions, one
+per rank of a seq group (the model's ring or Ulysses attention spans
+them), and the loss sums over seq as over the batch axes; `expert`
+shards the batch and the MoE experts (parallel/shardings.py
+`apply_moe`); `pipe` runs the GPipe schedule over stages
+(parallel/pipeline.py), the last stage taking the loss. MoE blocks add
+`aux_loss_weight` times their load-balancing losses (summed over the
+layers, as the reference's loss) and report `moe_fill`, `moe_drop` and
+`moe_sparse_dispatch` in the step metrics, averaged over the layers and
+weighted by valid targets across microbatches.
 """
 
 from __future__ import annotations
@@ -56,9 +67,12 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DCN,
     AXIS_FSDP,
     AXIS_MODEL,
+    AXIS_PIPELINE,
+    AXIS_SEQ,
     BATCH_AXES,
     Mesh,
     MeshSpec,
+    axis_group,
     local_batch_size,
     mesh_summary,
 )
@@ -77,8 +91,7 @@ log = logging.getLogger("kubeflow_tpu_torch.trainer")
 class TrainConfig:
     """Declarative training config: the reference's keys and defaults, so
     the same JSON/YAML loads. A feature the port lacks yet raises in
-    Trainer, naming its ROADMAP item; a pipe, expert or seq axis above 1
-    raises in MeshSpec."""
+    Trainer, naming its ROADMAP item."""
 
     model: str = "resnet50"
     model_kwargs: dict = dataclasses.field(default_factory=dict)
@@ -275,6 +288,24 @@ class Trainer:
                 f"task={cfg.task!r} on an fsdp or model mesh: the "
                 "classifiers' annotations are not ported yet (ROADMAP "
                 "Queue 1 item 17c); data and dcn meshes are")
+        if self.mesh.shape[AXIS_PIPELINE] > 1:
+            if cfg.task != "lm":
+                raise ValueError("pipeline parallelism (mesh.pipe > 1) is "
+                                 "only supported for transformer LM tasks")
+            if cfg.global_batch % cfg.pp_microbatches:
+                raise ValueError(
+                    f"global_batch {cfg.global_batch} not divisible by "
+                    f"pp_microbatches {cfg.pp_microbatches}")
+        self.seq = axis_group(self.mesh, (AXIS_SEQ,))
+        if self.seq is not None:
+            if cfg.task != "lm":
+                raise ValueError(
+                    f"a seq axis of {self.seq.size} cuts the LM's rows into "
+                    f"blocks of positions; task={cfg.task!r} trains on "
+                    "meshes with seq 1")
+            if cfg.seq_len % self.seq.size:
+                raise ValueError(f"seq_len {cfg.seq_len} not divisible by "
+                                 f"the seq axis {self.seq.size}")
         # every rank draws the same weights from the seed, then keeps its
         # shards of them
         self.model = get_model(cfg.model, device=self.device, seed=cfg.seed,
@@ -282,12 +313,29 @@ class Trainer:
         self.n_params = sum(p.numel() for p in self.model.parameters())
         head_dim = getattr(self.model.cfg, "head_dim", None)
         full = {n: tuple(p.shape) for n, p in self.model.named_parameters()}
+        self._full_names = list(full)
         self.plan = (S.shard_plan(self.model, self.mesh)
                      if self.mesh.size > 1 else None)
         self._reduce_span = None     # (span, start, end) of the last reduce
+        pipe = axis_group(self.mesh, (AXIS_PIPELINE,))
+        self.gpipe = None
+        if pipe is not None:
+            from kubeflow_tpu_torch.parallel import pipeline as PL
+
+            PL.apply_pipeline(self.model, pipe)
+            self.gpipe = PL.GPipe(self.model, pipe)
         if sharded:
             S.apply_tensor_parallel(self.model, self.plan, self.mesh)
             S.apply_fsdp(self.model, self.plan, self.mesh)
+        self._moe = []
+        if cfg.task == "lm":
+            S.apply_moe(self.model, self.plan, self.mesh)
+            S.apply_seq(self.model, self.seq)
+            self._moe = self.model.moe_blocks()
+        # the loss and its valid count sum over every rank that holds a
+        # part of the global batch's positions
+        self._sum_group = self.mesh.group(BATCH_AXES + (AXIS_SEQ,
+                                                        AXIS_PIPELINE))
         if self.dp > 1:
             group = self.mesh.group(BATCH_AXES)
             for mod in self.model.modules():
@@ -328,6 +376,10 @@ class Trainer:
             # synthetic targets draw from cfg.vocab_size: the head must
             # match
             kw.setdefault("vocab_size", cfg.vocab_size)
+            pipe = self.mesh.shape[AXIS_PIPELINE]
+            if pipe > 1:
+                kw.setdefault("pipeline_stages", pipe)
+                kw.setdefault("pp_microbatches", cfg.pp_microbatches)
             return kw
         # labels draw from cfg.num_classes: a head of another size would
         # see labels out of range
@@ -385,12 +437,17 @@ class Trainer:
 
     def _shard(self, batch: dict) -> dict:
         """This rank's contiguous block of rows of a global host batch
-        (its index over the batch axes)."""
-        if self.dp == 1:
-            return batch
-        i = self.mesh.index(BATCH_AXES)
-        return {k: a[i * len(a) // self.dp:(i + 1) * len(a) // self.dp]
-                for k, a in batch.items()}
+        (its index over the batch axes) and, under a seq group, its block
+        of positions of each row (targets are built before the cut)."""
+        if self.dp > 1:
+            i = self.mesh.index(BATCH_AXES)
+            batch = {k: a[i * len(a) // self.dp:(i + 1) * len(a) // self.dp]
+                     for k, a in batch.items()}
+        if self.seq is not None:
+            r, n = self.seq.rank, self.seq.size
+            batch = {k: a[:, r * a.shape[1] // n:(r + 1) * a.shape[1] // n]
+                     for k, a in batch.items()}
+        return batch
 
     def _sharded(self, it: Iterator[dict]) -> Iterator[dict]:
         try:
@@ -456,12 +513,33 @@ class Trainer:
                      if self._is_state_tensor(k, v) else v
                      for k, v in self.opt.state[p].items()}
                  for n, p in named.items() if p in self.opt.state}
-        return {"step": self.step,
-                "params": {n: whole(p, self._shards(n))
-                           for n, p in named.items()},
+        params = {n: whole(p, self._shards(n)) for n, p in named.items()}
+        if self.gpipe is not None:
+            params, state = self._gather_stages(params, state)
+        return {"step": self.step, "params": params,
                 "batch_stats": {n: b.detach()
                                 for n, b in self.model.named_buffers()},
                 "opt_state": state}
+
+    def _gather_stages(self, params: dict, state: dict):
+        """Every stage's blocks (parameters and optimizer state) on every
+        rank of the pipe group, on the host."""
+        import torch.distributed as dist
+
+        def own(n):
+            return self.plan[n].stage is not None
+
+        mine = ({n: t.cpu() for n, t in params.items() if own(n)},
+                {n: {k: v.cpu() if torch.is_tensor(v) else v
+                     for k, v in st.items()}
+                 for n, st in state.items() if own(n)})
+        parts = [None] * self.gpipe.pipe.size
+        dist.all_gather_object(parts, mine, group=self.gpipe.pipe.group)
+        params, state = dict(params), dict(state)
+        for p, st in parts:
+            params.update(p)
+            state.update(st)
+        return params, state
 
     def load_payload(self, payload: dict) -> None:
         """Load a checkpoint payload (the whole state, from any world)
@@ -470,14 +548,16 @@ class Trainer:
         named = dict(self.model.named_parameters())
         buffers = dict(self.model.named_buffers())
         params, stats = payload["params"], payload.get("batch_stats") or {}
-        want, have = set(named) | set(buffers), set(params) | set(stats)
-        if set(params) != set(named) or set(stats) != set(buffers):
+        # a pipeline stage loads its own blocks of the whole model
+        want = set(self._full_names) | set(buffers)
+        have = set(params) | set(stats)
+        if set(params) != set(self._full_names) or set(stats) != set(buffers):
             raise RuntimeError(
                 "checkpoint does not match the model: missing "
                 f"{sorted(want - have)[:5]}, unexpected "
                 f"{sorted(have - want)[:5]}")
         opt_state = payload.get("opt_state") or {}
-        unknown = set(opt_state) - set(named)
+        unknown = set(opt_state) - set(self._full_names)
         if unknown:
             raise ValueError(f"optimizer state for unknown parameters "
                              f"{sorted(unknown)[:5]}")
@@ -528,22 +608,61 @@ class Trainer:
         logits = self.model(x, segment_ids=seg)
         return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
 
+    def _head_loss(self, x: torch.Tensor, y: torch.Tensor):
+        """(loss, accuracy) of the LM's last block output x: the final
+        norm and the head (chunked under xent_chunks), as `loss`."""
+        hidden = self.model.head(x, return_hidden=True)
+        if self.cfg.xent_chunks > 1:
+            return self.model.lm_head.xent(hidden, y, self.cfg.xent_chunks)
+        logits = self.model.lm_head(hidden)
+        return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
+
+    def _moe_aux(self) -> torch.Tensor:
+        """The last forward's load-balancing losses, summed over the MoE
+        layers (this rank's parts of them on a world)."""
+        return sum(b.stats["aux"] for b in self._moe)
+
+    def _moe_diag(self, counts: list, weights: list) -> dict:
+        """moe_fill, moe_drop and moe_sparse_dispatch from each
+        microbatch's per-layer (kept, routed, slots) counts: the counts
+        sum over the token shards, the ratios average over the layers,
+        and the microbatches weigh by `weights` (their valid targets)."""
+        c = torch.stack(counts)                       # [micro, layer, 3]
+        if self.plan is not None:
+            c = self._sum(c)
+        fill = (c[..., 0] / c[..., 2].clamp_min(1.0)).mean(1)
+        drop = (1.0 - c[..., 0] / c[..., 1].clamp_min(1.0)).mean(1)
+        w = torch.stack([torch.as_tensor(x, dtype=torch.float32,
+                                         device=c.device) for x in weights])
+        n = w.sum().clamp_min(1.0)
+        sparse = sum(b.stats["sparse"] for b in self._moe) / len(self._moe)
+        return {"moe_fill": (fill * w).sum() / n,
+                "moe_drop": (drop * w).sum() / n,
+                "moe_sparse_dispatch": torch.tensor(sparse)}
+
     def train_step(self, batch: dict) -> dict:
         """One update on this rank's rows (`_to_device` of the global
-        batch). Returns {"loss", "accuracy"} as device scalars, global
-        over the world."""
+        batch). Returns {"loss", "accuracy"} (and an MoE model's moe_*
+        diagnostics) as device scalars, global over the world."""
         self.opt.zero_grad(set_to_none=True)
-        if self.accum > 1 or self.plan is not None:
-            loss, acc = self._accumulate(batch)
+        diag: dict = {}
+        if self.gpipe is not None or self.accum > 1 or self.plan is not None:
+            loss, acc, diag = self._accumulate(batch)
         else:
             loss, acc = self.loss(batch)
+            if self._moe:
+                loss = loss + self.cfg.aux_loss_weight * self._moe_aux()
+                diag = self._moe_diag(
+                    [torch.stack([b.stats["counts"] for b in self._moe])],
+                    [1.0])
             loss.backward()
         lr = warmup_cosine_lr(self.step, self.cfg)
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
         self.step += 1
-        return {"loss": loss.detach(), "accuracy": acc.detach()}
+        return {"loss": loss.detach(), "accuracy": acc.detach(),
+                **{k: v.detach() for k, v in diag.items()}}
 
     @torch.no_grad()
     def eval_step(self, batch: dict) -> dict:
@@ -555,26 +674,35 @@ class Trainer:
         was_training = self.model.training
         self.model.eval()
         try:
-            loss, acc = self.loss(batch)
+            if self.gpipe is not None:
+                x, y = _batch_xy(self.cfg, batch)
+                logits = self.gpipe.logits(x)
+                loss = _xent_loss(logits, y)
+                acc = _masked_accuracy(logits.argmax(-1), y)
+            else:
+                loss, acc = self.loss(batch)
         finally:
             self.model.train(was_training)
-        if self.dp > 1:
+        if self._sum_group is not None:
             n = (_batch_xy(self.cfg, batch)[1] >= 0).sum().float()
-            sums = self._batch_sum(torch.stack([loss * n, acc * n, n]))
+            if self.gpipe is not None and not self.gpipe.last:
+                n = n * 0.0       # every stage holds the logits: count once
+            sums = self._sum(torch.stack([loss * n, acc * n, n]))
             n = sums[2].clamp_min(1.0)
             loss, acc = sums[0] / n, sums[1] / n
         return {"loss": loss, "accuracy": acc}
 
-    def _batch_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """x summed over the batch axes (in place)."""
+    def _sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed (in place) over the ranks that hold parts of the
+        global batch: the batch axes, seq and pipe."""
         import torch.distributed as dist
 
-        group = self.mesh.group(BATCH_AXES)
-        if group is not None:
-            dist.all_reduce(x, group=group)
+        if self._sum_group is not None:
+            dist.all_reduce(x, group=self._sum_group)
         return x
 
-    def _accumulate(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    def _accumulate(self, batch: dict
+                    ) -> tuple[torch.Tensor, torch.Tensor, dict]:
         """The gradients of `accum` microbatches in the parameters' .grad,
         as the reference's train_step_accum combines them: row r goes to
         microbatch r % accum (within this rank's rows: each microbatch
@@ -583,17 +711,37 @@ class Trainer:
         n_i, so grads = sum(g_i n_i) / max(sum(n_i), 1) with the sums over
         the microbatches and the world: the global batch's token-weighted
         mean however unevenly the targets are masked, never the mean of
-        per-rank means. Returns the loss and accuracy combined with the
-        same weights."""
+        per-rank means. Under pipeline stages each microbatch runs the
+        GPipe schedule. Returns the loss and accuracy combined with the
+        same weights, and an MoE model's moe_* diagnostics."""
         loss_sum = acc_sum = n_sum = 0.0
+        counts, weights = [], []
         for m in range(self.accum):
             micro = {k: v[m::self.accum] for k, v in batch.items()}
+            if self.gpipe is not None:
+                x, y = _batch_xy(self.cfg, micro)
+                ls, asum, n = self.gpipe.step(x, y, self._head_loss)
+                loss_sum, acc_sum = loss_sum + ls, acc_sum + asum
+                n_sum = n_sum + n
+                continue
             loss, acc = self.loss(micro)
             n = (_batch_xy(self.cfg, micro)[1] >= 0).sum().float()
-            (loss * n).backward()
-            loss_sum = loss_sum + loss.detach() * n
+            obj = loss * n
+            if self._moe:
+                # each rank adds its part of the aux loss, weighted by the
+                # microbatch's global valid count: the sums over the world
+                # divided by the total count give the reference's
+                # sum(n_i (xent_i + w aux_i)) / sum(n_i)
+                n_glob = self._sum(n.clone()) if self.plan is not None else n
+                obj = obj + self.cfg.aux_loss_weight * self._moe_aux() * n_glob
+                counts.append(torch.stack([b.stats["counts"]
+                                           for b in self._moe]))
+                weights.append(n_glob if self.accum > 1 else 1.0)
+            obj.backward()
+            loss_sum = loss_sum + obj.detach()
             acc_sum = acc_sum + acc.detach() * n
             n_sum = n_sum + n
+        diag = self._moe_diag(counts, weights) if counts else {}
         if self.plan is not None:
             from kubeflow_tpu_torch.obs import trace as obs_trace
 
@@ -605,7 +753,7 @@ class Trainer:
                                           dp=self.dp)
             start = self._mark()
             self._reduce_grads()
-            loss_sum, acc_sum, n_sum = self._batch_sum(
+            loss_sum, acc_sum, n_sum = self._sum(
                 torch.stack([loss_sum, acc_sum, n_sum]))
             self._reduce_span = (span, start, self._mark())
         n = n_sum.clamp_min(1.0)
@@ -615,7 +763,7 @@ class Trainer:
                     p.grad.div_(float(n))
                 else:
                     p.grad = (p.grad / n).to(p.dtype)
-        return loss_sum / n, acc_sum / n
+        return loss_sum / n, acc_sum / n, diag
 
     def _reduce_grads(self) -> None:
         """Sum the gradients over the world where they are partial: over
@@ -627,15 +775,21 @@ class Trainer:
         fsdp in the backward already."""
         import torch.distributed as dist
 
+        if self.gpipe is not None:
+            # a stage that does not use the embedding or the head holds
+            # zeros for them in the sum over pipe
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         named = {n: p for n, p in self.model.named_parameters()
                  if p.grad is not None}
         model_group = self.mesh.group((AXIS_MODEL,))
         for n, p in named.items():
             if self.plan[n].partial_model:
                 dist.all_reduce(S.unwrap(p.grad), group=model_group)
-        if self.dp == 1:
-            return
         for axes, names in S.grad_groups(self.plan, self.mesh, named).items():
+            if self.mesh.extent(axes + (AXIS_DCN,)) == 1:
+                continue
             by_dtype: dict = {}
             for n in names:
                 g = S.unwrap(named[n].grad)
@@ -861,12 +1015,16 @@ class Trainer:
                         last = {k: float(v) for k, v in m.items()}
                         self._publish(meter, last)
                         mfu = meter.mfu
+                        moe = "".join(f" {k}={v:.4f}" for k, v in
+                                      sorted(last.items())
+                                      if k.startswith("moe_"))
                         log.info("step %d loss=%.4f acc=%.3f %.1f ex/s "
-                                 "step=%.1fms%s", start_step + i + 1,
+                                 "step=%.1fms%s%s", start_step + i + 1,
                                  last["loss"], last["accuracy"],
                                  meter.throughput(cfg.global_batch),
                                  meter.step_time * 1e3,
-                                 "" if mfu is None else f" mfu={mfu * 100:.1f}%")
+                                 "" if mfu is None else f" mfu={mfu * 100:.1f}%",
+                                 moe)
                 maybe_save(start_step + i + 1)
                 maybe_eval(start_step + i + 1)
                 if callback:
@@ -928,3 +1086,6 @@ class Trainer:
         if meter.mfu is not None:
             reg.gauge("jaxrt_mfu", meter.mfu, "model FLOPs utilization")
         reg.gauge("jaxrt_loss", last["loss"], "training loss")
+        for k, v in sorted(last.items()):
+            if k.startswith("moe_"):
+                reg.gauge(f"jaxrt_{k}", v, f"MoE dispatch diagnostic {k}")

@@ -86,9 +86,7 @@ def test_level_map_and_dcn_axes_match_reference(env):
     assert (B.LEVEL_ICI, B.LEVEL_DCN) == (RB.LEVEL_ICI, RB.LEVEL_DCN)
 
 
-# the specs and level maps of the reference's tests/test_backends.py:90-160;
-# pipe is not ported as a mesh axis (item 18), so its layouts are compared
-# through the reference's own MeshSpec, with a permissive stand-in here
+# the specs and level maps of the reference's tests/test_backends.py:90-160
 LAYOUTS = [
     ({"dcn": 2, "data": 4}, None),
     ({"data": 2, "pipe": 2, "model": 2}, {"pipe": "dcn"}),
@@ -101,18 +99,13 @@ LAYOUTS = [
 ]
 
 
-class _AnySpec(M.MeshSpec):
-    def __post_init__(self):       # the layout is pure arithmetic
-        pass
-
-
 @pytest.mark.parametrize("spec,levels", LAYOUTS)
 def test_rank_layout_matches_reference_device_ids(spec, levels, devices8):
     from kubeflow_tpu.parallel import backends as RB
     from kubeflow_tpu.parallel import mesh as RM
 
     want = RB.build_level_mesh(RM.MeshSpec(**spec), devices8, levels=levels)
-    got = B.level_layout(_AnySpec(**spec), 8, levels)
+    got = B.level_layout(M.MeshSpec(**spec), 8, levels)
     np.testing.assert_array_equal(
         got, np.vectorize(lambda d: d.id)(want.devices))
     assert got.shape == tuple(want.shape[a] for a in M.AXIS_NAMES)
@@ -126,9 +119,10 @@ def test_single_process_mesh_and_refusals():
     assert M.local_batch_size(m, 8) == 8
     with pytest.raises(ValueError, match="needs 2 devices"):
         B.get_backend().mesh({"data": 2}, "cpu")
-    for axis in ("seq", "expert", "pipe"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            M.MeshSpec(**{axis: 2})
+    for axis in ("seq", "expert", "pipe"):    # ported: they lay out
+        assert M.MeshSpec(**{axis: 2}).resolve(4).data == 2
+        with pytest.raises(ValueError, match="not divisible"):
+            M.MeshSpec(**{axis: 2}).resolve(3)
     assert M.MeshSpec.from_dict({"fsdp": 4, "model": 2}).model == 2
     assert M.pad_to_multiple(10, 4) == 12
 

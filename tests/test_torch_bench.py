@@ -69,3 +69,28 @@ def test_resnet_workload_is_run_resnet_s_config():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main(["--workload", "resnet", "--steps", "1"])
+
+
+def test_moe_model_and_its_keys_in_the_line():
+    """`--lm-model gpt-moe-8e` builds the reference's MoE config, and the
+    line carries the step's moe_* keys as the reference's bench.py
+    rounds them (one trainer step of moe-test on the CPU)."""
+    from kubeflow_tpu_torch.runtime.trainer import Trainer
+
+    cfg = bench.train_config(bench.parse_args([
+        "--lm-model", "gpt-moe-8e", "--lm-batch", "4",
+        "--lm-remat-policy", "dots"]))
+    assert (cfg.model, cfg.global_batch, cfg.remat_policy) == (
+        "gpt-moe-8e", 4, "dots")
+    small = bench.train_config(bench.parse_args([
+        "--lm-model", "moe-test", "--lm-batch", "2", "--seq-len", "16",
+        "--lm-attention", "reference", "--lm-xent-chunks", "0"]))
+    small.model_kwargs["dtype"] = "float32"
+    small.vocab_size = 256
+    trainer = Trainer(small, device="cpu")
+    m = trainer.train_step(trainer._to_device(next(trainer.data_iter())))
+    keys = bench.moe_keys(m)
+    assert set(keys) == {"moe_fill", "moe_drop", "moe_sparse_dispatch"}
+    assert keys["moe_sparse_dispatch"] == 1.0
+    assert keys["moe_fill"] == round(float(m["moe_fill"]), 4)
+    assert bench.moe_keys({"loss": 1.0}) == {}

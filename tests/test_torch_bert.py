@@ -97,8 +97,12 @@ def test_conversion_round_trip_init_and_ring():
     assert 0.9 < float(fresh.embedding.detach().std()) < 1.1   # normal(1.0)
     assert 0.015 < float(fresh.pos_embedding.detach().std()) < 0.025
     assert fresh(torch.from_numpy(_tokens(0))).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 18"):
-        get_model("bert-test", device="cpu", attention_impl="ring")
+    # ring is ported (tests/test_torch_ring.py holds it to the reference's
+    # BERT ring); an unknown implementation is refused
+    ring = get_model("bert-test", device="cpu", attention_impl="ring")
+    assert ring.cfg.attention_impl == "ring"
+    with pytest.raises(ValueError, match="unknown attention_impl"):
+        get_model("bert-test", device="cpu", attention_impl="flash")
 
 
 @pytest.mark.parametrize("name,seq", [("bert-test", None), ("bert-test", 64),

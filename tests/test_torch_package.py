@@ -36,7 +36,8 @@ def test_import_pulls_in_no_jax_or_triton():
     assert "kubeflow_tpu_torch.runtime.trainer" in new
     # the distributed runtime and the mesh are scanned like the rest
     for mod in ("parallel.dist", "parallel.backends", "parallel.mesh",
-                "parallel.shardings", "runtime.elastic"):
+                "parallel.shardings", "runtime.elastic", "ops.moe",
+                "ops.ring_attention", "ops.ulysses", "parallel.pipeline"):
         assert f"kubeflow_tpu_torch.{mod}" in new, mod
 
 

@@ -83,8 +83,11 @@ def _lm_witness(trainer, batch, steps=2):
     local = trainer._to_device(batch)
     trainer.model.eval()
     with torch.no_grad():
-        logits = trainer.model(local["tokens"],
-                               segment_ids=local.get("segment_ids"))
+        if trainer.gpipe is not None:      # every stage gets the logits
+            logits = trainer.gpipe.logits(local["tokens"])
+        else:
+            logits = trainer.model(local["tokens"],
+                                   segment_ids=local.get("segment_ids"))
     trainer.model.train()
     losses, params = [], None
     for i in range(steps):

@@ -93,24 +93,25 @@ def test_train_config_rejects_unknown_keys():
         ttrainer.TrainConfig.from_dict({"modle": "llama-1b"})
     with pytest.raises(ValueError, match="unknown mesh axes"):
         ttrainer.TrainConfig.from_dict({"mesh": {"tensor": 2}})
-    # data/fsdp/model meshes are ported (tests/test_torch_spmd.py); the
-    # axes of item 18 still raise
+    # every axis is ported (tests/test_torch_spmd.py, test_torch_moe_ep.py,
+    # test_torch_ring.py, test_torch_pipeline.py)
     assert ttrainer.TrainConfig.from_dict({"mesh": {"fsdp": 4}}).mesh.fsdp == 4
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ttrainer.TrainConfig.from_dict({"mesh": {"seq": 2}})
+    assert ttrainer.TrainConfig.from_dict({"mesh": {"seq": 2}}).mesh.seq == 2
 
 
 @pytest.mark.parametrize("kw", [
     {"task": "classification", "model": "resnet18", "remat": True},
     {"task": "classification", "model": "vit-test", "remat": True,
      "checkpoint_dir": "ckpt"},
-    {"task": "seq_classification", "model": "bert-test",
+    {"task": "seq_classification", "model": "bert-test", "remat": True,
      "model_kwargs": {"dtype": "float32", "attention_impl": "ring"}},
-    {"model_kwargs": {"dtype": "float32", "moe_every": 2}}])
+    {"task": "classification", "model": "vit-test", "remat": True,
+     "remat_policy": "dots"}])
 def test_unported_config_raises(kw):
-    # every task is ported (tests/test_torch_classification.py); what
-    # still raises is whole-forward remat for the classifiers, BERT's
-    # ring attention and the LM's MoE blocks, each naming its ROADMAP item
+    # every task is ported (tests/test_torch_classification.py), and BERT's
+    # ring attention and the LM's MoE blocks are (tests/test_torch_ring.py,
+    # test_torch_moe.py); what still raises is whole-forward remat for the
+    # classifiers, naming its ROADMAP item
     cfg = _cfg(ttrainer, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         ttrainer.Trainer(cfg, device="cpu")
