@@ -196,7 +196,9 @@
    the same world to a total of 5 steps, rank 1 SIGTERMed after step 2:
    both ranks stop at one step and exit 75; one process resumes that
    world-2 checkpoint at world 1 to step 5 and is held like (a) against
-   5 straight one-process steps.
+   5 straight one-process steps. The one-process and two-rank runs of
+   (a) run alone; (a)'s control and (b)'s world, whose times nothing
+   reads, share the card, as do (b)'s two resumes.
 22. NCCL at one rank: a one-rank NCCL world through the port's `gpu`
    backend, a DeviceMesh on cuda, an all-reduce, a reduce-scatter /
    all-gather round trip and the backend's hierarchical_reduce on card
@@ -212,7 +214,7 @@
    then `kubeflow_tpu_torch.bench`'s run_lm at that point, 2 warm-up and
    5 timed steps: ms per step, tokens/s, MFU over active parameters,
    peak memory and the moe_* keys; then phase 8's profile of that
-   config, with the device time inside the MoE forward's moe.router,
+   config (one profiled step), with the device time inside the MoE forward's moe.router,
    moe.dispatch, moe.experts and moe.combine ranges.
 24. MoE block at gpt-moe-8e's width (batch 2, seq 2048, bf16, capacity
    factor 4, so no token drops): the sparse dispatch's output and
@@ -236,9 +238,10 @@
    reference; final losses ulysses vs flash and ring vs reference within
    1e-3 relative, flash vs reference within 2e-2.
 28. gloo on CUDA tensors: two `--gloo-probe` ranks sharing the card over
-   gloo try all_to_all and send/recv of CUDA tensors (nothing staged
-   through the host by the probe) and print what gloo answers (on
-   torch 2.11: all_to_all works, send/recv crashes the sender).
+   gloo try all_to_all, all_gather, broadcast and send/recv of CUDA
+   tensors (nothing staged through the host by the probe) and print what
+   gloo answers (on torch 2.11: all_to_all, all_gather and broadcast
+   work, send/recv crashes the sender).
 29. Expert 2 on one card: two port launchers over gloo, mesh data 1 x
    expert 2 (gpt-moe-8e cut to 4 layers, seq 1024, batch 8, capacity
    factor 4, adamw, 3 steps, f32 with TF32 off and the plain attention,
@@ -249,6 +252,25 @@
    (its slice of the experts against that slice), a
    planted control (the all-to-all returning its input) beyond it, the
    final loss within 1e-3 relative.
+30. The LM over a serving mesh: llama-1b at full width and depth served
+   by two ranks of `python -m kubeflow_tpu_torch.serving --mesh model=2`
+   sharing the card over gloo (continuous batching, 4 slots, prompt_len
+   128, 16 new tokens, 8 ragged requests over HTTP to rank 0): in f32
+   (TF32 off) the tokens equal one process's slot decoder on the same
+   seeded weights, and a planted control (rank 1 seeded 1) differs; each
+   rank's device memory placing and serving, tokens/s, rank 0's host ms
+   per tick and the share of it blocked in collectives (gloo: the
+   collectives' own time); both ranks launch no flash kernel while
+   serving; then bf16, the share of equal tokens printed.
+31. The classifiers on meshes: ViT-B/16 served at model=2 by two CLI
+   ranks, 8 images' softmax rows within 1e-5 of one process (f32),
+   beside the training runs; ViT-B/16 trained 3 steps at model=2 and at fsdp=2 (batch 16, 224 px)
+   and ResNet-50 one step at fsdp=2, by two port launchers over gloo:
+   each rank's parameter change per row within 0.25 of one process's
+   (phase 21's limit), a planted control beyond it (model: no sum of the
+   partial outputs; fsdp: no gradient reduce-scatter), ResNet-50's
+   BatchNorm statistics within 1e-3 relative of one process's; neither
+   the serving ranks nor the training ranks launch a flash kernel.
 Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
@@ -259,8 +281,11 @@ the serving, rolling, speculative, router and checkpoint-serving paths
 and the classification paths (resnet50, classifier, vit-b16,
 bert-base), which must run none of them, `world_rank0` /
 `world_rank1`, phase 21 (a)'s ranks, `moe_train` (phase 23's 7 steps),
-`moe_serving` (none), `ulysses` and `ring` (phase 27's 3 steps), and
-`expert_rank0` / `expert_rank1` (phase 29's ranks);
+`moe_serving` (none), `ulysses` and `ring` (phase 27's 3 steps),
+`expert_rank0` / `expert_rank1` (phase 29's ranks), and `mesh_serving`
+(the two serving ranks of phase 30's f32 run and of phase 31's ViT run,
+each counted from its reset after registration to its stop: none;
+phase 31's training worlds are held at none too);
 the flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
@@ -331,8 +356,16 @@ QUANT_AGREE = 0.75         # int8 cache vs f32, generated tokens
 QUANT_CORR = 0.99          # int8-weight vs f32 logits, same tokens
 
 
+# the serving ranks phases 30-31 start (`_start_mesh`): a failure kills
+# those still running before the script exits
+_MESH_PROCS: list = []
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    for proc in _MESH_PROCS:
+        if proc.poll() is None:
+            proc.kill()
     sys.exit(1)
 
 
@@ -2331,8 +2364,11 @@ def world_worker(argv: list[str]) -> int:
     control: the trainer skips its gradient reduce, so each rank steps
     on its own rows' gradients; `no-exchange` is phase 29's: the MoE
     all-to-all returns its input, so each rank's tokens meet its own
-    experts only (the reference's dropped all_to_all); `none` runs the
-    port as it is."""
+    experts only (the reference's dropped all_to_all); phase 31's
+    `no-tp-sum` leaves out tensor parallelism's sum of the ranks' partial
+    outputs, `no-fsdp-sync` FSDP2's gradient reduce-scatter; `none` runs
+    the port as it is. Where fsdp or model split the parameters, the
+    dump holds them gathered whole."""
     import torch
 
     from kubeflow_tpu_torch.runtime import launcher
@@ -2343,8 +2379,12 @@ def world_worker(argv: list[str]) -> int:
     fit = T.Trainer.fit
 
     def params(trainer) -> dict:
+        shape = trainer.mesh.shape
+        src = (trainer.payload()["params"]
+               if shape["fsdp"] > 1 or shape["model"] > 1
+               else dict(trainer.model.named_parameters()))
         return {n: p.detach().to("cpu", torch.float32, copy=True)
-                for n, p in trainer.model.named_parameters()}
+                for n, p in src.items()}
 
     def fit_dumping(self, *args, **kwargs):
         init = params(self)         # a resumed run restores inside fit
@@ -2364,6 +2404,22 @@ def world_worker(argv: list[str]) -> int:
         from kubeflow_tpu_torch.ops import moe
 
         moe.all_to_all = lambda x, group: x
+    elif fault == "no-tp-sum":
+        from kubeflow_tpu_torch.parallel import shardings as S
+
+        S._Exit.forward = staticmethod(lambda ctx, x, group: x.clone())
+    elif fault == "no-fsdp-sync":
+        from kubeflow_tpu_torch.parallel import shardings as S
+
+        apply_fsdp = S.apply_fsdp
+
+        def unsynced(model, plan, mesh):
+            apply_fsdp(model, plan, mesh)
+            for m in model.modules():
+                if hasattr(m, "set_requires_gradient_sync"):
+                    m.set_requires_gradient_sync(False, recurse=False)
+
+        S.apply_fsdp = unsynced
     elif fault != "none":
         fail(f"world worker: unknown fault {fault!r}")
     return launcher.main(argv[3:])
@@ -2583,16 +2639,26 @@ def world_phase(root) -> dict:
     at world 1 (Preserve: the same global batch) to step 5, held like
     (a) against the straight steps, and so is the control's checkpoint
     resumed the same way, which must miss. Returns the launches."""
+    import concurrent.futures as cf
+
     launches = {}
+    # the timed runs alone; the control and (b)'s stopped world, whose
+    # times nothing reads, share the card, as do (b)'s two resumes
     straight = _launch_world(
         world_config(root, "straight", 1, WORLD_RESUME_STEPS,
                      checkpoint_every=WORLD_STEPS), root, "straight", 1,
         dump_steps=(WORLD_STEPS, WORLD_RESUME_STEPS))[0]
     two = _launch_world(world_config(root, "two", 2, WORLD_STEPS), root,
                         "two", 2, dump_steps=(WORLD_STEPS,))
-    control = _launch_world(world_config(root, "control", 2, WORLD_STEPS),
-                            root, "control", 2, dump_steps=(WORLD_STEPS,),
-                            fault="no-reduce")
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        control = pool.submit(
+            _launch_world, world_config(root, "control", 2, WORLD_STEPS),
+            root, "control", 2, dump_steps=(WORLD_STEPS,),
+            fault="no-reduce")
+        stop = pool.submit(
+            _launch_world, world_config(root, "gang", 2, WORLD_RESUME_STEPS),
+            root, "gang", 2, sigterm_after=WORLD_SIGTERM_AFTER)
+        control, stop = control.result(), stop.result()
     _ok([straight, *two, *control], "(a)")
     if "trainer mesh: Mesh(data=2) on 2x " not in two[0]["out"]:
         fail("world (a): rank 0 did not build the data=2 mesh")
@@ -2630,8 +2696,6 @@ def world_phase(root) -> dict:
           + "; ".join(shares), flush=True)
     shutil.rmtree(root / "two_ckpt", ignore_errors=True)
 
-    stop = _launch_world(world_config(root, "gang", 2, WORLD_RESUME_STEPS),
-                         root, "gang", 2, sigterm_after=WORLD_SIGTERM_AFTER)
     _ok(stop, "(b)", rc=75)
     steps = []
     for r, run in enumerate(stop):
@@ -2643,12 +2707,15 @@ def world_phase(root) -> dict:
     if steps[0] != steps[1]:
         fail(f"world (b): ranks stopped at steps {steps}")
     # one process resumes the world's checkpoint, and the control's
-    res = _launch_world(world_config(root, "gang", 1, WORLD_RESUME_STEPS),
-                        root, "resume", 1,
-                        dump_steps=(WORLD_RESUME_STEPS,))[0]
-    res_control = _launch_world(
-        world_config(root, "control", 1, WORLD_RESUME_STEPS), root,
-        "resume_control", 1, dump_steps=(WORLD_RESUME_STEPS,))[0]
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        res = pool.submit(
+            _launch_world, world_config(root, "gang", 1, WORLD_RESUME_STEPS),
+            root, "resume", 1, dump_steps=(WORLD_RESUME_STEPS,))
+        res_control = pool.submit(
+            _launch_world,
+            world_config(root, "control", 1, WORLD_RESUME_STEPS), root,
+            "resume_control", 1, dump_steps=(WORLD_RESUME_STEPS,))
+        res, res_control = res.result()[0], res_control.result()[0]
     _ok([res, res_control], "(b) resume")
     for name, run, at in (("resume", res, steps[0]),
                           ("control resume", res_control, WORLD_STEPS)):
@@ -3038,10 +3105,14 @@ def longctx_phase(fa, _build) -> dict:
     return {"ulysses": launches["ulysses"], "ring": launches["ring"]}
 
 
+GLOO_MODES = ("all_to_all", "all_gather", "broadcast", "send_recv")
+
+
 def gloo_probe_worker(argv: list[str]) -> int:
     """`chip_smoke.py --gloo-probe MODE RANK PORT`: one of two ranks that
     share the card in a gloo world (the loopback backend's transport)
-    tries MODE (`all_to_all` or `send_recv`) on CUDA tensors and prints
+    tries MODE (`all_to_all`, `all_gather`, `broadcast` or `send_recv`)
+    on CUDA tensors and prints
     one JSON line: "ok", "wrong" or the error. Nothing is staged through
     the host."""
     import torch
@@ -3058,6 +3129,16 @@ def gloo_probe_worker(argv: list[str]) -> int:
             dist.all_to_all_single(out, x)
             want = torch.cat([torch.arange(4.0) + 4 * rank,
                               torch.arange(4.0) + 4 * rank + 100]).cuda()
+        elif mode == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(2)]
+            dist.all_gather(parts, x)
+            out = torch.cat(parts)
+            want = torch.cat([torch.arange(8.0),
+                              torch.arange(8.0) + 100]).cuda()
+        elif mode == "broadcast":
+            out = x.clone()
+            dist.broadcast(out, 0)
+            want = torch.arange(8.0, device="cuda")
         else:
             out = torch.empty_like(x)
             if rank == 0:
@@ -3078,13 +3159,16 @@ def gloo_probe_worker(argv: list[str]) -> int:
 
 def gloo_probe_phase() -> dict:
     """Phase 28: can two ranks sharing the card over gloo (the loopback
-    backend) all_to_all and send/recv CUDA tensors? Two pairs of
-    `--gloo-probe` processes, one per mode, each with its own port;
+    backend) all_to_all, all_gather, broadcast and send/recv CUDA
+    tensors? A pair of `--gloo-probe` processes per mode, each with its
+    own port;
     prints each rank's answer (a crash or a hang past 120 s counts as a
-    no). The answer decides where expert, seq and pipe above 1 can run:
-    this phase records it; it fails only if a probe cannot start."""
+    no). The answer decides where expert, seq and pipe above 1 can run,
+    and whether the serving mesh's all_gather needs the loopback
+    backend's host staging: this phase records it; it fails only if a
+    probe cannot start."""
     procs = []
-    for mode in ("all_to_all", "send_recv"):
+    for mode in GLOO_MODES:
         port = _free_port_pair()
         for rank in (0, 1):
             procs.append((mode, rank, subprocess.Popen(
@@ -3105,7 +3189,7 @@ def gloo_probe_phase() -> dict:
             line["result"] if line else
             f"exit {p.returncode}: {out.strip().splitlines()[-1:]}")
     works = {m: all(v == "ok" for k, v in answers.items() if k.startswith(m))
-             for m in ("all_to_all", "send_recv")}
+             for m in GLOO_MODES}
     print("gloo on CUDA tensors, two ranks sharing the card: " + json.dumps(
         answers), flush=True)
     print("gloo probe verdict: " + json.dumps(works), flush=True)
@@ -3185,6 +3269,439 @@ def expert_world_phase(root) -> dict:
           + ", ".join(f"{r['summary']['step_time_s'] * 1e3:.1f}" for r in two),
           flush=True)
     return {f"expert_rank{r}": run["launches"] for r, run in enumerate(two)}
+
+
+# phase 30: the LM over a serving mesh on one card. llama-1b at full width
+# and depth, f32 with TF32 off (tokens held equal), then bf16 (the share
+# of equal tokens printed); two ranks of the CLI share the card over gloo
+MESH_LM = "llama-1b"
+MESH_P, MESH_N, MESH_SLOTS, MESH_REQUESTS = 128, 16, 4, 8
+
+
+def _mesh_prompts() -> list[list[int]]:
+    rng = random.Random(30)
+    return [[rng.randrange(1, 32000) for _ in range(k)]
+            for k in (MESH_P, 97, 12, 128, 64, 33, 120, 5)[:MESH_REQUESTS]]
+
+
+def _start_mesh(root, tag: str, cli: list[str], seeds=(0, 0)) -> dict:
+    """Two ranks of `python -m kubeflow_tpu_torch.serving --mesh model=2
+    CLI...` sharing the card over gloo (the loopback backend), rank r
+    with seed seeds[r]; returns their processes, logs and rank 0's URL
+    once it answers /readyz."""
+    import os
+    import socket
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        http = sock.getsockname()[1]
+    port = _free_port_pair()
+    procs, logs = [], []
+    for rank in (0, 1):
+        logs.append(root / f"{tag}.rank{rank}.log")
+        env = {**os.environ, "JAXJOB_COORDINATOR_ADDRESS":
+               f"127.0.0.1:{port}", "JAXJOB_NUM_PROCESSES": "2",
+               "JAXJOB_PROCESS_ID": str(rank),
+               "JAXJOB_COLLECTIVES_BACKEND": "loopback",
+               "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.serving", "--mesh",
+             "model=2", *cli, "--port", str(http), "--seed",
+             str(seeds[rank])], cwd=str(Path(__file__).resolve().parent),
+            env=env, stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT))
+        _MESH_PROCS.append(procs[-1])
+    url = f"http://127.0.0.1:{http}"
+    deadline = time.monotonic() + 300
+    while True:
+        if any(p.poll() is not None for p in procs):
+            for log in logs:
+                print(log.read_text()[-4000:], flush=True)
+            fail(f"mesh {tag}: a rank exited before rank 0 was ready")
+        try:
+            with urllib.request.urlopen(f"{url}/readyz", timeout=5) as r:
+                if r.status == 200:
+                    break
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            fail(f"mesh {tag}: rank 0 not ready after 300 s")
+        time.sleep(0.5)
+    return {"procs": procs, "logs": logs, "url": url, "tag": tag}
+
+
+def _stop_mesh(run: dict) -> list[dict]:
+    """SIGTERM rank 0 (an orderly stop: it tells rank 1); both must exit
+    0. Returns each rank's serving line (device memory, the flash
+    launches while serving)."""
+    import signal
+
+    run["procs"][0].send_signal(signal.SIGTERM)
+    rcs = []
+    for p in run["procs"]:
+        try:
+            rcs.append(p.wait(timeout=120))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait())
+    mem = []
+    for rank, log in enumerate(run["logs"]):
+        out = log.read_text()
+        lines = [json.loads(ln) for ln in out.splitlines()
+                 if ln.startswith('{"serving_rank"')]
+        if rcs[rank] != 0 or not lines:
+            print(out[-6000:], flush=True)
+            fail(f"mesh {run['tag']} rank {rank}: exit {rcs[rank]}")
+        mem.append(lines[-1])
+    return mem
+
+
+def _served_launches(tag: str, lines: list[dict]) -> dict:
+    """The flash launches both serving ranks counted while serving (each
+    resets its counts once its models are registered); fails on any."""
+    total = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
+    for ln in lines:
+        for k, n in ln["launches"].items():
+            total[k] += n
+    if any(total.values()):
+        fail(f"mesh {tag}: the serving ranks launched flash kernels {total}"
+             ": decode and the classifiers reach no Pallas kernel")
+    return total
+
+
+def _post_all(url: str, name: str, instances: list) -> tuple[list, float]:
+    """Each instance as its own concurrent request; (predictions, wall s)."""
+    import concurrent.futures as cf
+    import urllib.request
+
+    def one(inst):
+        req = urllib.request.Request(
+            f"{url}/v1/models/{name}:predict", method="POST",
+            data=json.dumps({"instances": [inst]}).encode())
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())["predictions"][0]
+
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=len(instances)) as pool:
+        out = list(pool.map(one, instances))
+    return out, time.perf_counter() - t0
+
+
+def _metric(url: str, name: str) -> float:
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    m = re.search(rf"^{name}\{{[^}}]*\}} (\S+)$", text, re.M)
+    if not m:
+        fail(f"/metrics has no {name}")
+    return float(m.group(1))
+
+
+def _one_process_lm(dtype: str, prompts: list) -> tuple[list, float, int]:
+    """The same model, seed and decoder in this process: (tokens, wall s,
+    peak bytes)."""
+    import torch
+
+    from kubeflow_tpu_torch.serving.server import serve_lm_generator
+
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_lm_generator(
+        "one", MESH_LM, prompt_len=MESH_P, max_new_tokens=MESH_N,
+        device="cuda", dtype=dtype, continuous_batching=True,
+        decode_slots=MESH_SLOTS, seed=0)
+    try:
+        import concurrent.futures as cf
+
+        served.predict([{"tokens": prompts[0]}])         # warm
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+            out = list(pool.map(lambda p: [int(t) for t in served.predict(
+                [{"tokens": p}])[0]], prompts))
+        wall = time.perf_counter() - t0
+    finally:
+        served.close()
+    peak = torch.cuda.max_memory_allocated()
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, wall, peak
+
+
+def mesh_serving_phase(root) -> None:
+    """Phase 30: llama-1b at full width and depth (d 2048, 16 layers, 32
+    q / 8 kv heads) served over `--mesh model=2` by two ranks of the CLI
+    sharing the card over gloo: continuous batching, 4 slots, prompt_len
+    128, 16 new tokens, 8 ragged requests over HTTP to rank 0. In f32
+    (TF32 off) the tokens must equal one process's slot decoder on the
+    same seeded weights, and a planted control (rank 1 drawing its
+    weights from another seed) must differ; prints each rank's device
+    memory (the peak while the weights were placed, then while serving),
+    tokens/s of both, rank 0's host ms per tick and the share of the
+    tick blocked in collectives. Then bf16: the share of equal tokens,
+    printed, not held. Returns the f32 run's flash launches on both
+    ranks while serving (none)."""
+    import concurrent.futures as cf
+
+    prompts = _mesh_prompts()
+    insts = [{"tokens": p} for p in prompts]
+    cli = ["--lm", f"llama={MESH_LM}", "--continuous-batching",
+           "--decode-slots", str(MESH_SLOTS), "--prompt-len", str(MESH_P),
+           "--max-new-tokens", str(MESH_N)]
+    want, one_wall, one_peak = _one_process_lm("float32", prompts)
+    # the three worlds start at once; the control and the bf16 pair stay
+    # idle (a heartbeat a second) while the f32 world is timed
+    with cf.ThreadPoolExecutor(max_workers=3) as pool:
+        run = pool.submit(_start_mesh, root, "mesh_f32",
+                          [*cli, "--dtype", "float32"])
+        control = pool.submit(_start_mesh, root, "mesh_control",
+                              [*cli, "--dtype", "float32"], (0, 1))
+        bf16 = pool.submit(_start_mesh, root, "mesh_bf16", cli)
+        run, control, bf16 = run.result(), control.result(), bf16.result()
+    _post_all(run["url"], "llama", insts[:1])                 # warm
+    base = [_metric(run["url"], f"serving_decode_{k}_total")
+            for k in ("ticks", "tick_seconds", "collective_host_seconds")]
+    got, wall = _post_all(run["url"], "llama", insts)
+    ticks, tick_s, coll_s = (
+        _metric(run["url"], f"serving_decode_{k}_total") - b
+        for k, b in zip(("ticks", "tick_seconds", "collective_host_seconds"),
+                        base))
+    mem = _stop_mesh(run)
+    if got != want:
+        same = sum(a == b for r, w in zip(got, want) for a, b in zip(r, w))
+        fail(f"mesh serving (f32): {same} of {MESH_REQUESTS * MESH_N} tokens "
+             "equal one process's")
+    # the control, the bf16 pair and its one process at once: not timed
+    with cf.ThreadPoolExecutor(max_workers=3) as pool:
+        planted = pool.submit(_post_all, control["url"], "llama", insts)
+        got16 = pool.submit(_post_all, bf16["url"], "llama", insts)
+        want16 = pool.submit(_one_process_lm, "bfloat16", prompts)
+        (planted, _), (got16, _), (want16, _, _) = (
+            planted.result(), got16.result(), want16.result())
+    _stop_mesh(control)
+    _stop_mesh(bf16)
+    if planted == want:
+        fail("mesh serving: the control (rank 1 on other weights) gave one "
+             "process's tokens: the hold cannot fail a wrong mesh")
+    same16 = sum(a == b for r, w in zip(got16, want16) for a, b in zip(r, w))
+    tokens = MESH_REQUESTS * MESH_N
+    gb = [(m["placed_peak_bytes"] / 1e9, m["peak_bytes"] / 1e9) for m in mem]
+    print(f"mesh serving: {MESH_LM} f32 over model=2 (two ranks, gloo, one "
+          f"card), {MESH_SLOTS} slots, {MESH_REQUESTS} requests x {MESH_N} "
+          f"tokens: tokens equal one process (held); control (rank 1 "
+          f"seeded 1) {sum(a == b for r, w in zip(planted, want) for a, b in zip(r, w))}"
+          f" of {tokens} equal (must differ); peak GB placing / serving: "
+          f"rank 0 {gb[0][0]:.2f} / {gb[0][1]:.2f}, rank 1 {gb[1][0]:.2f} / "
+          f"{gb[1][1]:.2f}, one process {one_peak / 1e9:.2f}; tokens/s "
+          f"mesh {tokens / wall:.1f}, one process {tokens / one_wall:.1f}; "
+          f"rank 0 host ms per tick {1e3 * tick_s / max(ticks, 1):.1f} over "
+          f"{ticks:.0f} ticks, blocked in collectives "
+          f"{100 * coll_s / tick_s:.1f}%; "
+          f"bf16 {same16} of {tokens} tokens equal one process (not held)",
+          flush=True)
+    return _served_launches("mesh_f32", mem)
+
+
+# phase 31: the classifiers on meshes on one card, two ranks over gloo
+MESH_VIT_IMAGES = 8
+MESH_ROW_TOL = 1e-5          # softmax rows, f32, TF32 off
+MESH_CLS_STEPS = 3
+
+
+def _vit_config(mesh: dict | None) -> dict:
+    return {"model": "vit-b16", "task": "classification", "global_batch": 16,
+            "image_size": 224, "optimizer": "adamw", "learning_rate": 1e-3,
+            "warmup_steps": 1, "total_steps": MESH_CLS_STEPS, "seed": 0,
+            "log_every": 1, "model_kwargs": {"dtype": "float32"},
+            **({"mesh": mesh} if mesh else {})}
+
+
+def _resnet_config(root, tag: str, mesh: dict | None) -> dict:
+    return {"model": "resnet50", "task": "classification",
+            "global_batch": 32, "image_size": 224, "optimizer": "sgdm",
+            "learning_rate": 0.1, "warmup_steps": 0, "total_steps": 1,
+            "seed": 0, "log_every": 1, "checkpoint_every": 1,
+            "checkpoint_dir": str(root / f"{tag}_ckpt"),
+            "model_kwargs": {"dtype": "float32"},
+            **({"mesh": mesh} if mesh else {})}
+
+
+def _vit_checkpoint(root) -> str:
+    """A port checkpoint of ViT-B/16 (10 classes) from seed 0 with its
+    head drawn too (the reference zero-initializes it: every row would be
+    uniform)."""
+    import torch
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.checkpoint import Checkpointer
+
+    model = get_model("vit-b16", device="cuda", seed=0, num_classes=10,
+                      dtype="float32")
+    with torch.no_grad():
+        model.head_kernel.normal_(0.0, 0.02, generator=torch.Generator(
+            device="cuda").manual_seed(31))
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    directory = str(root / "vit_ckpt")
+    ckpt = Checkpointer(directory, keep=0, world_size=1, num_slices=1)
+    try:
+        ckpt.save(0, {"step": 0, "params": params, "batch_stats": {},
+                      "opt_state": {}}, force=True)
+    finally:
+        ckpt.close()
+    del model
+    return directory
+
+
+def mesh_classifier_phase(root) -> None:
+    """Phase 31: (a) ViT-B/16 served over `--mesh model=2` by two ranks
+    of the CLI from a checkpoint (seeded weights, its head drawn too): 8
+    images' softmax rows within MESH_ROW_TOL of one process (f32, TF32
+    off); (b) ViT-B/16 trained 3 steps (batch 16, 224 px, f32,
+    adamw) at model=2 and at fsdp=2, and ResNet-50 one sgdm step (batch
+    32, 224 px, f32) at fsdp=2, each by two port launchers over gloo:
+    each rank's parameter change (gathered whole) per row within
+    WORLD_DELTA_TOL of one process's, a planted control beyond it (model:
+    the ranks' partial outputs never summed; fsdp: no gradient
+    reduce-scatter); ResNet-50's BatchNorm statistics after the step
+    within CPU_REL_TOL of one process's. No flash launch: returns the
+    ViT serving ranks' launches (the training ranks are held apart)."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu_torch.runtime.checkpoint import restore_variables
+    from kubeflow_tpu_torch.serving.server import serve_flax_classifier
+
+    # (b), training: every run at once on the card (the holds, not the
+    # times), while (a) serves beside them
+    runs = {
+        "vit_one": (_vit_config(None), 1, "none"),
+        "vit_tp": (_vit_config({"data": 1, "model": 2}), 2, "none"),
+        "vit_tp_control": (_vit_config({"data": 1, "model": 2}), 2,
+                           "no-tp-sum"),
+        "vit_fsdp": (_vit_config({"data": 1, "fsdp": 2}), 2, "none"),
+        "vit_fsdp_control": (_vit_config({"data": 1, "fsdp": 2}), 2,
+                             "no-fsdp-sync"),
+        "rn_one": (_resnet_config(root, "rn_one", None), 1, "none"),
+        "rn_fsdp": (_resnet_config(root, "rn_fsdp", {"data": 1, "fsdp": 2}),
+                    2, "none"),
+        "rn_fsdp_control": (_resnet_config(root, "rn_fsdp_control",
+                                           {"data": 1, "fsdp": 2}), 2,
+                            "no-fsdp-sync"),
+    }
+    steps = {k: MESH_CLS_STEPS if k.startswith("vit") else 1 for k in runs}
+    pool = cf.ThreadPoolExecutor(max_workers=len(runs))
+    futs = {k: pool.submit(_launch_world, cfg, root, k, world,
+                           dump_steps=(steps[k],), fault=fault)
+            for k, (cfg, world, fault) in runs.items()}
+    try:
+        t0 = time.perf_counter()
+        images = np.random.default_rng(31).standard_normal(
+            (MESH_VIT_IMAGES, 224, 224, 3)).astype(np.float32)
+        ckpt = _vit_checkpoint(root)
+        one = serve_flax_classifier("one", "vit-b16", num_classes=10,
+                                    device="cuda", dtype="float32",
+                                    checkpoint_dir=ckpt)
+        want = np.asarray(one.predict(list(images)))
+        del one
+        run = _start_mesh(root, "mesh_vit", [
+            "--model", f"vit=vit-b16@{ckpt}", "--dtype", "float32"])
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{run['url']}/v1/models/vit:predict", method="POST",
+            data=json.dumps({"instances": images.tolist()}).encode())
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got = np.asarray(json.loads(r.read())["predictions"])
+        mem = _stop_mesh(run)
+        launched = _served_launches("mesh_vit", mem)
+        err = float(np.abs(got - want).max())
+        if got.shape != want.shape or not err <= MESH_ROW_TOL:
+            fail(f"mesh classifier: ViT-B/16 rows {got.shape} differ by "
+                 f"{err:.3g} from one process's (limit {MESH_ROW_TOL})")
+        serve_s = time.perf_counter() - t0
+        out = {k: f.result() for k, f in futs.items()}
+    finally:
+        pool.shutdown(wait=True)
+    for k, rs in out.items():
+        _ok(rs, f"mesh classifier {k}")
+        for r in rs:
+            if r["launches"] and any(r["launches"].values()):
+                fail(f"mesh classifier {k}: flash launches {r['launches']}")
+    held = {}
+    for k, one_k in (("vit_tp", "vit_one"), ("vit_fsdp", "vit_one"),
+                     ("rn_fsdp", "rn_one")):
+        held[k] = [_hold_delta(
+            f"mesh classifier {k} rank {r}",
+            root / f"{k}.rank{r}.{steps[k]}.pt",
+            root / f"{one_k}.rank0.{steps[k]}.pt",
+            root / f"{k}_control.rank{r}.{steps[k]}.pt") for r in range(2)]
+    stats = {}
+    for k in ("rn_one", "rn_fsdp"):
+        v, _ = restore_variables(str(root / f"{k}_ckpt"))
+        stats[k] = v["batch_stats"]
+    worst = 0.0
+    for n, w in stats["rn_one"].items():
+        g = stats["rn_fsdp"][n]
+        rel = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+    if not worst <= CPU_REL_TOL:
+        fail(f"mesh classifier: ResNet-50 batch statistics at fsdp=2 differ "
+             f"by {worst:.3g} (relative) from one process's")
+    step_ms = {k: 1e3 * out[k][0]["summary"]["step_time_s"]
+               for k in ("vit_one", "vit_tp", "vit_fsdp", "rn_one", "rn_fsdp")}
+    print(f"mesh classifier: ViT-B/16 served at model=2: {MESH_VIT_IMAGES} "
+          f"rows max abs err {err:.3g} vs one process (limit {MESH_ROW_TOL}); "
+          f"serving peak GB rank 0 / 1 {mem[0]['peak_bytes'] / 1e9:.2f} / "
+          f"{mem[1]['peak_bytes'] / 1e9:.2f}; {serve_s:.1f} s (sharing the "
+          "card with the training runs)", flush=True)
+    for k, lines in held.items():
+        print(f"mesh classifier {k}: rank 0 {lines[0]}; rank 1 {lines[1]}",
+              flush=True)
+    print(f"mesh classifier: ResNet-50 batch statistics at fsdp=2 max rel "
+          f"err {worst:.3g} (limit {CPU_REL_TOL}); step ms (all runs "
+          f"sharing the card at once, not comparable to one run alone): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in step_ms.items()), flush=True)
+    torch.cuda.empty_cache()
+    return launched
+
+
+def earlier_phases_worker(argv: list[str]) -> int:
+    """`--earlier-phases TREE`: the pinned training step, the pinned
+    serving point and MoE serving as the checkout at TREE (this one or
+    a parent's `git archive`) runs them, through that checkout's own
+    chip_smoke.py and package. A comparison of two commits runs this
+    once per tree in one call: parent, change, change, parent."""
+    import importlib.util
+
+    import torch
+
+    tree = Path(argv[0]).resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke",
+                                                  tree / "chip_smoke.py")
+    c = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(c)
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    if not Path(fa.__file__).resolve().is_relative_to(tree):
+        fail(f"the package came from {fa.__file__}, not from {tree}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs a GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"earlier phases of {tree}: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    c.main_path(fa, _build, c.MAIN_PATH, "pinned")
+    c.serving_pinned(card, cache_bytes=c.DENSE_CACHE_BYTES)
+    c.moe_serving_phase()
+    return 0
 
 
 def main() -> int:
@@ -3348,7 +3865,8 @@ def main() -> int:
     # mixture-of-experts, sequence and pipeline parallelism at one rank
     launches["moe_train"] = timed_phase("moe train", moe_train_phase, fa,
                                         _build)
-    timed_phase("profile moe", profile_phase, MOE_TRAIN, MOE_MODEL)
+    # one profiled step (the pinned config's three): the script's time
+    timed_phase("profile moe", profile_phase, MOE_TRAIN, MOE_MODEL, steps=1)
     timed_phase("moe block", moe_block_phase)
     timed_phase("moe card vs cpu", moe_card_vs_cpu_phase)
     fa.reset_launches()
@@ -3367,6 +3885,16 @@ def main() -> int:
                                     expert_world_phase, ep_root))
     finally:
         shutil.rmtree(ep_root, ignore_errors=True)
+    mesh_root = _build.build_dir() / "chip_smoke_mesh"
+    shutil.rmtree(mesh_root, ignore_errors=True)
+    mesh_root.mkdir(parents=True)
+    try:
+        lm = timed_phase("mesh serving", mesh_serving_phase, mesh_root)
+        vit = timed_phase("mesh classifiers", mesh_classifier_phase,
+                          mesh_root)
+        launches["mesh_serving"] = {k: lm[k] + vit[k] for k in lm}
+    finally:
+        shutil.rmtree(mesh_root, ignore_errors=True)
     for row in rows:
         row["launches"] = launches["pinned"][row["name"]]
         row["launches_by_path"] = {t: n[row["name"]]
@@ -3387,4 +3915,6 @@ if __name__ == "__main__":
         sys.exit(world_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--gloo-probe"]:
         sys.exit(gloo_probe_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--earlier-phases"]:
+        sys.exit(earlier_phases_worker(sys.argv[2:]))
     sys.exit(main())

@@ -26,7 +26,12 @@ from torch import nn
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.encoder import EncoderBlock, init_normal
 from kubeflow_tpu_torch.models.registry import register_model
-from kubeflow_tpu_torch.models.transformer import Dense, RMSNorm, as_dtype
+from kubeflow_tpu_torch.models.transformer import (
+    Dense,
+    RMSNorm,
+    as_dtype,
+    gathered,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,20 +90,23 @@ class BertEncoder(nn.Module):
         cfg = self.cfg
         l = tokens.shape[1]
         start = self.seq.rank * l if self.seq is not None else 0
-        x = (F.embedding(tokens, self.embedding.to(cfg.dtype))
+        x = (F.embedding(tokens, gathered(self, "embedding").to(cfg.dtype))
              + self.pos_embedding[start:start + l].to(cfg.dtype))
         ring = cfg.attention_impl == "ring"
         # the padding mask as segment ids (token 0 is [PAD]); the ring
         # attends over everything
         seg = None if ring else (tokens != 0).to(torch.int32)
-        for i in range(cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, seg, ring, self.seq)
+        for blk in self.blocks():
+            x = blk(x, seg, ring, self.seq)
         x = self.ln_f(x)
         # [CLS] pooling (position 0) -> classifier, f32
         cls = x[:, 0]
         if self.seq is not None:
             cls = _FromFirst.apply(cls, self.seq.group, self.seq.rank)
         return self.head(cls)
+
+    def blocks(self) -> list[EncoderBlock]:
+        return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
 
     def flops_per_token(self, seq_len: int | None = None) -> float:
         """Train FLOPs per token (2*MAC, 6*N plus the unhalved

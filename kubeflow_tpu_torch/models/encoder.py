@@ -8,6 +8,12 @@ RMSNorm -> fc1 -> gelu (flax's default: the tanh approximation) -> fc2
 -> residual. Parameter names follow the flax tree: `qkv.weight` is the
 DenseGeneral kernel [d, 3, h, d_head] as [3*h*d_head, d], `o.weight` the
 kernel [h, d_head, d] as [d, h*d_head] (`convert.py`).
+
+Tensor parallelism (parallel/shardings.py): with the qkv weight split
+on its heads the block attends at this rank's heads, entering through
+`tp_in` and leaving through `tp_out` after o; with fc1 split on its
+columns, `mlp_tp_in` / `mlp_tp_out` frame the MLP and fc2's bias is
+added once, after the sum.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubeflow_tpu_torch.models.transformer import Dense, RMSNorm
+from kubeflow_tpu_torch.models.transformer import Dense, RMSNorm, _identity
 from kubeflow_tpu_torch.ops.attention import reference_attention
 
 
@@ -32,6 +38,8 @@ class EncoderBlock(nn.Module):
         self.ln_mlp = RMSNorm(d_model, dtype, device)
         self.fc1 = Dense(d_model, d_ff, dtype, device, bias=True)
         self.fc2 = Dense(d_ff, d_model, dtype, device, bias=True)
+        self.tp_in = self.tp_out = _identity
+        self.mlp_tp_in = self.mlp_tp_out = _identity
 
     def forward(self, x: torch.Tensor,
                 segment_ids: torch.Tensor | None = None, ring: bool = False,
@@ -40,8 +48,8 @@ class EncoderBlock(nn.Module):
         mesh.AxisGroup; x is then this rank's block of positions), the
         plain attention without one."""
         b, l, _ = x.shape
-        qkv = self.qkv(self.ln_attn(x)).view(b, l, 3, self.n_heads,
-                                              self.d_head)
+        qkv = self.qkv(self.tp_in(self.ln_attn(x))).view(b, l, 3, -1,
+                                                         self.d_head)
         q, k, v = qkv.unbind(2)
         if ring:
             from kubeflow_tpu_torch.ops.ring_attention import ring_attention
@@ -51,9 +59,14 @@ class EncoderBlock(nn.Module):
         else:
             att = reference_attention(q, k, v, causal=False,
                                       segment_ids=segment_ids)
-        x = x + self.o(att.reshape(b, l, -1))
-        y = self.fc2(F.gelu(self.fc1(self.ln_mlp(x)), approximate="tanh"))
-        return x + y
+        x = x + self.tp_out(self.o(att.reshape(b, l, -1)))
+        h = F.gelu(self.fc1(self.mlp_tp_in(self.ln_mlp(x))),
+                   approximate="tanh")
+        if self.mlp_tp_out is _identity:
+            return x + self.fc2(h)
+        fc2 = self.fc2
+        y = self.mlp_tp_out(F.linear(h.to(fc2.dtype), fc2.weight.to(fc2.dtype)))
+        return x + (y + fc2.bias.to(fc2.dtype))
 
 
 def init_normal(module: nn.Module, gen: torch.Generator,

@@ -176,8 +176,18 @@ class Dense(nn.Module):
                      if bias else None)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+        return F.linear(x.to(self.dtype),
+                        gathered(self, "weight").to(self.dtype),
                         None if self.bias is None else self.bias.to(self.dtype))
+
+
+def gathered(module: nn.Module, leaf: str) -> torch.Tensor:
+    """`module`'s parameter `leaf`, whole: all-gathered over the model
+    group where tensor parallelism keeps a slice of it for storage only
+    (`module.gathers`, set by parallel/shardings.py)."""
+    w = getattr(module, leaf)
+    fns = module.__dict__.get("gathers")
+    return w if not fns or leaf not in fns else fns[leaf](w)
 
 
 @dataclasses.dataclass
@@ -200,22 +210,26 @@ def rolling_window(cfg: TransformerConfig) -> int:
     return min(cfg.attention_window, cfg.max_seq_len)
 
 
-def decode_cache_shapes(cfg: TransformerConfig, batch: int
+def decode_cache_shapes(cfg: TransformerConfig, batch: int,
+                        kv_heads: int | None = None
                         ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """Shape and dtype of each dense decode-cache tensor, by flax name:
     [B, S, Hkv, D] keys and values in the model dtype, or int8 codes
     plus f32 [B, S, Hkv, 1] scales under kv_cache_dtype int8. S is
-    max_seq, or W (`rolling_window`) for the rolling cache."""
+    max_seq, or W (`rolling_window`) for the rolling cache; Hkv is
+    `kv_heads` (a rank's under tensor parallelism,
+    `TransformerLM.cache_kv_heads`), else the config's."""
     s = rolling_window(cfg) if cfg.rolling_kv_cache else cfg.max_seq_len
     if cfg.kv_cache_dtype not in ("auto", "int8"):
         raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r} "
                          "(auto|int8)")
     quant = cfg.kv_cache_dtype == "int8"
-    kv = (batch, s, cfg.n_kv_heads, cfg.head_dim)
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
+    kv = (batch, s, hkv, cfg.head_dim)
     leaves = {"cached_key": (kv, torch.int8 if quant else cfg.dtype),
               "cached_value": (kv, torch.int8 if quant else cfg.dtype)}
     if quant:
-        sc = (batch, s, cfg.n_kv_heads, 1)
+        sc = (batch, s, hkv, 1)
         leaves.update(cached_key_scale=(sc, torch.float32),
                       cached_value_scale=(sc, torch.float32))
     return {f"layer_{i}/attn/{k}": v for i in range(cfg.n_layers)
@@ -712,6 +726,15 @@ class TransformerLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embedding.device
+
+    def cache_kv_heads(self) -> int:
+        """The kv heads this rank's decode cache holds: its k projection's
+        (a slice of them under tensor parallelism), or the replicated
+        heads its q heads use."""
+        attn = self.blocks()[0].attn
+        if attn.kv_heads is not None:
+            return len(attn.kv_heads)
+        return attn.k.weight.shape[0] // self.cfg.head_dim
 
     def apply(self, params, *args, **kwargs):
         """forward with `params` (a name -> tensor dict, e.g. weights cast

@@ -21,7 +21,12 @@ from torch import nn
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.encoder import EncoderBlock, init_normal
 from kubeflow_tpu_torch.models.registry import register_model
-from kubeflow_tpu_torch.models.transformer import Dense, RMSNorm, as_dtype
+from kubeflow_tpu_torch.models.transformer import (
+    Dense,
+    RMSNorm,
+    as_dtype,
+    gathered,
+)
 from kubeflow_tpu_torch.ops.xent import head_logits
 
 
@@ -82,11 +87,15 @@ class ViT(nn.Module):
                              f"got {tuple(images.shape)}")
         x = images.to(cfg.dtype).reshape(b, side, p, side, p, 3)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, side * side, p * p * 3)
-        x = self.patch_embed(x) + self.pos_embed.to(cfg.dtype)[None]
-        for i in range(cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x)
+        x = (self.patch_embed(x)
+             + gathered(self, "pos_embed").to(cfg.dtype)[None])
+        for blk in self.blocks():
+            x = blk(x)
         x = self.ln_f(x).mean(dim=1)           # GAP over patches
-        return head_logits(x, self.head_kernel, cfg.dtype)
+        return head_logits(x, gathered(self, "head_kernel"), cfg.dtype)
+
+    def blocks(self) -> list[EncoderBlock]:
+        return [getattr(self, f"layer_{i}") for i in range(self.cfg.n_layers)]
 
     def fwd_flops_per_image(self) -> float:
         """2*MAC forward FLOPs (the MFU meter's convention)."""

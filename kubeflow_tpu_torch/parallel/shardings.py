@@ -1,18 +1,26 @@
 """Parameter placement on a mesh (port of kubeflow_tpu/parallel/shardings.py).
 
 `partition_specs` names, for each parameter, the mesh axes each of its
-dims is split over, in the reference's flax layout: the table copies the
+dims is split over, in the reference's flax layout: the tables copy the
 reference's `_part` annotations (kubeflow_tpu/models/transformer.py:
 q/k/v (fsdp, model, None) :466-470, o (model, None, fsdp) :691,
 gate/up (fsdp, model) and down (model, fsdp) :714-725, the LM head
-(fsdp, model) :748, the embedding ((model, fsdp), None) :830), with the
-reference's drop of an axis that does not divide its dim (2 KV heads
-under model 4 replicate) and its FSDP heuristic for bare leaves
-(`_fsdp_spec`).
+(fsdp, model) :748, the embedding ((model, fsdp), None) :830; the
+encoders' `nn.with_partitioning`, kubeflow_tpu/models/vit.py:59-129 and
+bert.py:51-93: qkv (fsdp, None, model, None), o (model, None, fsdp),
+fc1 (fsdp, model), fc2 (model, fsdp), ViT's patch embedding and
+position table (None, model) and head (fsdp, model), BERT's word
+embedding (model, fsdp)), with the reference's drop of an axis that does
+not divide its dim (2 KV heads under model 4 replicate) and its FSDP
+heuristic for bare leaves (`_fsdp_spec`). The port adds one entry: the
+fc1 bias follows fc1's output split, since the port adds it to the
+rank's columns (GSPMD slices the replicated bias for the add).
 
 The specs are then applied to the port's modules:
 - `model`: Megatron-style tensor parallelism on local weight shards
-  (`apply_tensor_parallel`): each rank keeps its slice of the
+  (`apply_tensor_parallel`; the encoders of ViT and BERT the same way,
+  their qkv split on its heads, their patch, position, word-embedding
+  and head weights all-gathered for use): each rank keeps its slice of the
   column-parallel q/k/v, gate and up weights and of the row-parallel o
   and down weights; an identity whose backward all-reduces over the
   model group enters each block half, an all-reduce whose backward is
@@ -42,6 +50,7 @@ The specs are then applied to the port's modules:
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Mapping
 
 import torch
@@ -77,6 +86,25 @@ _ANNOTATED = {
     ("moe", "w_down"): (AXIS_EXPERT, AXIS_MODEL, AXIS_FSDP),
 }
 
+# the encoder blocks of ViT and BERT (models/encoder.py), flax layout
+_ENCODER_ANNOTATED = {
+    ("qkv", "weight"): (AXIS_FSDP, None, AXIS_MODEL, None),
+    ("o", "weight"): (AXIS_MODEL, None, AXIS_FSDP),
+    ("fc1", "weight"): (AXIS_FSDP, AXIS_MODEL),
+    ("fc1", "bias"): (AXIS_MODEL,),
+    ("fc2", "weight"): (AXIS_MODEL, AXIS_FSDP),
+}
+_VIT_ANNOTATED = {
+    **_ENCODER_ANNOTATED,
+    ("patch_embed", "weight"): (None, AXIS_MODEL),
+    ("pos_embed",): (None, AXIS_MODEL),
+    ("head_kernel",): (AXIS_FSDP, AXIS_MODEL),
+}
+_BERT_ANNOTATED = {
+    **_ENCODER_ANNOTATED,
+    ("embedding",): (AXIS_MODEL, AXIS_FSDP),
+}
+
 
 def _fsdp_spec(shape: tuple[int, ...], fsdp_size: int,
                min_size: int = 2**14) -> tuple:
@@ -102,20 +130,24 @@ def _sizes(mesh) -> Mapping[str, int]:
     return mesh.shape if hasattr(mesh, "shape") else mesh
 
 
-def _annotation(model, name: str):
+def _table(model) -> dict | None:
+    from kubeflow_tpu_torch.models.bert import BertEncoder
     from kubeflow_tpu_torch.models.transformer import TransformerLM
+    from kubeflow_tpu_torch.models.vit import ViT
 
-    if not isinstance(model, TransformerLM):
-        from kubeflow_tpu_torch.models.bert import BertEncoder
-        from kubeflow_tpu_torch.models.vit import ViT
+    for cls, table in ((TransformerLM, _ANNOTATED), (ViT, _VIT_ANNOTATED),
+                       (BertEncoder, _BERT_ANNOTATED)):
+        if isinstance(model, cls):
+            return table
+    return None     # ResNet: no annotations, the fsdp heuristic alone
 
-        if isinstance(model, (BertEncoder, ViT)):
-            raise NotImplementedError(
-                f"{type(model).__name__} on an fsdp or model mesh: its "
-                "annotations are not ported yet (ROADMAP Queue 1 item 17c)")
+
+def _annotation(model, name: str):
+    table = _table(model)
+    if table is None:
         return None
     parts = tuple(name.split("."))
-    for suffix, names in _ANNOTATED.items():
+    for suffix, names in table.items():
         if parts[-len(suffix):] == suffix and (len(suffix) > 1
                                                or parts == suffix):
             return names
@@ -178,15 +210,38 @@ class ParamShard:
     dim both split); `flax` the same in the flax layout; `partial_model`
     marks a weight replicated over the model group whose gradient is a
     per-rank part (the k/v projections when their heads replicate);
-    `stage` is set for a block's weight under pipeline stages."""
+    `stage` is set for a block's weight under pipeline stages.
+
+    A split of an inner part of a port dim (an encoder's qkv [3*h*D, d]
+    split on h) is sliced in `view`, the port tensor reshaped to its
+    flax dims before the permute ([3, h, D, d]): `port` then indexes the
+    view's dims and `merge` names the port dim each view dim folds
+    into."""
 
     port: list[tuple[int, str]]
     flax: list[tuple[int, str]]
     partial_model: bool = False
     stage: int | None = None     # the pipeline stage that holds it
+    view: tuple[int, ...] | None = None
+    merge: list[int] | None = None
+
+    def __bool__(self) -> bool:
+        return bool(self.port)
 
     def dim(self, axis: str) -> int | None:
+        """The dim `axis` splits (of the view, when there is one)."""
         return next((d for d, a in self.port if a == axis), None)
+
+    def port_dim(self, axis: str) -> int | None:
+        """The port dim `axis` splits."""
+        d = self.dim(axis)
+        return d if d is None or self.merge is None else self.merge[d]
+
+    def only(self, axes) -> "ParamShard":
+        """The same split restricted to `axes`."""
+        return dataclasses.replace(
+            self, port=[(d, a) for d, a in self.port if a in axes],
+            flax=[(d, a) for d, a in self.flax if a in axes])
 
 
 def shard_plan(model, mesh) -> dict[str, ParamShard]:
@@ -198,22 +253,19 @@ def shard_plan(model, mesh) -> dict[str, ParamShard]:
         spec = specs[name]
         view, perm = flax_layout(name, p.shape, _head_dim(model))
         vdims = _view_dims(tuple(p.shape), view)
-        port, flax = [], []
-        for axis in (AXIS_EXPERT, AXIS_MODEL, AXIS_FSDP):
-            if sizes.get(axis, 1) <= 1:
-                continue
-            for fdim, names in enumerate(spec):
-                ns = names if isinstance(names, tuple) else (names,)
-                if axis not in ns:
-                    continue
-                pdim = vdims[perm[fdim]]
-                lead = vdims.index(pdim)
-                if perm[fdim] != lead:
-                    raise ValueError(f"{name}: axis {axis} on an inner part "
-                                     f"of port dim {pdim}")
-                port.append((pdim, axis))
-                flax.append((fdim, axis))
-        plan[name] = ParamShard(port, flax)
+        flax = [(fdim, axis) for axis in (AXIS_EXPERT, AXIS_MODEL, AXIS_FSDP)
+                if sizes.get(axis, 1) > 1
+                for fdim, names in enumerate(spec)
+                if axis in (names if isinstance(names, tuple) else (names,))]
+        # slice the port tensor itself unless a split falls on an inner
+        # part of one of its dims; then slice its view
+        inner = any(perm[f] != vdims.index(vdims[perm[f]]) for f, _ in flax)
+        if inner:
+            plan[name] = ParamShard([(perm[f], a) for f, a in flax], flax,
+                                    view=tuple(view), merge=vdims)
+        else:
+            plan[name] = ParamShard([(vdims[perm[f]], a) for f, a in flax],
+                                    flax)
     pp = sizes.get(AXIS_PIPELINE, 1)
     if pp > 1:
         per = model.cfg.n_layers // pp
@@ -229,12 +281,25 @@ def shard_plan(model, mesh) -> dict[str, ParamShard]:
     return plan
 
 
+def _folded(shape, merge: list[int]) -> list[int]:
+    """A view's shape folded back into the port dims (`merge`)."""
+    out = [1] * (max(merge) + 1)
+    for n, p in zip(shape, merge):
+        out[p] *= n
+    return out
+
+
 def shard_local(full: torch.Tensor, shards, mesh: Mesh) -> torch.Tensor:
-    """This rank's block of `full` under `shards` ((dim, axis) pairs in
-    slicing order)."""
-    for dim, axis in shards:
-        full = full.chunk(mesh.shape[axis], dim)[mesh.coords[axis]]
-    return full.contiguous()
+    """This rank's block of `full` under `shards`: (dim, axis) pairs in
+    slicing order, or a ParamShard (sliced in its view when it has
+    one)."""
+    view = getattr(shards, "view", None)
+    x = full if view is None else full.reshape(view)
+    for dim, axis in getattr(shards, "port", shards):
+        x = x.chunk(mesh.shape[axis], dim)[mesh.coords[axis]]
+    if view is not None:
+        x = x.reshape(_folded(x.shape, shards.merge))
+    return x.contiguous()
 
 
 def gather_full(local: torch.Tensor, shards, mesh: Mesh) -> torch.Tensor:
@@ -242,14 +307,42 @@ def gather_full(local: torch.Tensor, shards, mesh: Mesh) -> torch.Tensor:
     groups of `shards`): the inverse of shard_local."""
     import torch.distributed as dist
 
-    for dim, axis in reversed(list(shards)):
+    pairs = list(getattr(shards, "port", shards))
+    view = getattr(shards, "view", None)
+    if view is not None:
+        part = list(view)
+        for dim, axis in pairs:
+            part[dim] //= mesh.shape[axis]
+        local = local.reshape(part)
+    for dim, axis in reversed(pairs):
         parts = [torch.empty_like(local) for _ in range(mesh.shape[axis])]
         dist.all_gather(parts, local.contiguous(), group=mesh.group((axis,)))
         local = torch.cat(parts, dim)
+    if view is not None:
+        local = local.reshape(_folded(view, shards.merge))
     return local
 
 
 # -- tensor parallelism ---------------------------------------------------------
+
+
+class _Clock:
+    """Host seconds this process spent blocked in the forward collectives
+    of tensor parallelism and the serving wire (the serving decoder reads
+    the share of a tick they take). That is the collectives' time under
+    gloo, whose calls return when the data is there; under NCCL a call
+    returns once it is enqueued on the stream, and this reads near 0."""
+
+    seconds = 0.0
+
+    def timed(self, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+COLLECTIVES = _Clock()
 
 
 class _Enter(torch.autograd.Function):
@@ -277,7 +370,7 @@ class _Exit(torch.autograd.Function):
         import torch.distributed as dist
 
         x = x.contiguous().clone()
-        dist.all_reduce(x, group=group)
+        COLLECTIVES.timed(dist.all_reduce, x, group=group)
         return x
 
     @staticmethod
@@ -295,7 +388,7 @@ class _Gather(torch.autograd.Function):
 
         ctx.dim, ctx.n, ctx.rank = dim, n, rank
         parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        COLLECTIVES.timed(dist.all_gather, parts, x.contiguous(), group=group)
         return torch.cat(parts, dim)
 
     @staticmethod
@@ -321,16 +414,19 @@ def _kv_heads(n_heads: int, n_kv: int, m: int, rank: int) -> list[int]:
 def apply_tensor_parallel(model, plan: dict[str, ParamShard],
                           mesh: Mesh) -> None:
     """Cut each model-split parameter to this rank's slice and wire the
-    collectives into the blocks, the embedding and the head."""
+    collectives into the blocks, the embedding and the head (of the LM,
+    or of a ViT or BERT encoder)."""
     m = mesh.shape[AXIS_MODEL]
     if m <= 1:
         return
     group, rank = mesh.group((AXIS_MODEL,)), mesh.coords[AXIS_MODEL]
     with torch.no_grad():
         for name, p in model.named_parameters():
-            d = plan[name].dim(AXIS_MODEL)
-            if d is not None:
-                p.data = p.data.chunk(m, d)[rank].contiguous()
+            if plan[name].dim(AXIS_MODEL) is not None:
+                # a copy: a dim-0 slice is a view that would keep the
+                # whole weight alive
+                p.data = shard_local(p.data, plan[name].only((AXIS_MODEL,)),
+                                     mesh).clone()
 
     def enter(x):
         return _Enter.apply(x, group)
@@ -338,6 +434,12 @@ def apply_tensor_parallel(model, plan: dict[str, ParamShard],
     def leave(x):
         return _Exit.apply(x, group)
 
+    def gather(dim):
+        return lambda w: _Gather.apply(w, group, dim, m, rank)
+
+    if _table(model) is not _ANNOTATED:
+        _encoder_tensor_parallel(model, plan, enter, leave, gather)
+        return
     cfg = model.cfg
     for i, blk in zip(model.layer_ids, model.blocks()):
         pre = f"layer_{i}."
@@ -354,7 +456,26 @@ def apply_tensor_parallel(model, plan: dict[str, ParamShard],
     if plan["embedding"].dim(AXIS_MODEL) is not None:
         model.gather_embedding = lambda w: _Gather.apply(w, group, 0, m, rank)
     if plan["lm_head.kernel"].dim(AXIS_MODEL) is not None:
-        model.lm_head.gather = lambda w: _Gather.apply(w, group, 1, m, rank)
+        model.lm_head.gather = gather(1)
+
+
+def _encoder_tensor_parallel(model, plan, enter, leave, gather) -> None:
+    """A ViT's or BERT's blocks: attention at this rank's heads when qkv
+    is split, the MLP at its columns when fc1 is; the split embedding,
+    position and head weights all-gathered where they are used."""
+    for i, blk in enumerate(model.blocks()):
+        pre = f"layer_{i}."
+        if plan[pre + "qkv.weight"].dim(AXIS_MODEL) is not None:
+            blk.tp_in, blk.tp_out = enter, leave
+        if plan[pre + "fc1.weight"].dim(AXIS_MODEL) is not None:
+            blk.mlp_tp_in, blk.mlp_tp_out = enter, leave
+    for name, sh in plan.items():
+        d = sh.port_dim(AXIS_MODEL)
+        if d is None or name.startswith("layer_"):
+            continue
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        mod.gathers = {**getattr(mod, "gathers", {}), leaf: gather(d)}
 
 
 def apply_fsdp(model, plan: dict[str, ParamShard], mesh: Mesh) -> None:
@@ -371,9 +492,16 @@ def apply_fsdp(model, plan: dict[str, ParamShard], mesh: Mesh) -> None:
     )
     from torch.distributed.tensor import Shard
 
-    dims = {p: plan[n].dim(AXIS_FSDP) for n, p in model.named_parameters()}
+    dims = {p: plan[n].port_dim(AXIS_FSDP)
+            for n, p in model.named_parameters()}
     ignored = {p for p, d in dims.items() if d is None}
     fsdp_mesh = mesh.device_mesh[AXIS_FSDP]
+    with torch.no_grad():
+        for p in dims:
+            if p not in ignored and not p.is_contiguous():
+                # FSDP2 shards contiguous tensors only (ResNet keeps its
+                # conv weights channels_last)
+                p.data = p.data.contiguous()
 
     def place(p):
         return Shard(dims[p])

@@ -32,10 +32,12 @@ PREFILL_CHUNK = 128
 
 def init_cache(model, batch: int) -> dict[str, torch.Tensor]:
     """Zero dense decode caches for `batch` rows on the model's device,
-    shaped from its config alone (`decode_cache_shapes`)."""
+    shaped from its config (`decode_cache_shapes`) at the kv heads this
+    rank holds (all of them off a mesh)."""
+    heads = getattr(model, "cache_kv_heads", None)
     return {name: torch.zeros(shape, dtype=dtype, device=model.device)
-            for name, (shape, dtype)
-            in decode_cache_shapes(model.cfg, batch).items()}
+            for name, (shape, dtype) in decode_cache_shapes(
+                model.cfg, batch, heads() if heads else None).items()}
 
 
 def check_decode_geometry(model, prompt_len: int, max_new_tokens: int) -> None:
@@ -101,10 +103,12 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
 @torch.no_grad()
 def generate(model, params, prompt: torch.Tensor, *, max_new_tokens: int,
              temperature: float = 0.0, top_k: int = 0, seed: int = 0,
-             pad_len: torch.Tensor | None = None) -> torch.Tensor:
+             pad_len: torch.Tensor | None = None,
+             share=None) -> torch.Tensor:
     """prompt [B, Lp] int (all rows one length; a ragged batch is
     left-padded, with `pad_len` [B] the pad count of each row) ->
-    [B, Lp + max_new_tokens], the prompt and then the new tokens."""
+    [B, Lp + max_new_tokens], the prompt and then the new tokens.
+    `share` (a serving mesh's) makes every sampled token rank 0's."""
     b, lp = prompt.shape
     check_decode_geometry(model, lp, max_new_tokens)
     cache = init_cache(model, b)
@@ -113,6 +117,8 @@ def generate(model, params, prompt: torch.Tensor, *, max_new_tokens: int,
     toks = []
     for i in range(max_new_tokens):
         tok = _sample(logits, temperature, top_k, gen)
+        if share is not None:
+            tok = share(tok)
         toks.append(tok)
         if i + 1 < max_new_tokens:    # the last token's logits go unused
             logits = model.apply(params, tok[:, None], decode_index=lp + i,

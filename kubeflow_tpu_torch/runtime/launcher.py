@@ -9,7 +9,9 @@
   CUDA device count; 1 on the CPU) it starts N local workers, local rank
   r on cuda:r, global rank JAXJOB_PROCESS_ID x N + r in a world of
   JAXJOB_NUM_PROCESSES x N, forwards SIGTERM to them and exits with
-  their code (75 when one was preempted and none failed);
+  their code (75 when one was preempted and none failed); a user
+  command runs once per local rank when `--nproc-per-node` is given (a
+  serving mesh: `-- python -m kubeflow_tpu_torch.serving --mesh model=2`);
 - with $JAXJOB_WORLD_FILE and `--config` the elastic coordinator forms
   and re-forms the world from the stamp in that file instead
   (runtime/elastic.py): shrink or grow in place, resuming from the
@@ -197,6 +199,12 @@ def main(argv: list[str] | None = None) -> int:
         obs_trace.TRACER.attach(ctx)
 
     if not args.config:
+        # an explicit --nproc-per-node runs the command once per local
+        # rank, each with its rank's env (a serving mesh's ranks)
+        if (args.nproc_per_node or 1) > 1 and \
+                D.ENV_LOCAL_RANK not in os.environ:
+            return run_local_workers([*argv, "--", *user_cmd],
+                                     args.nproc_per_node)
         return run_user_command(user_cmd)
     import torch
 
@@ -230,10 +238,14 @@ def main(argv: list[str] | None = None) -> int:
         D.shutdown()
 
 
-def run_local_workers(argv: list[str], nproc: int) -> int:
-    """Start `nproc` copies of this launcher, local rank r with the env of
-    global rank JAXJOB_PROCESS_ID x nproc + r; forward SIGTERM; return the
-    first failing code, else 75 when one was preempted, else 0."""
+def run_local_workers(argv: list[str], nproc: int,
+                      module: str = "kubeflow_tpu_torch.runtime.launcher",
+                      base_env: dict[str, str] | None = None) -> int:
+    """Start `nproc` copies of `python -m module argv` (this launcher by
+    default), local rank r with the env of global rank JAXJOB_PROCESS_ID
+    x nproc + r (from `base_env`, default this process's); forward
+    SIGTERM; return the first failing code, else 75 when one was
+    preempted, else 0."""
     from kubeflow_tpu_torch.runtime.preemption import EX_TEMPFAIL
 
     if "--nproc-per-node" in argv:
@@ -242,15 +254,15 @@ def run_local_workers(argv: list[str], nproc: int) -> int:
     argv = [a for a in argv if not a.startswith("--nproc-per-node=")]
     procs = []
     for r in range(nproc):
-        env = D.expand_local(dict(os.environ), nproc, r)
+        env = D.expand_local(dict(os.environ if base_env is None
+                                  else base_env), nproc, r)
         # one span dump and one metrics port per worker
         if env.get(ENV_TRACE_FILE):
             env[ENV_TRACE_FILE] = f"{env[ENV_TRACE_FILE]}.local{r}"
         port = int(env.get(ENV_METRICS_PORT, "9100"))
         env[ENV_METRICS_PORT] = str(port + r if port else 0)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "kubeflow_tpu_torch.runtime.launcher",
-             *argv], env=env))
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
+                                      env=env))
     log.info("started %d local workers", nproc)
 
     def forward(signum, _frame):

@@ -187,12 +187,18 @@ def make_optimizer(cfg: TrainConfig, params, layouts=None, shards=None,
     the whole parameter on a mesh (`shards`, `global_shapes`). The
     learning rate is set from warmup_cosine_lr before each update."""
     params = list(params)
+    # the foreach kernels take plain tensors or DTensors (FSDP2's shards),
+    # not a mix: a mesh that leaves some parameters whole updates them
+    # one by one
+    mixed = len({hasattr(p, "to_local") for p in params}) > 1
+    foreach = False if mixed else None
     if cfg.optimizer == "sgdm":
         return torch.optim.SGD(params, lr=0.0, momentum=0.9, nesterov=True,
-                               weight_decay=cfg.weight_decay)
+                               weight_decay=cfg.weight_decay, foreach=foreach)
     if cfg.optimizer == "adamw":
         return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.95), eps=1e-8,
-                                 weight_decay=cfg.weight_decay)
+                                 weight_decay=cfg.weight_decay,
+                                 foreach=foreach)
     if cfg.optimizer == "adafactor":
         return Adafactor(params, layouts=layouts,
                          weight_decay=cfg.weight_decay or None,
@@ -283,11 +289,6 @@ class Trainer:
                 f"by the {self.dp}-way batch sharding (dcn*data*fsdp*expert)")
         sharded = self.mesh.shape[AXIS_FSDP] > 1 or \
             self.mesh.shape[AXIS_MODEL] > 1
-        if sharded and cfg.task != "lm":
-            raise NotImplementedError(
-                f"task={cfg.task!r} on an fsdp or model mesh: the "
-                "classifiers' annotations are not ported yet (ROADMAP "
-                "Queue 1 item 17c); data and dcn meshes are")
         if self.mesh.shape[AXIS_PIPELINE] > 1:
             if cfg.task != "lm":
                 raise ValueError("pipeline parallelism (mesh.pipe > 1) is "
@@ -476,14 +477,14 @@ class Trainer:
     # -- checkpoint payload --------------------------------------------------
 
     def _shards(self, name: str, key: str | None = None) -> list:
-        """(dim, axis) pairs of parameter `name`'s split dims (of its
-        optimizer state `key`: Adafactor's lives in the flax layout, its
-        factored statistics without the reduced dim)."""
+        """How parameter `name` is split: its ParamShard (of its optimizer
+        state `key`: (dim, axis) pairs, as Adafactor's state lives in the
+        flax layout, its factored statistics without the reduced dim)."""
         if self.plan is None:
             return []
         sh = self.plan[name]
         if key is None or not isinstance(self.opt, Adafactor):
-            return sh.port
+            return sh
         if key == "v":
             return sh.flax
         gshape = self.opt.global_shapes[dict(

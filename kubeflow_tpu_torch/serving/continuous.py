@@ -23,8 +23,15 @@ The state (cache, last logits, positions, budgets, output columns,
 pads, the sampling generator) lives on the device and is updated in
 place by each call; a call that fails leaves it unknown, so the loop
 fails every waiter and rebuilds it fresh. Params are an argument of
-every call, never captured. Mesh serving raises NotImplementedError
-with its ROADMAP item.
+every call, never captured.
+
+Over a serving mesh (`mesh=`, serving/mesh.py; dense cache only, no
+draft) every rank holds a decoder over its shards of the model, its
+cache at this rank's kv heads. Admission, eviction and deadline
+cancellation stay on rank 0, whose loop runs each device call (a
+prefill and install, a slot clear, one or FUSE ticks) as a meshed op:
+the other ranks repeat it on their replica of the state, in the same
+order; with temperature > 0 rank 0's sampled tokens are shared.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from kubeflow_tpu_torch.runtime.kvcache import (
     init_paged_cache,
     pages_for,
 )
+from kubeflow_tpu_torch.parallel.shardings import COLLECTIVES
 from kubeflow_tpu_torch.runtime.metrics import REGISTRY as METRICS_REGISTRY
 from kubeflow_tpu_torch.runtime.speculative import (
     check_speculative_models,
@@ -61,6 +69,9 @@ from kubeflow_tpu_torch.runtime.speculative import (
 from kubeflow_tpu_torch.serving.router import DeadlineExceeded
 
 log = logging.getLogger("kubeflow_tpu_torch.serving.continuous")
+
+# the dense decoder's device calls, as meshed ops
+_ADMIT, _CLEAR, _STEP = 0, 1, 2
 
 # Ticks run back to back, without a host readback between them, when
 # nothing waits (or no slot is free) and every active slot has at least
@@ -100,6 +111,26 @@ class _DecodeMeter:
             "serving_prefill_tokens_total", by=float(n),
             help_="prompt positions actually computed by prefill "
                   "(prefix reuse drives this below tokens submitted)",
+            model=self.model)
+
+    def ticks(self, n: int, seconds: float, collective_host_seconds: float
+              ) -> None:
+        self.registry.counter_inc(
+            "serving_decode_ticks_total", by=float(n),
+            help_="lockstep decode ticks (one token per active slot)",
+            model=self.model)
+        self.registry.counter_inc(
+            "serving_decode_tick_seconds_total", by=seconds,
+            help_="host wall seconds of the ticks, to the readback of "
+                  "their state", model=self.model)
+        self.registry.counter_inc(
+            "serving_decode_collective_host_seconds_total",
+            by=collective_host_seconds,
+            help_="host seconds the ticks spent blocked in collectives "
+                  "(tensor parallelism and the serving mesh's wire): their "
+                  "time under gloo, which returns when the data is there; "
+                  "near 0 under NCCL, which returns once a collective is "
+                  "enqueued",
             model=self.model)
 
     def spec_round(self, slots: int, accepted: int) -> None:
@@ -145,10 +176,8 @@ class SlotDecoder:
                  mesh=None, prefix_cache: bool = True, draft_model=None,
                  draft_variables=None, draft_k: int = 4,
                  metrics_name: str | None = None, clock=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
         self.model = model
+        self.mesh = mesh
         self.S = slots
         self.P = prompt_len
         self.N = max_new_tokens
@@ -160,6 +189,15 @@ class SlotDecoder:
         self.clock = clock if clock is not None else time.monotonic
         self.paged = bool(getattr(model.cfg, "kv_pages", 0))
         self.spec = draft_model is not None
+        if mesh is not None and self.paged:
+            raise ValueError("the paged KV cache is single-chip for now "
+                             "(no mesh)")
+        if mesh is not None and self.spec:
+            raise ValueError("speculative decoding is single-chip for now "
+                             "(no mesh)")
+        # rank 0's sampled tokens on every rank of a mesh
+        self._share = (mesh.share if mesh is not None and temperature > 0
+                       else None)
         self.draft_k = draft_k if self.spec else 0
         check_decode_geometry(model, prompt_len,
                               max_new_tokens + self.draft_k)
@@ -200,7 +238,8 @@ class SlotDecoder:
             "prefill_tokens_computed": 0, "prompt_tokens_submitted": 0,
             "spec_rounds": 0, "spec_tokens_emitted": 0,
             "spec_tokens_accepted": 0, "spec_drafted": 0,
-            "deadline_canceled": 0,
+            "deadline_canceled": 0, "ticks": 0, "tick_seconds": 0.0,
+            "collective_host_seconds": 0.0,
         }
         self._params = params
         self._cols = torch.arange(self.N, device=self.device)
@@ -224,10 +263,14 @@ class SlotDecoder:
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
-        self._thread = threading.Thread(
-            target=self._loop_spec if self.spec else self._loop,
-            daemon=True, name="slot-decoder")
-        self._thread.start()
+        self._mesh_id = (mesh.register(self._execute) if mesh is not None
+                         else None)
+        self._thread = None
+        if mesh is None or mesh.rank == 0:    # the others follow rank 0
+            self._thread = threading.Thread(
+                target=self._loop_spec if self.spec else self._loop,
+                daemon=True, name="slot-decoder")
+            self._thread.start()
 
     # -- device state and calls (each updates the state in place) -------
 
@@ -298,6 +341,8 @@ class SlotDecoder:
         page."""
         active = st.remaining > 0
         tok = _sample(st.last, self.temperature, self.top_k, st.gen)
+        if self._share is not None:
+            tok = self._share(tok)
         # the token goes to column req - remaining of each active slot
         ncol = st.req - st.remaining
         hot = (self._cols[None, :] == ncol[:, None]) & active[:, None]
@@ -312,6 +357,35 @@ class SlotDecoder:
 
     def _step(self, params, st: DecodeState, page_table=None) -> DecodeState:
         return self._tick(params, st, page_table)
+
+    def _op(self, op: int, words=(), tensors=()) -> None:
+        """One dense device call on this decoder, or on every rank's
+        replica of it over a mesh (rank 0's loop only)."""
+        if self.mesh is None:
+            self._execute(op, list(words), list(tensors))
+        else:
+            self.mesh.call(self._mesh_id, op, words, tensors)
+
+    def _execute(self, op: int, words: list, tensors: list) -> None:
+        """A dense device call: _ADMIT (prompts, pads, slots, budgets and
+        the dummy rows' slots of a prefill batch), _CLEAR (slots) or
+        _STEP (words[0]: FUSE ticks or one)."""
+        ids = [self._ids(t) for t in tensors]
+        if op == _ADMIT:
+            prompts, pads, slots, news, dummies = ids
+            cache_k, logits_k = self._prefill(self._params, prompts, pads)
+            self.state = self._install(self.state, cache_k, logits_k, slots,
+                                       pads, news)
+            del cache_k
+            if dummies.numel():
+                self.state = self._clear_slots(self.state, dummies)
+        elif op == _CLEAR:
+            self.state = self._clear_slots(self.state, ids[0])
+        elif op == _STEP:
+            step = self._step_fused if words[0] else self._step
+            self.state = step(self._params, self.state)
+        else:
+            raise ValueError(f"unknown decoder op {op}")
 
     def _step_fused(self, params, st: DecodeState, page_table=None
                     ) -> DecodeState:
@@ -364,10 +438,12 @@ class SlotDecoder:
         with self._lock:
             self._stop = True
         self._wake.set()
-        self._thread.join(timeout=10)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
 
     def stats(self) -> dict:
-        """Host counters (deterministic)."""
+        """Host counters (deterministic, but for the host seconds of the
+        dense ticks and of their collectives)."""
         out = dict(self._counters)
         out["mode"] = "paged" if self.paged else "dense"
         out["speculative"] = self.spec
@@ -385,6 +461,13 @@ class SlotDecoder:
         return out
 
     # -- loop pieces -----------------------------------------------------
+
+    def _count_ticks(self, n: int, seconds: float, collective: float) -> None:
+        self._counters["ticks"] += n
+        self._counters["tick_seconds"] += seconds
+        self._counters["collective_host_seconds"] += collective
+        if self.meter:
+            self.meter.ticks(n, seconds, collective)
 
     def _note_active(self, owners) -> None:
         if len(owners) > self._counters["peak_active"]:
@@ -492,8 +575,7 @@ class SlotDecoder:
                 # cancel expired slots at the tick boundary
                 expired = self._expired_slots(owners)
                 if expired:
-                    self.state = self._clear_slots(self.state,
-                                                   self._ids(expired))
+                    self._op(_CLEAR, (), [np.asarray(expired, np.int64)])
                     for s_ in expired:
                         self._cancel_slot(owners, s_)
                         last_rem[s_] = 0
@@ -524,10 +606,15 @@ class SlotDecoder:
                             self.state = self._apply_copies(
                                 self.state, *self._cow_arrays(copies))
                     pt = torch.as_tensor(self.alloc.table, device=self.device)
-                step = self._step_fused if fuse else self._step
-                self.state = (step(self._params, self.state, pt) if self.paged
-                              else step(self._params, self.state))
+                t0, c0 = time.perf_counter(), COLLECTIVES.seconds
+                if self.paged:
+                    step = self._step_fused if fuse else self._step
+                    self.state = step(self._params, self.state, pt)
+                else:
+                    self._op(_STEP, (int(fuse),))
                 remaining = self.state.remaining.cpu().numpy()
+                self._count_ticks(ticks, time.perf_counter() - t0,
+                                  COLLECTIVES.seconds - c0)
                 last_rem = remaining.copy()
                 last_pos = self.state.pos.cpu().numpy().copy()
                 out = None
@@ -580,19 +667,12 @@ class SlotDecoder:
         if len(pad_slots) != k:
             raise RuntimeError(f"prefill batch {k} for slots {pad_slots}")
         try:
-            pads_t = self._ids(pads)
-            cache_k, logits_k = self._prefill(self._params,
-                                              self._ids(prompts), pads_t)
-            self.state = self._install(self.state, cache_k, logits_k,
-                                       self._ids(pad_slots), pads_t,
-                                       self._ids(news))
-            del cache_k
+            self._op(_ADMIT, (), [prompts, pads, np.asarray(pad_slots),
+                                  news, np.asarray(dummies, np.int64)])
         except Exception as e:
             self._free.extend(slots)
             fail_all(e, batch)
             return
-        if dummies:
-            self.state = self._clear_slots(self.state, self._ids(dummies))
         self._counters["admitted"] += len(batch)
         self._counters["prefill_tokens_computed"] += len(batch) * self.P
         self._counters["prompt_tokens_submitted"] += len(batch) * self.P

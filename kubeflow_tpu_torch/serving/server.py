@@ -27,12 +27,25 @@ from the latest step of a port training checkpoint (`checkpoint_dir`,
 `draft_checkpoint_dir`: runtime/checkpoint.py restore_variables, params
 only; a missing or empty directory fails at registration), else random
 from `seed` (the draft's from `seed + 1`), on the device (cuda unless
-device="cpu"), then cast or quantized per `param_dtype`. Mesh serving
-is not ported yet and raises NotImplementedError with its ROADMAP item
-(Queue 1 item 17b).
+device="cpu"), then cast or quantized per `param_dtype`.
+
+With `mesh` (a dict or MeshSpec; the CLI's `--mesh model=2,fsdp=2`)
+both entry points serve over a device mesh (serving/mesh.py): one process
+per rank, rank 0 holding HTTP, batching, the slots and sampling, every
+rank keeping only its shards of the weights (tensor parallelism by the
+reference's annotations, FSDP2, the fsdp heuristic for the rest) and
+running each forward rank 0 broadcasts. The world comes from the
+JAXJOB_* env (the port launcher's `--nproc-per-node` sets it); with no
+world in the env, the CLI starts one itself: a process per rank of the
+mesh, one per GPU, ranks sharing a card over gloo where there are fewer
+GPUs than ranks. Under a mesh the paged cache, a speculative draft and
+int8/int4 weights are refused, as in the reference; the data axes'
+product must be a power of two; `signature_def["mesh"]` names the mesh.
 
 Usage:
     python -m kubeflow_tpu_torch.serving [--device cpu]    # mnist=resnet18
+    python -m kubeflow_tpu_torch.serving --lm chat=llama-1b --mesh model=2 \
+        --continuous-batching            # two ranks, HTTP on rank 0
     python -m kubeflow_tpu_torch.serving --model cls=resnet18@ckpt/
     python -m kubeflow_tpu_torch.serving --lm chat=gpt-350m \\
         --prompt-len 512 --max-new-tokens 64 --param-dtype int8 \\
@@ -49,9 +62,13 @@ import collections
 import concurrent.futures as cf
 import contextvars
 import itertools
+import json
 import logging
 import math
+import os
 import queue
+import signal
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -61,6 +78,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.runtime.metrics import REGISTRY as METRICS_REGISTRY
+from kubeflow_tpu_torch.serving.mesh import MeshLost
 from kubeflow_tpu_torch.serving.router import (
     HEADER_DEADLINE,
     DeadlineExceeded,
@@ -191,6 +209,8 @@ class ServedModel:
     max_batch: int = 64
     pad_multiple: int = 1
     max_inflight: int = 0
+    # False once the model can serve no more (a lost serving mesh)
+    healthy: Callable[[], bool] | None = None
     _batcher: "MicroBatcher | None" = field(default=None, repr=False)
 
     def _predict_now(self, instances: list) -> list:
@@ -408,10 +428,26 @@ class ModelServer:
             old.close()       # hot swap: release the replaced worker
 
     def close(self) -> None:
+        """Close every model; over a serving mesh rank 0 then tells the
+        other ranks to stop."""
+        from kubeflow_tpu_torch.serving import mesh as serving_mesh
+
         with self._lock:
             models = [m for vs in self._models.values() for m in vs.values()]
         for m in models:
             m.close()
+        serving_mesh.stop()
+
+    def ready(self) -> bool:
+        with self._lock:
+            models = [m for vs in self._models.values() for m in vs.values()]
+        return all(m.healthy is None or m.healthy() for m in models)
+
+    def readyz(self, req: HttpReq):
+        if not self.ready():
+            return 503, {"status": "unready",
+                         "error": "a model's serving mesh is lost"}
+        return {"status": "ok"}
 
     def _get(self, name: str, version: int | None = None) -> ServedModel:
         versions = self._models.get(name)
@@ -483,6 +519,9 @@ class ModelServer:
         except DeadlineExceeded as e:
             self._error(name)
             raise ApiHttpError(504, f"deadline exceeded: {e}")
+        except MeshLost as e:
+            self._error(name)
+            raise ApiHttpError(503, f"serving mesh lost: {e}")
         except Exception as e:
             self._error(name)
             log.exception("predict failed for %s", name)
@@ -509,6 +548,7 @@ class ModelServer:
         r.route("GET", "/v1/models/{model}/metadata", self.metadata)
         r.route("GET", "/v1/models/{model}", self.status)
         r.route("GET", "/v1/models", self.list_models)
+        r.route("GET", "/readyz", self.readyz)    # before the static one
         httpd.add_health_routes(r)
         httpd.add_metrics_route(r)
         return r
@@ -527,6 +567,7 @@ def serve_flax_classifier(name: str, model_name: str,
                           checkpoint_dir: str | None = None,
                           mesh: Any | None = None,
                           device: str | torch.device | None = None,
+                          state_dict: dict[str, torch.Tensor] | None = None,
                           **model_kwargs) -> ServedModel:
     """A registry classifier as a ServedModel: each predict returns the
     softmax over the f32 logits, one row per instance. Instances are
@@ -538,14 +579,27 @@ def serve_flax_classifier(name: str, model_name: str,
     missing or empty directory raises here, at registration). Without
     it the weights are random from `seed` and the model is built at the
     first predict, a ResNet with that batch's channel count (flax
-    infers it from the input at init), as the reference's does."""
+    infers it from the input at init), as the reference's does.
+    `state_dict` (params and batch statistics) is a test seam: weights
+    to load in place of the random ones.
+
+    With `mesh` the model is built at registration on every rank (a
+    ResNet for RGB input unless `in_channels` says otherwise), each rank
+    keeps its shards, and each predict broadcasts the padded batch; the
+    softmax rows are rank 0's."""
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.runtime.checkpoint import restore_variables
 
+    mesh_signature = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
+        from kubeflow_tpu_torch.serving import mesh as serving_mesh
+
+        mesh_signature, world, _ = serving_mesh.check(mesh, checkpoint_dir)
+        if world > 1:
+            return _meshed_classifier(name, model_name, input_key, seed,
+                                      checkpoint_dir, mesh, device,
+                                      state_dict, model_kwargs)
     dev = resolve_device(device)
     built: list = []
     lock = threading.Lock()
@@ -567,6 +621,10 @@ def serve_flax_classifier(name: str, model_name: str,
         built.append(model)
         log.info("model %s: restored variables from %s step %d", name,
                  checkpoint_dir, step)
+    elif state_dict is not None:
+        model = build(None)
+        model.load_state_dict(state_dict, strict=True)
+        built.append(model)
 
     @torch.no_grad()
     def predict(batch):
@@ -583,7 +641,50 @@ def serve_flax_classifier(name: str, model_name: str,
 
     return ServedModel(name=name, predict_fn=predict,
                        signature={"inputs": input_key or "array",
-                                  "method_name": "predict"})
+                                  "method_name": "predict",
+                                  **({"mesh": mesh_signature}
+                                     if mesh is not None else {})})
+
+
+def _meshed_classifier(name, model_name, input_key, seed, checkpoint_dir,
+                       mesh, device, state_dict, model_kwargs) -> ServedModel:
+    """serve_flax_classifier over a serving mesh: built whole on every
+    rank (on the host when the weights are loaded), cut to its shards,
+    each predict one meshed op."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.runtime.checkpoint import restore_variables
+    from kubeflow_tpu_torch.serving.mesh import ServingMesh
+
+    sm = ServingMesh(mesh, seed, checkpoint_dir, device=device)
+    if checkpoint_dir:
+        variables, step = restore_variables(checkpoint_dir)
+        state_dict = {**variables["params"],
+                      **variables.get("batch_stats", {})}
+        log.info("model %s: restored variables from %s step %d (mesh %s)",
+                 name, checkpoint_dir, step, sm.signature)
+    model = get_model(model_name, seed=seed, device=(
+        "cpu" if state_dict is not None else sm.device), **model_kwargs)
+    if state_dict is not None:
+        model.load_state_dict(state_dict, strict=True)
+    sm.place(model)
+
+    def execute(op, words, tensors):
+        x = tensors[0].to(sm.device)
+        x = x.float() if x.is_floating_point() else x.long()
+        return torch.softmax(model(x).float(), dim=-1).cpu().numpy()
+
+    model_id = sm.register(execute)
+
+    def predict(batch):
+        x = batch[input_key] if input_key and isinstance(batch, dict) \
+            else batch
+        return sm.call(model_id, 0, (), [np.asarray(x)])
+
+    return ServedModel(name=name, predict_fn=predict,
+                       pad_multiple=sm.pad_multiple, healthy=sm.healthy,
+                       signature={"inputs": input_key or "array",
+                                  "method_name": "predict",
+                                  "mesh": sm.signature})
 
 
 def cast_params(params: dict[str, torch.Tensor], dtype
@@ -666,22 +767,43 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
         # fails registration (readiness), not every speculative request
         raise FileNotFoundError(
             f"no checkpoint under {draft_checkpoint_dir}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
     # the verify chunk writes up to draft_k positions past the last token
     seq_budget = prompt_len + max_new_tokens + (draft_k if draft_model else 0)
     if kv_pages and not continuous_batching:
         raise ValueError("kv_pages (the paged KV cache) requires "
                          "continuous_batching: the page pool is shared "
                          "across decode slots")
+    if kv_pages and mesh is not None:
+        raise ValueError("the paged KV cache is single-chip for now "
+                         "(no mesh)")
+    if draft_model and mesh is not None:
+        raise ValueError("speculative decoding is single-chip for now "
+                         "(no mesh)")
+    quantized = param_dtype in ("int8", "int4")
+    if quantized and mesh is not None:
+        raise ValueError(f"param_dtype={param_dtype!r} serving is "
+                         "single-chip for now (mesh-sharded weights stay "
+                         "floating)")
+    sm = mesh_signature = None
+    if mesh is not None:
+        from kubeflow_tpu_torch.serving import mesh as serving_mesh
+
+        # a mesh of one rank: the one-process path, its signature kept
+        mesh_signature, world, _ = serving_mesh.check(mesh, checkpoint_dir)
+        if world > 1:
+            sm = serving_mesh.ServingMesh(mesh, seed, checkpoint_dir,
+                                          param_dtype=param_dtype,
+                                          device=device)
     if kv_pages and not kv_page_size:
         raise ValueError("kv_pages requires kv_page_size > 0")
     if kv_pages:
         model_kwargs = dict(model_kwargs, kv_pages=kv_pages,
                             kv_page_size=kv_page_size)
-    base = get_model(model_name, device=device, seed=seed,
-                     max_seq_len=seq_budget, **model_kwargs)
+    # a meshed model given its weights is built on the host: each rank
+    # moves only its shards to the device
+    base = get_model(model_name, seed=seed, max_seq_len=seq_budget,
+                     device=("cpu" if sm is not None and state_dict
+                             is not None else device), **model_kwargs)
     if state_dict is not None:
         base.load_state_dict(state_dict, strict=True)
     rolling = base.cfg.rolling_kv_cache
@@ -699,15 +821,20 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
         raise ValueError("the paged KV cache is exclusive with "
                          "rolling_kv_cache")
     model = base
-    quantized = param_dtype in ("int8", "int4")
-    if quantized:
+    if sm is not None:
+        # the float cast before the cut; the model runs on its own
+        # (sharded) parameters
+        sm.place(base)
+        params = None
+    elif quantized:
         from kubeflow_tpu_torch.serving.quant import QuantizedModel
 
         model = QuantizedModel(base)
-    with torch.no_grad():
-        params = _prepare_serving_params(
-            {k: v.detach() for k, v in base.state_dict().items()},
-            param_dtype, base.cfg.head_dim)
+    if sm is None:
+        with torch.no_grad():
+            params = _prepare_serving_params(
+                {k: v.detach() for k, v in base.state_dict().items()},
+                param_dtype, base.cfg.head_dim)
     dev = base.device
     vocab = base.cfg.vocab_size
     # temperature > 0: a fresh seed per request; greedy keeps the seed
@@ -796,10 +923,29 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
                     model, params, slots=decode_slots,
                     prompt_len=prompt_len, max_new_tokens=max_new_tokens,
                     temperature=temperature, top_k=top_k, seed=seed,
-                    prefix_cache=prefix_cache, draft_model=dm,
+                    mesh=sm, prefix_cache=prefix_cache, draft_model=dm,
                     draft_variables=dparams, draft_k=draft_k,
                     metrics_name=name))
             return decoder_box[0]
+
+    def generate_rows(rows, pad_lens, row_seed: int):
+        """The generate path on this rank: [B, new] tokens."""
+        out = generate(
+            model, params, torch.as_tensor(np.asarray(rows), dtype=torch.long,
+                                           device=dev),
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            top_k=top_k, seed=row_seed,
+            pad_len=torch.as_tensor(np.asarray(pad_lens), dtype=torch.long,
+                                    device=dev),
+            share=sm.share if sm is not None and temperature > 0 else None)
+        return out[:, prompt_len:].cpu().numpy()
+
+    generate_id = None
+    if sm is not None:
+        generate_id = sm.register(
+            lambda op, words, tensors: generate_rows(*tensors, words[0]))
+        if continuous_batching:
+            decoder()      # every rank holds its replica from the start
 
     def predict(batch):
         toks = batch["tokens"] if isinstance(batch, dict) else batch
@@ -838,13 +984,14 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
                 count_accepted(name, stats["accepted"])
                 outs.append(toks[0, prompt_len:].cpu().numpy())
             return capped_rows(np.stack(outs), maxnews)
-        out = generate(
-            model, params, torch.as_tensor(rows, dtype=torch.long,
-                                           device=dev),
-            max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, seed=request_seed() if temperature > 0 else seed,
-            pad_len=torch.as_tensor(pad_lens, dtype=torch.long, device=dev))
-        return capped_rows(out[:, prompt_len:].cpu().numpy(), maxnews)
+        row_seed = request_seed() if temperature > 0 else seed
+        if sm is not None:
+            out = sm.call(generate_id, 0, (row_seed,),
+                          [np.asarray(rows, np.int64),
+                           np.asarray(pad_lens, np.int64)])
+        else:
+            out = generate_rows(rows, pad_lens, row_seed)
+        return capped_rows(out, maxnews)
 
     served = ServedModel(
         name=name, predict_fn=predict,
@@ -854,6 +1001,8 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
         pad_batches=not (continuous_batching or draft_model),
         batch_window_ms=batch_window_ms, max_batch=max_batch,
         max_inflight=max_inflight,
+        pad_multiple=sm.pad_multiple if sm is not None else 1,
+        healthy=sm.healthy if sm is not None else None,
         signature={"inputs": "tokens", "method_name": "generate",
                    "prompt_len": prompt_len,
                    "max_new_tokens": max_new_tokens,
@@ -864,7 +1013,9 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
                        "prefix_cache": prefix_cache} if kv_pages else {}),
                    **({"param_dtype": param_dtype} if param_dtype else {}),
                    **({"draft_model": draft_model, "draft_k": draft_k}
-                      if draft_model else {})})
+                      if draft_model else {}),
+                   **({"mesh": mesh_signature} if mesh is not None
+                      else {})})
     served.decoder = lambda: decoder_box[0] if decoder_box else None
     orig_close = served.close
 
@@ -875,6 +1026,56 @@ def serve_lm_generator(name: str, model_name: str, *, prompt_len: int = 128,
 
     served.close = close  # type: ignore[method-assign]
     return served
+
+
+# seconds rank 0 answers /readyz with 503 after losing its mesh, before
+# it stops serving and exits nonzero
+LOST_GRACE_S = 2.0
+
+
+def _rank_device(device: str | None) -> str:
+    """This rank's device: the CPU when asked for, else cuda:<local
+    rank> (ranks past the GPU count share the cards round robin)."""
+    from kubeflow_tpu_torch.parallel import dist as D
+
+    if device == "cpu":
+        return "cpu"
+    local = int(os.environ.get(D.ENV_LOCAL_RANK) or 0)
+    return f"cuda:{local % max(1, torch.cuda.device_count())}"
+
+
+def _peak_bytes(device) -> int | None:
+    """The device's peak allocated bytes since the last call (the peak
+    is reset); None off a GPU."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return int(peak)
+
+
+def _start_world(argv: list[str], n: int, device: str | None) -> int:
+    """The serving world of a mesh when the env forms none: n copies of
+    this command, rank r with the JAXJOB_* env of a local world (the
+    launcher's local workers), sharing the cards over gloo (the loopback
+    backend) when there are fewer GPUs than ranks."""
+    import socket
+
+    from kubeflow_tpu_torch.parallel import backends as B
+    from kubeflow_tpu_torch.parallel import dist as D
+    from kubeflow_tpu_torch.runtime.launcher import run_local_workers
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, D.ENV_COORD: f"127.0.0.1:{port}", D.ENV_NPROC: "1",
+           D.ENV_PID: "0"}
+    if device != "cpu" and torch.cuda.device_count() < n:
+        env.setdefault(B.ENV_BACKEND, B.BACKEND_LOOPBACK)
+    log.info("starting a serving world of %d ranks", n)
+    return run_local_workers(argv, n, module="kubeflow_tpu_torch.serving",
+                             base_env=env)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -919,53 +1120,113 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--kv-pages", type=int, default=0)
     p.add_argument("--kv-page-size", type=int, default=0)
     p.add_argument("--no-prefix-cache", action="store_true")
-    p.add_argument("--mesh", default=None, help="not ported yet")
+    p.add_argument("--mesh", default=None,
+                   help="serve over a device mesh, e.g. 'model=2' or "
+                        "'model=4,fsdp=2': one process per rank, HTTP on "
+                        "rank 0 (started here unless the JAXJOB_* env, "
+                        "e.g. the launcher's --nproc-per-node, forms the "
+                        "world)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random weights (without a checkpoint)")
+    p.add_argument("--dtype", default=None,
+                   help="the models' compute dtype (their configs' "
+                        "default: bfloat16)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    mesh_spec = None
     if args.mesh:
-        raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP Queue 1 item 17b)")
+        try:
+            mesh_spec = {k.strip(): int(v) for k, v in
+                         (kv.split("=", 1) for kv in args.mesh.split(","))}
+        except ValueError:
+            p.error(f"--mesh must be axis=int[,axis=int...], got {args.mesh!r}")
     # the default classifier only when nothing at all was asked for
     models = args.model or ([] if args.lm else ["mnist=resnet18"])
     if args.checkpoint_dir and len(models) > 1:
         p.error("--checkpoint-dir applies to exactly one --model; use "
                 "name=zoo@ckpt_dir for several")
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import dist as D
+    from kubeflow_tpu_torch.serving import mesh as serving_mesh
+
+    device = args.device
+    if mesh_spec is not None:
+        n = serving_mesh.world_of(mesh_spec)
+        if (n > 1 and D.DistConfig.from_env().num_processes == 1
+                and D.ENV_LOCAL_RANK not in os.environ):
+            return _start_world(list(sys.argv[1:] if argv is None else argv),
+                                n, args.device)
+        device = _rank_device(args.device)
     server = ModelServer()
+    lost = threading.Event()
+    placed = None
     try:
         for spec in models:
             name, _, zoo = spec.partition("=")
             zoo, _, ckpt = zoo.partition("@")
             server.register(serve_flax_classifier(
-                name, zoo or "resnet18", num_classes=10,
-                checkpoint_dir=ckpt or args.checkpoint_dir,
-                device=args.device))
+                name, zoo or "resnet18", num_classes=10, mesh=mesh_spec,
+                checkpoint_dir=ckpt or args.checkpoint_dir, seed=args.seed,
+                device=device,
+                **({"dtype": args.dtype} if args.dtype else {})))
         for spec in args.lm:
             name, _, zoo = spec.partition("=")
             zoo, _, ckpt = zoo.partition("@")
             server.register(serve_lm_generator(
                 name, zoo or "gpt-125m", prompt_len=args.prompt_len,
-                max_new_tokens=args.max_new_tokens,
+                max_new_tokens=args.max_new_tokens, mesh=mesh_spec,
                 continuous_batching=args.continuous_batching,
                 decode_slots=args.decode_slots, kv_pages=args.kv_pages,
                 kv_page_size=args.kv_page_size,
                 prefix_cache=not args.no_prefix_cache,
                 param_dtype=args.param_dtype,
-                max_inflight=args.max_inflight,
+                max_inflight=args.max_inflight, seed=args.seed,
                 checkpoint_dir=ckpt or (None if models
                                         else args.checkpoint_dir),
                 draft_model=args.draft_model, draft_k=args.draft_k,
                 draft_checkpoint_dir=args.draft_checkpoint_dir,
-                device=args.device,
+                device=device,
+                **({"dtype": args.dtype} if args.dtype else {}),
                 **({"kv_cache_dtype": args.kv_cache_dtype}
                    if args.kv_cache_dtype else {}),
                 **({"attention_window": args.attention_window}
                    if args.attention_window else {}),
                 **({"rolling_kv_cache": True}
                    if args.rolling_kv_cache else {})))
+        rt = serving_mesh.active()
+        placed = _peak_bytes(device)
+        fa.reset_launches()      # the launches while serving, on this rank
+        if rt is not None and rt.rank > 0:
+            log.info("rank %d of the serving mesh: following rank 0",
+                     rt.rank)
+            # a follower stops on rank 0's word (or when rank 0 is gone),
+            # not on the SIGTERM a local world's starter forwards
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
+            rt.follow()
+            return 0
         svc = server.serve(host=args.host, port=args.port)
+        if rt is not None:
+            def on_lost(err):   # unready at once; stop serving soon after
+                lost.set()
+                threading.Timer(LOST_GRACE_S, svc._server.shutdown).start()
+
+            rt.on_lost.append(on_lost)
+        # SIGTERM: an orderly stop (over a mesh the other ranks stop too)
+        signal.signal(signal.SIGTERM, lambda *_: threading.Thread(
+            target=svc._server.shutdown, daemon=True).start())
         log.info("serving on :%d", svc.port)
         svc.serve_forever()
+        return 1 if lost.is_set() else 0
     finally:
+        rt = serving_mesh.active()
+        if rt is not None:
+            # device memory: the peak while the weights were placed, then
+            # while serving
+            print(json.dumps({"serving_rank": rt.rank, "world": rt.world,
+                              "placed_peak_bytes": placed,
+                              "peak_bytes": _peak_bytes(device),
+                              "launches": dict(fa.LAUNCHES)}),
+                  flush=True)
         server.close()
-    return 0
+        D.shutdown()

@@ -130,7 +130,9 @@ def test_serves_an_orbax_checkpoint_as_the_reference_server_does(tmp_path):
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         S.serve_flax_classifier("bad", "resnet18", device="cpu",
                                 checkpoint_dir=str(tmp_path / "empty"))
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    # mesh serving is ported (tests/test_torch_mesh_classifier.py): a
+    # mesh wider than the world is refused at registration
+    with pytest.raises(ValueError, match="device count 1"):
         S.serve_flax_classifier("m", "resnet18", device="cpu",
                                 mesh={"model": 2})
 

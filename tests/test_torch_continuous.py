@@ -308,6 +308,12 @@ def test_refused_geometry_and_unported_modes(lm):
     with pytest.raises(ValueError, match="dense cache"):
         SlotDecoder(tm, None, slots=2, prompt_len=P, max_new_tokens=4,
                     draft_model=torch_model(lm[2], **PAGED))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SlotDecoder(tm, None, mesh=object())
+    # mesh serving is ported (tests/test_torch_mesh_serving.py); the
+    # paged cache and a draft stay single-chip, as in the reference
+    with pytest.raises(ValueError, match="paged KV cache"):
+        SlotDecoder(torch_model(lm[2], **PAGED), None, slots=2,
+                    prompt_len=P, max_new_tokens=4, mesh=object())
+    with pytest.raises(ValueError, match="speculative decoding"):
+        SlotDecoder(tm, None, slots=2, prompt_len=P, max_new_tokens=4,
+                    draft_model=torch_model(lm[2]), mesh=object())
     assert torch.is_grad_enabled()

@@ -255,8 +255,16 @@ def test_cast_params_and_unported_options(weights):
     assert cast["a"].dtype == torch.bfloat16 and cast["i"].dtype == torch.int32
     with pytest.raises(ValueError, match="floating"):
         S.cast_params({}, "int8")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        port(weights, mesh={"model": 2})
+    # mesh serving is ported (tests/test_torch_mesh_serving.py): what the
+    # reference refuses under a mesh, the port refuses at registration
+    # with the reference's exception type, before any world forms
+    for kw, match in ((dict(continuous_batching=True, kv_pages=8,
+                            kv_page_size=4), "paged KV cache"),
+                      (dict(draft_model="transformer-test"),
+                       "speculative decoding"),
+                      (dict(param_dtype="int8"), "single-chip")):
+        with pytest.raises(ValueError, match=match):
+            port(weights, mesh={"model": 2}, **kw)
     # checkpoint restore is ported: a missing checkpoint fails at
     # registration, as the reference's does
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
@@ -281,10 +289,12 @@ def test_cast_params_and_unported_options(weights):
     with pytest.raises(ValueError, match="continuous_batching"):
         port(weights, kv_pages=8, kv_page_size=4)
     # the classifier is ported (tests/test_torch_classifier_server.py);
-    # mesh serving still raises, from the CLI too
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the CLI's --mesh is parsed as the reference's: a bad value is a
+    # usage error
+    with pytest.raises(SystemExit) as exit_:
         S.main(["--model", "mnist=resnet18", "--device", "cpu",
-                "--mesh", "model=2"])
+                "--mesh", "model=two"])
+    assert exit_.value.code == 2
 
 
 def test_cli_raises_without_a_gpu():

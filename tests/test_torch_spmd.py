@@ -12,9 +12,11 @@ Layouts, each a world of gloo processes on the CPU: `dp` (data 2),
 replicate). `dp_tp` is also held against the reference's own
 `data=2, model=2` witness on virtual CPU devices, at
 tests/test_torch_trainer.py's tolerance (2e-4 relative). Besides:
-Adafactor under fsdp 2 (factored statistics over sharded dims) after 2
-steps, ResNet-18 at data 2 (BatchNorm over the global batch: eval logits
-and batch_stats after a step) and packed batches whose ranks hold
+Adafactor under fsdp 2 (factored statistics over sharded dims) over 3
+steps but for the few elements whose gradient is rounding noise, and
+after three updates on seeded gradients both sides share, ResNet-18 at
+data 2 (BatchNorm over the global batch: eval logits and batch_stats
+after a step) and packed batches whose ranks hold
 uneven numbers of valid targets (the global-mean loss) each equal one
 process. In every layout the gathered optimizer state (the checkpoint
 payload) equals one process's, and a fresh trainer on the same mesh
@@ -23,6 +25,7 @@ world size runs all of that size's layouts.
 """
 
 import os
+import zlib
 
 import numpy as np
 import pytest
@@ -56,6 +59,10 @@ LAYOUTS = {
     "dcn_dp": (4, dict(mesh={"dcn": 2, "data": 2})),
     "tp_gqa": (4, dict(mesh={"data": 1, "model": 4})),
 }
+# a gradient element below GRAD_NOISE times its leaf's median |g| is
+# rounding noise; at most GRAD_NOISE_ELEMENTS of them, over all leaves
+GRAD_NOISE = 1e-6
+GRAD_NOISE_ELEMENTS = 4
 EXTRA = {   # world-2 runs besides the witness layouts
     "adafactor_fsdp": dict(ADAFACTOR, mesh={"data": 1, "fsdp": 2}),
     "resnet_dp": dict(RESNET, mesh={"data": 2}),
@@ -111,6 +118,57 @@ def _resnet_witness(trainer, batch):
             "batch_stats": p["batch_stats"]}
 
 
+def _watch_gradients(trainer) -> dict:
+    """Fills, per parameter, the elements whose gradient was rounding
+    noise at any optimizer step this one-process trainer takes: not 0
+    (a row no token touched is 0 on every layout) and below GRAD_NOISE
+    times its leaf's median |g|."""
+    noise = {}
+    params = dict(trainer.model.named_parameters())
+    step = trainer.opt.step
+
+    def watched():
+        for n, p in params.items():
+            g = p.grad.detach().abs()
+            hit = (g > 0) & (g < GRAD_NOISE * g.median())
+            noise[n] = noise[n] | hit if n in noise else hit
+        step()
+
+    trainer.opt.step = watched
+    return noise
+
+
+def _shared_gradient_steps(trainer, batch, steps: int) -> dict:
+    """The whole params after `steps` updates whose gradients are drawn
+    from a seed per parameter and step (each rank keeps its FSDP2 block),
+    so a world and one process step on the same gradients. Adafactor's
+    g / sqrt(v) turns a gradient that cancels to rounding noise into an
+    O(0.1) update; the world's gradient (two half-batch GEMMs summed by
+    the reduce-scatter) and one process's (one GEMM) differ at that
+    noise, so the end-to-end witness cannot hold the optimizer alone."""
+    names = {id(p): n for n, p in trainer.model.named_parameters()}
+    step = trainer.opt.step
+
+    def seeded_step():
+        for p in trainer.model.parameters():
+            gen = torch.Generator().manual_seed(
+                zlib.crc32(f"{names[id(p)]}/{trainer.step}".encode()))
+            g = torch.randn(tuple(p.shape), generator=gen) * 1e-3
+            if hasattr(p, "to_local"):     # FSDP2's Shard(d): a chunk
+                mesh, (place,) = p.device_mesh, p.placements
+                g = g.chunk(mesh.size(), place.dim)[mesh.get_local_rank()]
+                p.grad.to_local().copy_(g)
+            else:
+                p.grad.copy_(g)
+        step()
+
+    trainer.opt.step = seeded_step
+    local = trainer._to_device(batch)
+    for _ in range(steps):
+        trainer.train_step(local)
+    return trainer.payload()["params"]
+
+
 def _run(name: str, cfg_kw: dict, init: dict | None):
     """One layout's witness in this process (on its world, if any)."""
     from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
@@ -121,6 +179,8 @@ def _run(name: str, cfg_kw: dict, init: dict | None):
         trainer.load_payload({"step": 0, "params": init, "batch_stats": {},
                               "opt_state": {}})
     batch = next(trainer.data_iter())
+    noise = (_watch_gradients(trainer) if name == "adafactor_fsdp"
+             and "mesh" not in cfg_kw else None)
     if name == "resnet_dp":
         out = _resnet_witness(trainer, batch)
     elif name == "packed_dp":
@@ -130,6 +190,11 @@ def _run(name: str, cfg_kw: dict, init: dict | None):
                           steps=3 if name == "adafactor_fsdp" else 2)
     out["dp_index"] = trainer.mesh.index(("dcn", "data", "fsdp", "expert"))
     out["dp"] = trainer.dp
+    if noise is not None:
+        out["grad_noise"] = noise
+    if name == "adafactor_fsdp":
+        out["shared"] = _shared_gradient_steps(Trainer(cfg, device="cpu"),
+                                               batch, steps=3)
     # the whole state, gathered; a fresh trainer on the same mesh cuts its
     # shards from it and gathers the same state back
     payload = trainer.payload()
@@ -306,14 +371,34 @@ def test_dp_tp_equals_the_reference_witness(world4, reference_init):
 
 
 def test_adafactor_under_fsdp_equals_one_process(world2, single):
+    """End to end: losses, the optimizer state, the params after the
+    first update and after three. Adafactor's g / sqrt(v) turns a
+    gradient that cancels to rounding noise into an O(0.1) update, and
+    the world's gradient (two half-batch GEMMs summed by the
+    reduce-scatter) and one process's (one GEMM) differ at that noise:
+    the three-update hold leaves out the elements whose one-process
+    gradient was noise at some step (`_watch_gradients`), a handful.
+    Besides, the params after three updates on gradients the world and
+    one process share (`_shared_gradient_steps`), every element."""
     got, want = _merged(world2["adafactor_fsdp"]), single["adafactor_fsdp"]
     assert all(o["roundtrip"] for o in world2["adafactor_fsdp"])
     _assert_opt_state("adafactor_fsdp", got["opt_state"], want["opt_state"])
     np.testing.assert_allclose(got["losses"], want["losses"],
                                atol=TOLS["loss"])
+    for k, v in want["params"].items():
+        d = float((got["params"][k] - v).abs().max())
+        assert d <= TOLS["params"], ("first update", k, d)
+    noise = want["grad_noise"]
+    assert set(noise) == set(want["final"])
+    dropped = sum(int(m.sum()) for m in noise.values())
+    assert dropped <= GRAD_NOISE_ELEMENTS, dropped
     for k, v in want["final"].items():
-        d = float((got["final"][k] - v).abs().max())
-        assert d <= TOLS["params"], (k, d)
+        d = float((got["final"][k] - v).abs().masked_fill(noise[k], 0).max())
+        assert d <= TOLS["params"], ("three updates", k, d)
+    for o in world2["adafactor_fsdp"]:
+        for k, v in want["shared"].items():
+            d = float((o["shared"][k] - v).abs().max())
+            assert d <= TOLS["params"], ("shared gradients", k, d)
 
 
 def test_resnet_batchnorm_over_the_global_batch(world2, single):
