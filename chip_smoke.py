@@ -4,25 +4,29 @@
     python3 chip_smoke.py
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds the
-   CUDA kernels from `kubeflow_tpu_torch/ops/csrc`, timing the build and
-   printing each kernel's registers and spills at head_dim 64 and 128.
-2. Kernel phase, at llama-1b attention shapes (q [8, 2048, 32, 64], k/v
-   8 heads, bf16, causal): runs each kernel (flash fwd, bwd dq, bwd dk/dv;
-   all three warp-specialised sm_90a kernels: a TMA producer thread
-   feeding an mbarrier ring, two consumer warpgroups running wgmma; dq
-   keeps its 128-row Q and dO tiles resident and streams 128-key K/V
-   tiles, S and dP as SS wgmma, dQ += dS.K as RS wgmma) and holds it
-   against its plain PyTorch version on the same inputs, the plain
-   version blocked at that kernel's own tiles (`KERNEL_TILES`), then
-   again with a sliding window and with packed-sequence segment ids. The
-   limit is per row (`kubeflow_tpu_torch/ops/kernel_check.py`): every
-   row's L2 error within 1e-2 of that row's L2 norm (2e-2 for dq, whose
-   rows cancel), lse within 1e-3.
+   CUDA kernels from `kubeflow_tpu_torch/ops/csrc` (one `nvcc` a source,
+   all at once), timing the build and printing each kernel's registers
+   and spills at every (element type, head_dim) it is built for.
+2. Kernel phase, every instantiation of the flash kernels' domain
+   (`KERNEL_DOMAIN`: bf16 and f16 at head_dim 64 and 128 on the three
+   warp-specialised sm_90a kernels, a TMA producer thread feeding an
+   mbarrier ring and two consumer warpgroups running wgmma; f32 at 64,
+   128 and 256 and bf16/f16 at 256 on the three SIMT kernels of
+   flash_simple.cu, f32 FMAs), at llama-1b's attention shapes (q
+   [8, 2048, 32, 64] with 8 kv heads; llama-1b-hd128's [8, 2048, 16,
+   128] with 4; [8, 2048, 8, 256] with 2), causal: runs each kernel and
+   holds it against its plain PyTorch version on the same inputs, the
+   plain version blocked at that kernel's own tiles (`KERNEL_TILES`),
+   then again with a sliding window and with packed-sequence segment
+   ids. The limit is per row (`kubeflow_tpu_torch/ops/kernel_check.py`):
+   every row's L2 error within 1e-2 of that row's L2 norm (2e-2 for dq,
+   whose rows cancel), lse within 1e-3.
    Times each kernel, its plain version and the PyTorch library call for
-   the same function (scaled_dot_product_attention, forward / backward):
-   CUDA events around a run of back-to-back launches, per launch, the
-   median of five such runs, so the host's launch overhead overlaps the
-   device's work. Works out each kernel's bound.
+   the same function (scaled_dot_product_attention at that dtype, TF32
+   off, forward / backward): CUDA events around a run of back-to-back
+   launches, per launch, the median of such runs, so the host's launch
+   overhead overlaps the device's work. Works out each kernel's bound at
+   its dtype's peak (f32: the CUDA cores' FMA rate).
 3. LM-head check: the card's bf16 head GEMM (`ops/xent.py`) against its
    plain f32 formula on the same card tensors, at one main-path chunk:
    logits, dx and dkernel, each within 1e-2 per row.
@@ -130,15 +134,17 @@
    "preempted", the preempted step on disk and in manifest.json, the
    profile naming the three flash kernels. Run B resumes it to step 6:
    start_step that step, exit 0, a finite eval with smoke 0. Run C
-   trains 6 steps straight in a fresh directory. B's final parameters
+   trains 6 steps straight in a fresh directory, sharing the card with
+   run A (its times are not read). B's final parameters
    are held to C's per row within 1e-2, the final losses within 1e-3
    relative (the largest difference is printed); every run launches
    each kernel 16 times a step and the forward 16 more per eval batch
    (read from each launcher's log line); each trace dump is one tree
    (worker under the injected parent, train.fit under worker,
    train.step and train.checkpoint inside). Prints the checkpoint's
-   bytes, the seconds each save blocks the loop and writes in the
-   background, the restore's seconds, the step time on shards against
+   bytes, and from run B, which runs alone, the seconds each save blocks
+   the loop and writes in the background, the restore's seconds, the
+   step time on shards against
    phase 6's synthetic one, and the seconds a restart spends skipping
    10,000 consumed batches before its first step (token_batches over the
    looped shards, and the record reader alone).
@@ -251,7 +257,8 @@
    each rank's parameter change per row within 1e-2 of one process's
    (its slice of the experts against that slice), a
    planted control (the all-to-all returning its input) beyond it, the
-   final loss within 1e-3 relative.
+   final loss within 1e-3 relative. Its three worlds and phase 28's
+   probe start at once (their step times are printed, not held).
 30. The LM over a serving mesh: llama-1b at full width and depth served
    by two ranks of `python -m kubeflow_tpu_torch.serving --mesh model=2`
    sharing the card over gloo (continuous batching, 4 slots, prompt_len
@@ -271,22 +278,50 @@
    partial outputs; fsdp: no gradient reduce-scatter), ResNet-50's
    BatchNorm statistics within 1e-3 relative of one process's; neither
    the serving ranks nor the training ranks launch a flash kernel.
+32. The seq axis with local attention on one card: llama-1b at full
+   width (d 2048, 32 q / 8 kv heads of 64) cut to 4 layers, seq 2048,
+   global batch 4, adamw, 3 steps, synthetic tokens, f32 with TF32 off;
+   at once: one process, two ranks at mesh seq 2 with attention_impl
+   auto over gloo (each rank's q block over the key prefix gathered from
+   both, `ops/seq_attention.py`: the f32 SIMT kernels, once per layer a
+   step on each rank), the planted control `no-kv-gather` (each rank
+   attends its own block only), two Ulysses ranks at seq 2 and their
+   control `no-ulysses-exchange` (the all-to-alls return their input):
+   each rank's parameter change per row within 1e-2 of one process's,
+   each control beyond it, equal rank losses, the final loss within 1e-3
+   relative; then the same seq world in bf16 alone, its step ms and its
+   wgmma kernel launches. Prints each world's start-up breakdown
+   (`_startup`).
+33. Classifier remat: ResNet-50 at examples/resnet50.yaml's point
+   without remat and with whole-forward remat `full` and `dots`, from
+   the same weights and batch: after two steps each remat run's
+   parameters within 1e-2 per row of no remat's, its eval-mode logits
+   and BatchNorm statistics within 1e-3 relative; step ms, images/s and
+   peak GB of each; no flash launch.
 Each phase prints its wall seconds.
 
 Any failure exits non-zero. The lines before the last hold the
-`{"kernels": [...]}` record (`launches`: the pinned main path's count,
-`launches_by_path`: each path's: the training paths, entry, `resume`
+`{"kernels": [...]}` record, one row per kernel and instantiation (`name`
+`kernel[dtype/head_dim]`; `launches`: the launches of that
+instantiation, counted by instantiation (`flash_attention.
+INSTANCE_LAUNCHES`), for bf16 at head_dim 64 on the pinned main path and
+for the f32 SIMT kernels at 64 on phase 32's rank 0 (`launches_path`
+names it); null for the instantiations no path runs, which are timed at
+the kernel phase's shapes; `kernel_launches_by_path`, for the two that
+paths run, each path's count of the kernel over all its instantiations
+(`flash_attention.LAUNCHES`, which holds all six kernels): the training
+paths, entry, `resume`
 (run B: 16 a step of each kernel, 16 more forwards per eval batch), and
 the serving, rolling, speculative, router and checkpoint-serving paths
 and the classification paths (resnet50, classifier, vit-b16,
-bert-base), which must run none of them, `world_rank0` /
-`world_rank1`, phase 21 (a)'s ranks, `moe_train` (phase 23's 7 steps),
+bert-base), which must run none of them, `world_rank1`, phase 21 (a)'s ranks, `moe_train` (phase 23's 7 steps),
 `moe_serving` (none), `ulysses` and `ring` (phase 27's 3 steps),
 `expert_rank0` / `expert_rank1` (phase 29's ranks), and `mesh_serving`
 (the two serving ranks of phase 30's f32 run and of phase 31's ViT run,
 each counted from its reset after registration to its stop: none;
-phase 31's training worlds are held at none too);
-the flash forward's row also holds its
+phase 31's training worlds are held at none too), `seq_f32_rank0/1`,
+`uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks) and
+`classifier_remat` (none); the bf16 flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -369,6 +404,29 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def _launch_counts(fwd: int, dq: int, dkv: int, family=None) -> dict:
+    """Every flash kernel's launches when only `family`'s three kernels
+    (the wgmma ones by default) run: fwd, dq and dk/dv of them."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    return {**dict.fromkeys(fa.LAUNCHES, 0),
+            **dict(zip(family or fa.SM90, (fwd, dq, dkv)))}
+
+
+LAUNCH_LINE = re.compile(r"flash kernel launches: (\{.*?\}); "
+                         r"by instantiation: (\{.*?\})")
+# each path's flash launches by instantiation, for the kernels line: the
+# main path's (in process) and phase 32's f32 ranks' (from their logs)
+INSTANCE_COUNTS: dict[str, dict] = {}
+
+
+def _logged_launches(out: str) -> tuple:
+    """The last flash launch counts a launcher logged: (by kernel, by
+    instantiation), or (None, None)."""
+    m = LAUNCH_LINE.findall(out)
+    return tuple(json.loads(x) for x in m[-1]) if m else (None, None)
+
+
 def check_rows(name: str, got, want, tol: float) -> dict:
     """kernel_check.errors of got against want; fails past tol per row."""
     from kubeflow_tpu_torch.ops import kernel_check
@@ -380,97 +438,134 @@ def check_rows(name: str, got, want, tol: float) -> dict:
     return e
 
 
-def kernel_phase(fa, ptxas: dict) -> list[dict]:
+# the kernel phase: every (dtype, head_dim) of the kernels' domain
+# (ops/flash_attention.py KERNEL_DOMAIN) at llama-1b's attention shapes:
+# the main path's at head_dim 64, llama-1b-hd128's at 128, and at 256 the
+# same width over 8 heads of 256 with 2 kv heads; (batch, length, q heads,
+# kv heads)
+KERNEL_SHAPES = {
+    ("bfloat16", 64): (B, L, H, HKV), ("float16", 64): (B, L, H, HKV),
+    ("float32", 64): (B, L, H, HKV),
+    ("bfloat16", 128): (8, 2048, 16, 4), ("float16", 128): (8, 2048, 16, 4),
+    ("float32", 128): (8, 2048, 16, 4),
+    ("bfloat16", 256): (8, 2048, 8, 2), ("float16", 256): (8, 2048, 8, 2),
+    ("float32", 256): (8, 2048, 8, 2),
+}
+# peak rate of each input type (NVIDIA's H100 SXM data sheet, dense):
+# tensor cores for the 2-byte types; f32 at the CUDA cores' FMA rate, since
+# TF32 would not compute the same function
+PEAK_OPS = {"bfloat16": PEAK_BF16, "float16": PEAK_BF16, "float32": 67e12}
+# TPU kernel each port kernel replaces, by role
+REPLACES = {"fwd": f"{SRC}:140", "dq": f"{SRC}:305", "dkv": f"{SRC}:362"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
+           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+
+
+def _kernel_rows(fa, ptxas: dict, dtype_name: str, d: int) -> list[dict]:
+    """The three kernels that take (dtype, d) at KERNEL_SHAPES' shape:
+    held against their plain versions (each at its kernel's tiles) under
+    the causal mask, a window of 512 and packed segment ids, per row
+    (kernel_check); timed with their plain versions and SDPA at that
+    dtype (TF32 off); the bound at the dtype's peak. One row each."""
     import torch
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import kernel_check
 
+    dtype = getattr(torch, dtype_name)
+    b, l, h, hkv = KERNEL_SHAPES[(dtype_name, d)]
+    names = fa.kernels_for(dtype, d)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).to(torch.bfloat16)
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
-    q, dout = randn(B, L, H, D), randn(B, L, H, D)
-    k, v = randn(B, L, HKV, D), randn(B, L, HKV, D)
-    scale = D ** -0.5
+    q, dout = randn(b, l, h, d), randn(b, l, h, d)
+    k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
+    scale = d ** -0.5
     errs: dict[str, dict[str, dict]] = {}
-    cuts = torch.rand(B, L, device="cuda", generator=gen) < 4.0 / L
+    cuts = torch.rand(b, l, device="cuda", generator=gen) < 4.0 / l
     seg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
     for tag, extra, window in (("causal", (), 0), ("window", (), 512),
                                ("segments", (seg, seg), 0)):
         got = kernel_check.flash_errors(q, k, v, dout, *extra, scale=scale,
                                         causal=True, window=window)
-        bad = kernel_check.failures(got)
+        bad = kernel_check.failures(got, dtype)
         if bad:
-            fail(f"flash kernels vs plain, {tag}: {'; '.join(bad)}")
-        for name, outs in kernel_check.KERNEL_OUTPUTS.items():
+            fail(f"flash kernels {dtype_name}/{d} vs plain, {tag}: "
+                 f"{'; '.join(bad)}")
+        for name in names:
             errs.setdefault(name, {})[tag] = {
-                key: max(got[o][key] for o in outs)
+                key: max(got[o][key] for o in kernel_check.KERNEL_OUTPUTS[name])
                 for key in ("max_abs_err", "max_row_err")}
 
     cfg = dict(scale=scale, causal=True, window=0)
+    fwd, dq_name, dkv = names
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, **cfg,
-                                      **fa.kernel_blocks("flash_fwd", D))
+                                      **fa.kernel_blocks(fwd, d))
     delta = fa.flash_delta(out_p, dout)
-
+    simple = fwd in fa.SIMPLE                 # the SIMT kernels: slower
+    reps = dict(n=5, reps=3) if simple else {}
     timed = kernel_check.device_ms
     ms = {
-        "flash_fwd": timed(lambda: fa.flash_fwd_cuda(q, k, v, **cfg)),
-        "flash_bwd_dq": timed(lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, dout, lse_p, delta, **cfg)),
-        "flash_bwd_dkv": timed(lambda: fa.flash_bwd_dkv_cuda(
-            q, k, v, dout, lse_p, delta, **cfg)),
+        fwd: timed(lambda: fa.flash_fwd_cuda(q, k, v, **cfg), **reps),
+        dq_name: timed(lambda: fa.flash_bwd_dq_cuda(
+            q, k, v, dout, lse_p, delta, **cfg), **reps),
+        dkv: timed(lambda: fa.flash_bwd_dkv_cuda(
+            q, k, v, dout, lse_p, delta, **cfg), **reps),
     }
     # the plain versions at each kernel's tiles; the plain backward
     # computes dq, dk and dv together
-    plain_ms = {"flash_fwd": timed(lambda: fa.flash_fwd_plain(
-        q, k, v, **cfg, **fa.kernel_blocks("flash_fwd", D)), n=1, reps=3,
-        warmup=1)}
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    plain_ms = {fwd: timed(lambda: fa.flash_fwd_plain(
+        q, k, v, **cfg, **fa.kernel_blocks(fwd, d)), n=1, reps=3, warmup=1)}
+    for name in (dq_name, dkv):
         plain_ms[name] = timed(lambda: fa.flash_bwd_plain(
-            q, k, v, out_p, lse_p, dout, **cfg, **fa.kernel_blocks(name, D)),
+            q, k, v, out_p, lse_p, dout, **cfg, **fa.kernel_blocks(name, d)),
             n=1, reps=3, warmup=1)
 
-    # library yardstick: SDPA on [B, H, L, D], kv heads expanded outside
-    # the timed region; its backward computes dq, dk and dv together
+    # library yardstick: SDPA on [B, H, L, D] at this dtype, kv heads
+    # expanded outside the timed region; its backward computes dq, dk and
+    # dv together
     qt = q.transpose(1, 2).detach().requires_grad_()
-    kt = k.repeat_interleave(H // HKV, 2).transpose(1, 2).detach().requires_grad_()
-    vt = v.repeat_interleave(H // HKV, 2).transpose(1, 2).detach().requires_grad_()
+    kt = k.repeat_interleave(h // hkv, 2).transpose(1, 2).detach().requires_grad_()
+    vt = v.repeat_interleave(h // hkv, 2).transpose(1, 2).detach().requires_grad_()
     gt = dout.transpose(1, 2)
     sdpa_fwd = timed(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+        qt, kt, vt, is_causal=True), **reps)
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     sdpa_bwd = timed(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), gt, retain_graph=True))
-    library_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
-                  "flash_bwd_dkv": sdpa_bwd}
+        o, (qt, kt, vt), gt, retain_graph=True), **reps)
+    library_ms = {fwd: sdpa_fwd, dq_name: sdpa_bwd, dkv: sdpa_bwd}
 
-    # bound: the larger of FLOPs over the bf16 peak and bytes (inputs read
-    # once, outputs written once) over HBM bandwidth; causal pairs only
-    pairs = B * H * L * (L + 1) / 2
-    q_bytes, kv_bytes, row_bytes = 2 * B * L * H * D, 2 * B * L * HKV * D, 4 * B * H * L
+    # bound: the larger of the operations over the dtype's peak and the
+    # bytes (inputs read once, outputs written once) over HBM bandwidth;
+    # causal pairs only
+    size = q.element_size()
+    pairs = b * h * l * (l + 1) / 2
+    q_bytes, kv_bytes = size * b * l * h * d, size * b * l * hkv * d
+    row_bytes = 4 * b * h * l
     work = {
-        "flash_fwd": (4 * D * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
-        "flash_bwd_dq": (6 * D * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
-        "flash_bwd_dkv": (8 * D * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
-    }
-    meta = {
-        "flash_fwd": ("kubeflow_tpu_torch/ops/csrc/flash_fwd.cu", f"{SRC}:140"),
-        "flash_bwd_dq": ("kubeflow_tpu_torch/ops/csrc/flash_bwd.cu", f"{SRC}:305"),
-        "flash_bwd_dkv": ("kubeflow_tpu_torch/ops/csrc/flash_bwd_dkv.cu", f"{SRC}:362"),
+        fwd: (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        dq_name: (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        dkv: (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
     }
     rows = []
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    for role, name in zip(("fwd", "dq", "dkv"), names):
+        flops, nbytes = work[name]
+        t_ops = flops / PEAK_OPS[dtype_name] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        src = "flash_simple.cu" if simple else SOURCES[name]
+        reg = ptxas[name][(dtype_name.replace("bfloat", "bf").replace(
+            "float", "f"), d)]
         rows.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": None,
-            "tile": {d: list(t) for d, t in fa.KERNEL_TILES[name].items()},
-            "registers": {d: r.get("registers")
-                          for d, r in sorted(ptxas[name].items())},
-            "spill_bytes": {d: r.get("spill_bytes")
-                            for d, r in sorted(ptxas[name].items())},
+            "name": f"{name}[{dtype_name}/{d}]", "kernel": name,
+            "dtype": dtype_name, "head_dim": d, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/ops/csrc/{src}",
+            "replaces": REPLACES[role], "launches": None,
+            "shape": [b, l, h, d], "kv_heads": hkv,
+            "tile": list(fa.KERNEL_TILES[name][d]),
+            "registers": reg.get("registers"),
+            "spill_bytes": reg.get("spill_bytes"),
             "max_abs_err": errs[name]["causal"]["max_abs_err"],
             "max_row_err": {t: e["max_row_err"] for t, e in errs[name].items()},
             "max_abs_err_window": errs[name]["window"]["max_abs_err"],
@@ -480,13 +575,30 @@ def kernel_phase(fa, ptxas: dict) -> list[dict]:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms[name],
         })
-        print(f"kernel {name} {fa.KERNEL_TILES[name][D]}: {ms[name]:.3f} ms "
-              f"(bound {max(t_ops, t_bytes):.3f}"
-              f" ms, plain {plain_ms[name]:.1f} ms, sdpa {library_ms[name]:.3f}"
-              f" ms), errors {errs[name]}", flush=True)
-    bwd = ms["flash_bwd_dq"] + ms["flash_bwd_dkv"]
-    print(f"backward: dq + dk/dv {bwd:.3f} ms against sdpa's whole backward "
-          f"{sdpa_bwd:.3f} ms ({bwd / sdpa_bwd:.2f}x)", flush=True)
+        print(f"kernel {name} {dtype_name}/{d} at {[b, l, h, d]} kv {hkv}, "
+              f"tile {fa.KERNEL_TILES[name][d]}: {ms[name]:.3f} ms (bound "
+              f"{max(t_ops, t_bytes):.3f} ms, plain {plain_ms[name]:.1f} ms, "
+              f"sdpa {library_ms[name]:.3f} ms), {reg}, row errors "
+              f"{ {t: round(e['max_row_err'], 5) for t, e in errs[name].items()} }",
+              flush=True)
+    bwd = ms[dq_name] + ms[dkv]
+    print(f"backward {dtype_name}/{d}: dq + dk/dv {bwd:.3f} ms against sdpa's "
+          f"whole backward {sdpa_bwd:.3f} ms ({bwd / sdpa_bwd:.2f}x)",
+          flush=True)
+    del q, k, v, dout, qt, kt, vt, o, out_p, lse_p, delta
+    return rows
+
+
+def kernel_phase(fa, ptxas: dict) -> list[dict]:
+    """Every instantiation of the flash kernels (`_kernel_rows` for each
+    (dtype, head_dim) of KERNEL_SHAPES); one row each."""
+    import torch
+
+    rows = []
+    for dtype_name, d in KERNEL_SHAPES:
+        rows += _kernel_rows(fa, ptxas, dtype_name, d)
+        gc.collect()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -581,8 +693,7 @@ def remat_check(fa) -> None:
         if not torch.isfinite(got["loss"]).all():
             fail(f"remat {policy}: loss {got['loss'].item()}")
         fwd = (2 if policy == "full" else 1) * layers
-        if launches != {"flash_fwd": fwd, "flash_bwd_dq": layers,
-                        "flash_bwd_dkv": layers}:
+        if launches != _launch_counts(fwd, layers, layers):
             fail(f"remat {policy}: launches {launches}, want {fwd} forward "
                  f"and {layers} of each backward kernel")
         if want is None:
@@ -620,6 +731,7 @@ def launch_in_process(fa, _build, cfg: dict, tag: str
         rc = launcher.main(["--config", str(path)])
     wall = time.perf_counter() - t0
     launches = dict(fa.LAUNCHES)
+    INSTANCE_COUNTS[tag] = dict(fa.INSTANCE_LAUNCHES)
     print(buf.getvalue(), end="", flush=True)
     if rc != 0:
         fail(f"{tag}: launcher exit {rc}")
@@ -636,10 +748,15 @@ def main_path(fa, _build, cfg: dict, tag: str) -> tuple[dict, float]:
     and the mean metered step time (s)."""
     summary, launches, wall = launch_in_process(fa, _build, cfg, tag)
     loss = summary["final"]["loss"]
-    for name, n in launches.items():
-        if n != LAYERS * STEPS:
-            fail(f"{name} launched {n} times in {STEPS} steps, want "
-                 f"{LAYERS * STEPS}: the main path did not run the kernel")
+    want = _launch_counts(*[LAYERS * STEPS] * 3)
+    if launches != want:
+        fail(f"launches {launches} in {STEPS} steps, want {want}: the main "
+             f"path did not run every wgmma kernel, or ran another")
+    by_inst = {fa.instance_name(k, "bfloat16", D): LAYERS * STEPS
+               for k in fa.SM90}
+    if INSTANCE_COUNTS[tag] != by_inst:
+        fail(f"main path {tag}: launches by instantiation "
+             f"{INSTANCE_COUNTS[tag]}, want {by_inst}")
     tokens_s = summary["examples_per_sec"] * L
     mfu = summary["mfu"]
     print(f"main path {tag} ({cfg['optimizer']}, remat "
@@ -667,9 +784,9 @@ def grad_accum_check(fa) -> None:
     loss = summary["final"].get("loss")
     if loss is None or not math.isfinite(loss):
         fail(f"grad accumulation: loss {loss}")
-    want = 2 * ACCUM_LAYERS * ACCUM_STEPS
-    if set(launches.values()) != {want}:
-        fail(f"grad accumulation: launches {launches}, want {want} each")
+    want = _launch_counts(*[2 * ACCUM_LAYERS * ACCUM_STEPS] * 3)
+    if launches != want:
+        fail(f"grad accumulation: launches {launches}, want {want}")
     print(f"grad accumulation: {ACCUM_LAYERS} layers, 2 microbatches of "
           f"{B // 2}, {ACCUM_STEPS} steps, final loss {loss:.4f}, launches "
           f"{launches}", flush=True)
@@ -1154,8 +1271,7 @@ def entry_phase(fa) -> tuple[dict, dict]:
             logits).all():
         fail(f"entry: logits {tuple(logits.shape)}, finite "
              f"{bool(torch.isfinite(logits).all())}")
-    if launches != {"flash_fwd": layers, "flash_bwd_dq": 0,
-                    "flash_bwd_dkv": 0}:
+    if launches != _launch_counts(layers, 0, 0):
         fail(f"entry: launches {launches}, want {layers} flash_fwd")
     del fn, params, logits
     # the kernel at this path's shape against its plain version
@@ -1170,7 +1286,7 @@ def entry_phase(fa) -> tuple[dict, dict]:
         randn(b, l, h, D)
     cfg = dict(scale=D ** -0.5, causal=True, window=0)
     errs = kernel_check.flash_errors(q, k, v, dout, **cfg)
-    bad = kernel_check.failures(errs)
+    bad = kernel_check.failures(errs, torch.bfloat16)
     if bad:
         fail(f"entry shape: flash kernels vs plain: {'; '.join(bad)}")
     timed = kernel_check.device_ms
@@ -1667,8 +1783,7 @@ def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None
     # strictly valid JSON: no bare NaN / Infinity
     summary = json.loads(summary_lines[-1], parse_constant=lambda c: fail(
         f"launcher run {tag}: summary holds {c}"))["summary"]
-    m = re.findall(r"flash kernel launches: (\{.*\})", out)
-    launches = json.loads(m[-1]) if m else None
+    launches = _logged_launches(out)[0]
     spans = (obs_trace.read_jsonl(str(trace_path))
              if trace_path.exists() else [])
     return {"rc": rc, "out": out, "summary": summary, "launches": launches,
@@ -1707,8 +1822,8 @@ def _check_trace(run: dict, tag: str) -> dict:
 
 def _want_launches(start: int, end: int, evals: int) -> dict:
     steps = end - start
-    return {"flash_fwd": LAYERS * (steps + RESUME_EVAL_STEPS * evals),
-            "flash_bwd_dq": LAYERS * steps, "flash_bwd_dkv": LAYERS * steps}
+    return _launch_counts(LAYERS * (steps + RESUME_EVAL_STEPS * evals),
+                          LAYERS * steps, LAYERS * steps)
 
 
 def _evals_in(start: int, end: int, every: int) -> int:
@@ -1721,8 +1836,11 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
     kernels) through the native loader and the Prefetcher, with
     checkpoints, evals, a profiler window and a SIGTERM: run A is
     preempted after its "step 3" line, run B resumes it to step 6, run C
-    runs 6 steps straight; B is held to C. Returns run B's launches and
-    its checkpoint directory."""
+    runs 6 steps straight; B is held to C. C shares the card with A (its
+    results are held, its times not read); B runs alone, so the step
+    time on shards and the checkpoint's seconds are B's. Returns run B's
+    launches and its checkpoint directory."""
+    import concurrent.futures as cf
     import re
 
     import torch
@@ -1752,7 +1870,12 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
           f"{free_gb:.0f} GB free on the checkout's disk; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    a = _launch(cfg, root, "run_a", sigterm_after=RESUME_SIGTERM_AFTER)
+    cfg_c = {**cfg, "checkpoint_dir": str(root / "ckpt_c"),
+             "checkpoint_every": 0, "eval_every": 0, "profile_dir": None}
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        run_c = pool.submit(_launch, cfg_c, root, "run_c")
+        a = _launch(cfg, root, "run_a", sigterm_after=RESUME_SIGTERM_AFTER)
+        c = run_c.result()
     m = re.search(r"preempted at step (\d+)", a["out"])
     steps_a = ckpt_mod.list_steps(cfg["checkpoint_dir"])
     manifest = json.loads((root / "ckpt" / "manifest.json").read_text())
@@ -1792,9 +1915,6 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
         fail(f"resume run B: launches {b['launches']}, want {want_b}")
     tree_b = _check_trace(b, "B")
 
-    cfg_c = {**cfg, "checkpoint_dir": str(root / "ckpt_c"),
-             "checkpoint_every": 0, "eval_every": 0, "profile_dir": None}
-    c = _launch(cfg_c, root, "run_c")
     if c["rc"] != 0 or c["summary"].get("start_step") != 0:
         print(c["out"][-6000:], flush=True)
         fail(f"resume run C: exit {c['rc']}, summary {c['summary']}")
@@ -1845,17 +1965,15 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
         return [float(x) for x in re.findall(pattern, run["out"])]
 
     nbytes = logged(a, r"queued save at step \d+ -> .* \((\d+) bytes")
-    blocking = [s.duration for run in (a, b) for s in run["spans"]
-                if s.name == "train.checkpoint"]
-    writes = logged(a, r"written in ([\d.]+) s") + \
-        logged(b, r"written in ([\d.]+) s")
+    blocking = [s.duration for s in b["spans"] if s.name == "train.checkpoint"]
+    writes = logged(b, r"written in ([\d.]+) s")
     restore_s = logged(b, r"restored step \d+ from .* in ([\d.]+) s")
     figures = {
         "preempted_at": k, "sigterm_after_s": a["signalled"],
         "checkpoint_bytes": int(nbytes[0]) if nbytes else None,
         "checkpoint_blocking_s": blocking,
         "checkpoint_write_s": writes, "restore_s": restore_s,
-        "step_s_shards_prefetcher": c["summary"]["step_time_s"],
+        "step_s_shards_prefetcher": sb["step_time_s"],
         "step_s_synthetic_phase6": synthetic_step_s,
         "resumed_vs_straight_max_row_err": worst[0],
         "resumed_vs_straight_max_abs_diff": worst[1],
@@ -1876,8 +1994,8 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
           f"max abs diff {worst[1]:.3g} in {worst[2]}), final loss "
           f"{lb:.6f} vs {lc:.6f}; checkpoint "
           f"{figures['checkpoint_bytes']} bytes, blocking {blocking} s, "
-          f"write {writes} s, restore {restore_s} s; step "
-          f"{c['summary']['step_time_s'] * 1e3:.1f} ms on shards vs "
+          f"write {writes} s, restore {restore_s} s (run B's); step "
+          f"{sb['step_time_s'] * 1e3:.1f} ms on shards (run B) vs "
           f"{synthetic_step_s * 1e3:.1f} ms synthetic; skipping "
           f"{RESUME_SKIP_BATCHES} batches on resume "
           f"{skip_s['token_batches']:.2f} s (the record reader alone "
@@ -2366,8 +2484,11 @@ def world_worker(argv: list[str]) -> int:
     all-to-all returns its input, so each rank's tokens meet its own
     experts only (the reference's dropped all_to_all); phase 31's
     `no-tp-sum` leaves out tensor parallelism's sum of the ranks' partial
-    outputs, `no-fsdp-sync` FSDP2's gradient reduce-scatter; `none` runs
-    the port as it is. Where fsdp or model split the parameters, the
+    outputs, `no-fsdp-sync` FSDP2's gradient reduce-scatter; phase 32's
+    `no-kv-gather` leaves out the seq axis' K/V gather (each rank attends
+    its own block only: what the old refusal of local impls on a seq
+    mesh guarded against) and `no-ulysses-exchange` the Ulysses
+    all-to-alls; `none` runs the port as it is. Where fsdp or model split the parameters, the
     dump holds them gathered whole."""
     import torch
 
@@ -2420,6 +2541,14 @@ def world_worker(argv: list[str]) -> int:
                     m.set_requires_gradient_sync(False, recurse=False)
 
         S.apply_fsdp = unsynced
+    elif fault == "no-kv-gather":
+        from kubeflow_tpu_torch.ops import seq_attention as SA
+
+        SA.gather_seq = lambda x, seq: x
+    elif fault == "no-ulysses-exchange":
+        from kubeflow_tpu_torch.ops import ulysses
+
+        ulysses.all_to_all = lambda x, group: x
     elif fault != "none":
         fail(f"world worker: unknown fault {fault!r}")
     return launcher.main(argv[3:])
@@ -2463,6 +2592,7 @@ def _launch_world(cfg: dict, root, tag: str, world: int,
     port = _free_port_pair()
     procs, logs = [], []
     t0 = time.perf_counter()
+    spawned = time.time()
     for rank in range(world):
         logs.append(root / f"{tag}.rank{rank}.log")
         # the ranks split the host's cores
@@ -2508,14 +2638,59 @@ def _launch_world(cfg: dict, root, tag: str, world: int,
         if not lines:
             print(out[-6000:], flush=True)
             fail(f"world {tag} rank {rank}: exit {rc} with no summary line")
-        m = re.findall(r"flash kernel launches: (\{.*\})", out)
+        launches, instances = _logged_launches(out)
         trace = root / f"{tag}.rank{rank}.trace"
         runs.append({"rc": rc, "out": out, "wall": wall,
                      "summary": json.loads(lines[-1])["summary"],
-                     "launches": json.loads(m[-1]) if m else None,
+                     "launches": launches, "instances": instances,
+                     "startup": _startup(out, spawned, wall),
                      "spans": obs_trace.read_jsonl(str(trace))
                      if trace.exists() else []})
     return runs
+
+
+# a launcher's log lines that close each part of its start-up
+_STARTUP_MARKS = (("python, torch, cuda", r"collectives backend: "),
+                  ("world", r"process \d+/\d+ "),
+                  ("config", r"trainer mesh: "),
+                  ("trainer build", r"first step \(incl\. kernel build\)"),
+                  ("first step", r"first step \(incl\. kernel build\)"))
+
+
+def _startup(out: str, spawned: float, wall: float) -> dict:
+    """Where a launcher's seconds went, from the timestamps of its log
+    lines: process start to the collectives backend (interpreter, torch,
+    the CUDA context), the world's formation, the config, the trainer's
+    build (weights, optimizer, data), the first step (kernel load,
+    cuBLAS, the allocator; its own logged seconds), the later steps, and
+    from the last step line to the process's exit (the last checkpoint
+    write, teardown)."""
+    import datetime
+
+    def at(line: str) -> float:
+        return datetime.datetime.strptime(
+            line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+    stamped = [ln for ln in out.splitlines()
+               if re.match(r"\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3} ", ln)]
+    parts, last = {}, spawned
+    for name, pattern in _STARTUP_MARKS:
+        hit = next((ln for ln in stamped if re.search(pattern, ln)), None)
+        if hit is None:
+            return parts
+        parts[name] = round(at(hit) - last, 2)
+        last = at(hit)
+    # the first step's own seconds, which it logs, out of the trainer's
+    first = re.search(r"first step \(incl\. kernel build\): ([\d.]+)s", out)
+    parts["first step"] = float(first.group(1))
+    parts["trainer build"] = round(parts["trainer build"] -
+                                   parts["first step"], 2)
+    steps = [ln for ln in stamped if re.search(r"\bstep \d+ loss=", ln)]
+    if not steps:
+        return parts
+    parts["later steps"] = round(at(steps[-1]) - last, 2)
+    parts["to exit"] = round(spawned + wall - at(steps[-1]), 2)
+    return parts
 
 
 def _final_params(run_root, tag: str, step: int | None = None) -> tuple:
@@ -2608,8 +2783,7 @@ def _reduce_share(run: dict) -> tuple[float, float]:
 def _world_launches(run: dict, steps: int, tag: str) -> dict:
     """Each flash kernel's launches on one rank: 12 layers a step; the
     forward twice under the yaml's remat (policy full replays it)."""
-    want = {"flash_fwd": 2 * 12 * steps, "flash_bwd_dq": 12 * steps,
-            "flash_bwd_dkv": 12 * steps}
+    want = _launch_counts(2 * 12 * steps, 12 * steps, 12 * steps)
     if run["launches"] != want:
         fail(f"world {tag}: flash launches {run['launches']}, want {want}")
     return run["launches"]
@@ -2824,8 +2998,8 @@ LONGCTX_PAIR_RTOL = 2e-2     # flash vs reference: phase 4's row limit
 def _flash_per_step(layers: int, policy: str | None) -> dict:
     """Flash launches a training step makes: one forward per layer (two
     under `full`, which replays it) and one of each backward kernel."""
-    fwd = layers * (2 if policy == "full" else 1)
-    return {"flash_fwd": fwd, "flash_bwd_dq": layers, "flash_bwd_dkv": layers}
+    return _launch_counts(layers * (2 if policy == "full" else 1), layers,
+                          layers)
 
 
 def moe_train_phase(fa, _build) -> dict:
@@ -3218,6 +3392,13 @@ def _ep_config(impl: str, mesh: dict | None) -> dict:
             "log_every": 1, **({"mesh": mesh} if mesh else {})}
 
 
+def _startup_note(runs: dict) -> str:
+    """Rank 0's start-up breakdown (`_startup`) of each world."""
+    return "; ".join(f"{tag}: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ws[0]["startup"].items())
+        for tag, ws in runs.items())
+
+
 def expert_world_phase(root) -> dict:
     """Phase 29: two port launchers share the card over gloo with mesh
     data 1 x expert 2 (each holds 4 of the 8 experts; the sparse
@@ -3229,14 +3410,27 @@ def expert_world_phase(root) -> dict:
     control, the same world with the all-to-all returning its input (the
     reference's dropped all_to_all), misses it; the final loss within
     1e-3 relative. f32 with the plain attention: no flash launch. Returns
-    the flash launches of each rank."""
-    one = _launch_world(_ep_config("dense", None), root, "ep_one", 1,
-                        dump_steps=(EP_STEPS,))[0]
-    two = _launch_world(_ep_config("sparse", {"data": 1, "expert": 2}),
-                        root, "ep_two", 2, dump_steps=(EP_STEPS,))
-    control = _launch_world(_ep_config("sparse", {"data": 1, "expert": 2}),
-                            root, "ep_control", 2, dump_steps=(EP_STEPS,),
-                            fault="no-exchange")
+    the flash launches of each rank. The three worlds, whose step times
+    are printed but not held, share the card at once (as phase 30's), and
+    phase 28's gloo probe runs beside them."""
+    import concurrent.futures as cf
+
+    ep = {"data": 1, "expert": 2}
+    with cf.ThreadPoolExecutor(max_workers=4) as pool:
+        probe = pool.submit(gloo_probe_phase)
+        worlds = {tag: pool.submit(_launch_world, cfg, root, tag, world,
+                                   dump_steps=(EP_STEPS,), fault=fault)
+                  for tag, cfg, world, fault in (
+                      ("ep_one", _ep_config("dense", None), 1, "none"),
+                      ("ep_two", _ep_config("sparse", ep), 2, "none"),
+                      ("ep_control", _ep_config("sparse", ep), 2,
+                       "no-exchange"))}
+        worlds = {tag: f.result() for tag, f in worlds.items()}
+        probe.result()
+    one, two, control = (worlds[t] for t in ("ep_one", "ep_two",
+                                             "ep_control"))
+    one = one[0]
+    print(f"expert 2 start-up (s): {_startup_note(worlds)}", flush=True)
     _ok([one, *two, *control], "expert 2")
     want = {k: 0 for k in _flash_per_step(4, None)}
     for r, run in enumerate([one, *two]):
@@ -3264,8 +3458,9 @@ def expert_world_phase(root) -> dict:
     print(f"expert 2 over gloo on one card (gpt-moe-8e, 4 layers, seq 1024, "
           f"batch 8, capacity factor 4): losses {losses[0]}; final loss "
           f"{lo:.6f} vs one process (dense) {lw:.6f}; rank 0 {held[0]}; "
-          f"rank 1 {held[1]}; step ms one process "
-          f"{one['summary']['step_time_s'] * 1e3:.1f}, ranks "
+          f"rank 1 {held[1]}; step ms (the three worlds sharing the card at "
+          f"once) one process {one['summary']['step_time_s'] * 1e3:.1f}, "
+          "ranks "
           + ", ".join(f"{r['summary']['step_time_s'] * 1e3:.1f}" for r in two),
           flush=True)
     return {f"expert_rank{r}": run["launches"] for r, run in enumerate(two)}
@@ -3359,7 +3554,9 @@ def _stop_mesh(run: dict) -> list[dict]:
 def _served_launches(tag: str, lines: list[dict]) -> dict:
     """The flash launches both serving ranks counted while serving (each
     resets its counts once its models are registered); fails on any."""
-    total = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 0)
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    total = dict.fromkeys(fa.LAUNCHES, 0)
     for ln in lines:
         for k, n in ln["launches"].items():
             total[k] += n
@@ -3667,6 +3864,211 @@ def mesh_classifier_phase(root) -> None:
     return launched
 
 
+# phase 32: the seq axis with the local attention impls on one card.
+# llama-1b at full width (d 2048, 32 q / 8 kv heads of 64) cut to 4
+# layers, seq 2048, global batch 4, adamw; two ranks at seq 2 share the
+# card over gloo (its all_gather, all-reduce and all_to_all take CUDA
+# tensors). f32 (TF32 off) for the holds, as phase 29: auto then takes
+# the SIMT f32 kernels on every rank's q block over the gathered keys
+SEQ_MODEL, SEQ_LAYERS, SEQ_BATCH, SEQ_STEPS = "llama-1b", 4, 4, 3
+SEQ_DELTA_TOL = 1e-2         # per row, the parameter change (phase 29's)
+
+
+def _seq_config(impl: str, mesh: dict | None, dtype: str = "float32"
+                ) -> dict:
+    return {"model": SEQ_MODEL, "task": "lm",
+            "model_kwargs": {"n_layers": SEQ_LAYERS, "dtype": dtype,
+                             "attention_impl": impl},
+            "global_batch": SEQ_BATCH, "seq_len": L, "vocab_size": 32000,
+            "optimizer": "adamw", "learning_rate": 3e-4, "warmup_steps": 1,
+            "total_steps": SEQ_STEPS, "seed": 0, "log_every": 1,
+            **({"mesh": mesh} if mesh else {})}
+
+
+def _seq_launches(run: dict, tag: str, dtype: str) -> dict:
+    """A rank's launches: each kernel that takes `dtype` at head_dim 64
+    once per layer a step (no remat), at that instantiation; no other."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    n = SEQ_LAYERS * SEQ_STEPS
+    family = fa.kernels_for(getattr(torch, dtype), 64)
+    want = _launch_counts(n, n, n, family)
+    by_inst = {fa.instance_name(k, dtype, 64): n for k in family}
+    if run["launches"] != want or run["instances"] != by_inst:
+        fail(f"seq {tag}: flash launches {run['launches']}, by "
+             f"instantiation {run['instances']}, want {want}, {by_inst}")
+    return run["launches"]
+
+
+def seq_world_phase(root) -> dict:
+    """Phase 32: the seq axis with attention_impl auto (the K/V gather,
+    ops/seq_attention.py) and the owed Ulysses check, each against one
+    process. In f32, in two waves that each share the card at once (their
+    step times are not read; nine f32 processes at once would not fit its
+    memory): one process, two ranks at seq 2 (each rank's q block over
+    the gathered key prefix, through the f32 SIMT kernels) and the
+    planted control `no-kv-gather` (each rank attends its own block
+    only); then two Ulysses ranks at seq 2 and their control
+    `no-ulysses-exchange`. Each
+    rank's parameter change after 3 steps per row within SEQ_DELTA_TOL of
+    one process's, each control beyond it, the rank losses equal and the
+    final loss within 1e-3 relative; each rank launches every SIMT kernel
+    once per layer a step. Then the same seq world in bf16, alone: its
+    step ms and its wgmma kernel launches. Returns each rank's launches."""
+    import concurrent.futures as cf
+
+    seq2 = {"data": 1, "seq": 2}
+    plan = {"seq_one": (_seq_config("auto", None), 1, "none"),
+            "seq_two": (_seq_config("auto", seq2), 2, "none"),
+            "seq_control": (_seq_config("auto", seq2), 2, "no-kv-gather"),
+            "uly_two": (_seq_config("ulysses", seq2), 2, "none"),
+            "uly_control": (_seq_config("ulysses", seq2), 2,
+                            "no-ulysses-exchange")}
+    runs = {}
+    for wave in (("seq_one", "seq_two", "seq_control"),
+                 ("uly_two", "uly_control")):
+        with cf.ThreadPoolExecutor(max_workers=len(wave)) as pool:
+            futs = {tag: pool.submit(_launch_world, plan[tag][0], root, tag,
+                                     plan[tag][1], dump_steps=(SEQ_STEPS,),
+                                     fault=plan[tag][2])
+                    for tag in wave}
+            runs.update({tag: f.result() for tag, f in futs.items()})
+    _ok([r for ws in runs.values() for r in ws], "seq")
+    one = runs["seq_one"][0]
+    out = {}
+    for tag in ("seq_two", "uly_two"):
+        ranks = runs[tag]
+        if "trainer mesh: Mesh(seq=2) on 2x " not in ranks[0]["out"]:
+            fail(f"seq {tag}: rank 0 did not build the seq=2 mesh")
+        losses = [[ln.split("loss=")[1].split()[0]
+                   for ln in r["out"].splitlines() if " loss=" in ln]
+                  for r in ranks]
+        if losses[0] != losses[1] or len(losses[0]) < SEQ_STEPS - 1:
+            fail(f"seq {tag}: rank losses differ {losses}")
+        control = tag.replace("two", "control")
+        held = [_hold_delta(f"seq {tag} rank {r}",
+                            root / f"{tag}.rank{r}.{SEQ_STEPS}.pt",
+                            root / f"seq_one.rank0.{SEQ_STEPS}.pt",
+                            root / f"{control}.rank{r}.{SEQ_STEPS}.pt",
+                            tol=SEQ_DELTA_TOL) for r in range(2)]
+        lo, lw = ranks[0]["summary"]["final"]["loss"], \
+            one["summary"]["final"]["loss"]
+        if not abs(lo - lw) <= WORLD_LOSS_RTOL * abs(lw):
+            fail(f"seq {tag}: final loss {lo} vs one process {lw}")
+        for r, run in enumerate(ranks):
+            path = f"{tag.replace('two', 'f32')}_rank{r}"
+            out[path] = _seq_launches(run, f"{tag} rank {r}", "float32")
+            INSTANCE_COUNTS[path] = run["instances"]
+        print(f"seq {tag} (llama-1b, {SEQ_LAYERS} layers, seq {L}, batch "
+              f"{SEQ_BATCH}, f32, seq 2 over gloo on one card): losses "
+              f"{losses[0]}; final loss {lo:.6f} vs one process {lw:.6f}; "
+              f"rank 0 {held[0]}; rank 1 {held[1]}", flush=True)
+    _seq_launches(one, "one process", "float32")
+    print(f"seq start-up (s), in waves of three and two worlds: "
+          f"{_startup_note(runs)}", flush=True)
+    bf16 = _launch_world(_seq_config("auto", seq2, "bfloat16"), root,
+                         "seq_bf16", 2)
+    _ok(bf16, "seq bf16")
+    for r, run in enumerate(bf16):
+        out[f"seq_bf16_rank{r}"] = _seq_launches(run, f"bf16 rank {r}",
+                                                 "bfloat16")
+    print(f"seq bf16 (alone on the card): step ms "
+          + ", ".join(f"{r['summary']['step_time_s'] * 1e3:.1f}"
+                      for r in bf16)
+          + f", launches a rank {out['seq_bf16_rank0']} over {SEQ_STEPS} "
+          f"steps; start-up (s) {_startup_note({'seq_bf16': bf16})}",
+          flush=True)
+    return out
+
+
+def classifier_remat_phase() -> dict:
+    """Phase 33: ResNet-50 at examples/resnet50.yaml's point (batch 256,
+    224px, space_to_depth, sgdm, bf16) without remat, then with
+    whole-forward remat `full` and `dots` (the reference's
+    `--resnet-remat`), from the same weights and batch: after two steps
+    (the schedule's first updates) each remat run's parameters per row
+    within 1e-2 of no remat's, its eval-mode logits and BatchNorm
+    statistics within 1e-3 relative (phase 18's limits: the statistics
+    move once a step); then 5 timed steps after 2 warm-up, step ms,
+    images/s and peak GB beside no remat's; no flash launch."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import kernel_check
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    base = {**resnet_yaml_config(), "log_every": 10**9}
+    init = host = want = None
+    figures = {}
+    for policy in ("none", "full", "dots"):
+        cfg = TrainConfig.from_dict({**base, "remat": policy != "none",
+                                     "remat_policy": "full"
+                                     if policy == "none" else policy})
+        t = Trainer(cfg, device="cuda")
+        if init is None:
+            init = {k: v.clone() for k, v in t.model.state_dict().items()}
+            host = next(t.data_iter())
+        else:
+            t.model.load_state_dict(init)
+        batch = t._to_device(host)
+        fa.reset_launches()
+        for _ in range(2):
+            t.train_step(batch)
+        t.model.eval()
+        with torch.no_grad():
+            logits = t.model(batch["image"]).float()
+        t.model.train()
+        params = dict(t.model.named_parameters())
+        got = {"logits": logits,
+               "params": {n: p.detach().float().clone()
+                          for n, p in params.items()},
+               "stats": {n: b.detach().float().clone()
+                         for n, b in t.model.named_buffers()}}
+        for _ in range(2):
+            t.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            m = t.train_step(batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / 5
+        launched = dict(fa.LAUNCHES)
+        if any(launched.values()):
+            fail(f"classifier remat {policy}: flash launches {launched}")
+        figures[policy] = {
+            "step_ms": dt * 1e3, "images_per_s": base["global_batch"] / dt,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del t, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        if want is None:
+            want = got
+            continue
+        worst = 0.0
+        for n, w in want["params"].items():
+            g = got["params"][n]
+            rows = (lambda x: x.reshape(x.shape[0], -1) if x.ndim > 1
+                    else x[None])
+            worst = max(worst, check_rows(f"classifier remat {policy} {n}",
+                                          rows(g), rows(w),
+                                          kernel_check.ROW_TOL)["max_row_err"])
+        rel = {"logits": _rel(got["logits"], want["logits"]),
+               "stats": max(_rel(got["stats"][n], w)
+                            for n, w in want["stats"].items())}
+        if not max(rel.values()) <= CPU_REL_TOL:
+            fail(f"classifier remat {policy}: relative errors {rel} (limit "
+                 f"{CPU_REL_TOL})")
+        figures[policy].update(params_max_row_err=worst, **{
+            f"{k}_rel_err": v for k, v in rel.items()})
+    print("classifier remat (ResNet-50, batch 256, 224px, bf16): "
+          + json.dumps(figures), flush=True)
+    return figures
+
+
 def earlier_phases_worker(argv: list[str]) -> int:
     """`--earlier-phases TREE`: the pinned training step, the pinned
     serving point and MoE serving as the checkout at TREE (this one or
@@ -3733,12 +4135,16 @@ def main() -> int:
           f"({', '.join(p.name for p in paths.values())})", flush=True)
     ptxas = _build.ptxas_report(paths)
     for name, by_d in sorted(ptxas.items()):
-        for d, r in sorted(by_d.items()):
-            print(f"  {name} head_dim {d}: {r.get('registers')} registers "
-                  f"(ptxas, at launch), {r.get('spill_bytes')} bytes spilled")
-    if set(ptxas) != set(fa.LAUNCHES):
-        fail(f"build log names kernels {sorted(ptxas)}, want "
-             f"{sorted(fa.LAUNCHES)}")
+        for (dt, d), r in sorted(by_d.items()):
+            print(f"  {name} {dt} head_dim {d}: {r.get('registers')} "
+                  f"registers (ptxas, at launch), {r.get('spill_bytes')} "
+                  "bytes spilled")
+    built = {(n, dt, d) for n, by_d in ptxas.items() for dt, d in by_d}
+    want = {(n, {"bfloat16": "bf16", "float16": "f16", "float32": "f32"}[
+        str(t).removeprefix("torch.")], d)
+            for (t, d), names in fa.KERNEL_DOMAIN.items() for n in names}
+    if built != want:
+        fail(f"build log names kernels {sorted(built)}, want {sorted(want)}")
 
     phase_s = {}
 
@@ -3876,7 +4282,6 @@ def main() -> int:
         fail(f"the moe serving path launched flash kernels "
              f"{launches['moe_serving']}: decode attends by bmm")
     launches.update(timed_phase("long context", longctx_phase, fa, _build))
-    timed_phase("gloo probe", gloo_probe_phase)
     ep_root = _build.build_dir() / "chip_smoke_expert"
     shutil.rmtree(ep_root, ignore_errors=True)
     ep_root.mkdir(parents=True)
@@ -3895,11 +4300,35 @@ def main() -> int:
         launches["mesh_serving"] = {k: lm[k] + vit[k] for k in lm}
     finally:
         shutil.rmtree(mesh_root, ignore_errors=True)
+    # the seq axis with local attention (and the owed Ulysses check), then
+    # whole-forward remat for the classifiers
+    seq_root = _build.build_dir() / "chip_smoke_seq"
+    shutil.rmtree(seq_root, ignore_errors=True)
+    seq_root.mkdir(parents=True)
+    try:
+        launches.update(timed_phase("seq on one card", seq_world_phase,
+                                    seq_root))
+    finally:
+        shutil.rmtree(seq_root, ignore_errors=True)
+    fa.reset_launches()
+    timed_phase("classifier remat", classifier_remat_phase)
+    launches["classifier_remat"] = dict(fa.LAUNCHES)
+    # the launches of each instantiation that a path runs, counted by
+    # instantiation: the bf16 head_dim 64 ones on the pinned main path, the
+    # f32 head_dim 64 SIMT ones on phase 32's f32 rank 0; no path runs the
+    # others (launches null; their rows: the kernel phase's shapes). Beside
+    # them, every path's count of the kernel over all its instantiations.
     for row in rows:
-        row["launches"] = launches["pinned"][row["name"]]
-        row["launches_by_path"] = {t: n[row["name"]]
-                                   for t, n in launches.items()}
-        if row["name"] == "flash_fwd":
+        k, inst = row["kernel"], (row["dtype"], row["head_dim"])
+        paths = {"pinned": ("bfloat16", 64),
+                 "seq_f32_rank0": ("float32", 64)}
+        main = next((t for t, i in paths.items() if i == inst), None)
+        if main is not None:
+            row["launches"] = INSTANCE_COUNTS[main].get(row["name"], 0)
+            row["launches_path"] = main
+            row["kernel_launches_by_path"] = {t: n[k]
+                                              for t, n in launches.items()}
+        if k == "flash_fwd" and inst == ("bfloat16", 64):
             row["at_entry_shape"] = at_entry
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

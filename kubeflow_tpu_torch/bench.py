@@ -20,8 +20,8 @@ timed on the host clock between two `torch.cuda.synchronize` calls, one
 batch resident on the card; MFU from the port's StepMeter. Prints one
 JSON line with the reference's fields, plus the card and the peak device
 memory. Runs on a CUDA device only: without one it raises.
-`--resnet-remat` raises: the reference's whole-forward remat would
-replay the BatchNorm updates here (ROADMAP Queue 1 item 19b).
+`--resnet-remat full|dots` checkpoints the whole forward, as the
+reference's flag (the line then carries `resnet_remat`).
 An MoE model (`--lm-model gpt-moe-8e`) adds the reference's moe_fill,
 moe_drop and moe_sparse_dispatch keys to the line, read from the last
 warm-up step, so the dispatch path that ran is on record.
@@ -46,8 +46,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--stem", default="space_to_depth",
                    choices=["space_to_depth", "conv7"])
-    p.add_argument("--resnet-remat", default="",
-                   help="not ported (ROADMAP Queue 1 item 19b)")
+    p.add_argument("--resnet-remat", default="", choices=["", "full", "dots"],
+                   help="checkpoint the whole forward under this policy")
     p.add_argument("--lm-model", default="llama-1b")
     p.add_argument("--lm-batch", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=2048)
@@ -95,12 +95,9 @@ def resnet_config(args: argparse.Namespace):
     """The TrainConfig of `bench.py run_resnet` for these flags."""
     from kubeflow_tpu_torch.runtime.trainer import TrainConfig
 
-    if args.resnet_remat:
-        raise NotImplementedError(
-            "--resnet-remat: the reference checkpoints the whole forward; "
-            "replaying it here would move the BatchNorm statistics twice "
-            "(ROADMAP Queue 1 item 19b)")
     return TrainConfig.from_dict(dict(
+        remat=bool(args.resnet_remat),
+        remat_policy=args.resnet_remat or "full",
         model=args.model,
         model_kwargs={"stem": args.stem},
         task="classification",
@@ -171,6 +168,7 @@ def run_resnet(args: argparse.Namespace) -> dict:
         "global_batch": args.batch,
         "image_size": args.image_size,
         "stem": args.stem,
+        **({"resnet_remat": args.resnet_remat} if args.resnet_remat else {}),
         "final_loss": final_loss,
         "device": kind,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,

@@ -34,8 +34,8 @@ B, L, H, HKV, D = 8, 2048, 32, 8, 64
 # window keeps the values it would write alive
 ABLATIONS = {
     "fwd_no_qk_product": ("flash_fwd", (
-        "flash_fwd.cu", "        wgmma_ss_n128(sc, desc_k(",
-        "        if constexpr (D == 0) wgmma_ss_n128(sc, desc_k(")),
+        "flash_fwd.cu", "        wgmma_ss_n128<E>(sc, desc_k(",
+        "        if constexpr (D == 0) wgmma_ss_n128<E>(sc, desc_k(")),
     "fwd_no_pv_product": ("flash_fwd", (
         "flash_fwd.cu", "      fwd_pv<D>(o, pa, ks + kBK * D);",
         "      if constexpr (D == 0) fwd_pv<D>(o, pa, ks + kBK * D);")),
@@ -53,8 +53,8 @@ ABLATIONS = {
         "    for (int r = 0; r < 2 * (a.window < 0); ++r) {\n"
         "      const float li = fmaxf(quad_sum(l[r]), 1e-20f);")),
     "dkv_no_st_product": ("flash_bwd_dkv", (
-        "flash_bwd_dkv.cu", "      wgmma_ss_n64(st, desc_k(",
-        "      if constexpr (D == 0) wgmma_ss_n64(st, desc_k(")),
+        "flash_bwd_dkv.cu", "      wgmma_ss_n64<E>(st, desc_k(",
+        "      if constexpr (D == 0) wgmma_ss_n64<E>(st, desc_k(")),
     "dkv_no_grad_products": ("flash_bwd_dkv", (
         "flash_bwd_dkv.cu", "    dkv_grads<D>(dk, dv, pt, dst, qt);",
         "    if constexpr (D == 0) dkv_grads<D>(dk, dv, pt, dst, qt);")),
@@ -62,11 +62,11 @@ ABLATIONS = {
         "flash_bwd_dkv.cu", "x = ex2(fmaf(x, scale2, -lse2[e & 1]));",
         "x = fmaf(x, scale2, -lse2[e & 1]);")),
     "dq_no_s_product": ("flash_bwd_dq", (
-        "flash_bwd.cu", "        wgmma_ss<kBK>(s, desc_k(",
-        "        if constexpr (D == 0) wgmma_ss<kBK>(s, desc_k(")),
+        "flash_bwd.cu", "        wgmma_ss<kBK, E>(s, desc_k(",
+        "        if constexpr (D == 0) wgmma_ss<kBK, E>(s, desc_k(")),
     "dq_no_dp_product": ("flash_bwd_dq", (
-        "flash_bwd.cu", "        wgmma_ss<kBK>(dp, desc_k(",
-        "        if constexpr (D == 0) wgmma_ss<kBK>(dp, desc_k(")),
+        "flash_bwd.cu", "        wgmma_ss<kBK, E>(dp, desc_k(",
+        "        if constexpr (D == 0) wgmma_ss<kBK, E>(dp, desc_k(")),
     "dq_no_dq_product": ("flash_bwd_dq", (
         "flash_bwd.cu", "      dq_grad<D>(dq, dsa, ks);",
         "      if constexpr (D == 0) dq_grad<D>(dq, dsa, ks);")),

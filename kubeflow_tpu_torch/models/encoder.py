@@ -44,9 +44,11 @@ class EncoderBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 segment_ids: torch.Tensor | None = None, ring: bool = False,
                 seq=None) -> torch.Tensor:
-        """`ring`: the bidirectional ring attention over `seq` (a
-        mesh.AxisGroup; x is then this rank's block of positions), the
-        plain attention without one."""
+        """With `seq` (a mesh.AxisGroup; x is then this rank's block of
+        positions): the bidirectional ring attention over it when `ring`,
+        else the plain attention of this rank's queries over the K/V
+        gathered from every rank (ops/seq_attention.py); without one the
+        plain attention."""
         b, l, _ = x.shape
         qkv = self.qkv(self.tp_in(self.ln_attn(x))).view(b, l, 3, -1,
                                                          self.d_head)
@@ -56,6 +58,11 @@ class EncoderBlock(nn.Module):
 
             att = ring_attention(q, k, v, seq=seq, causal=False,
                                  segment_ids=segment_ids)
+        elif seq is not None:
+            from kubeflow_tpu_torch.ops.seq_attention import seq_attention
+
+            att = seq_attention(q, k, v, seq=seq, causal=False,
+                                impl="reference", segment_ids=segment_ids)
         else:
             att = reference_attention(q, k, v, causal=False,
                                       segment_ids=segment_ids)

@@ -27,6 +27,7 @@ Pallas kernel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -81,6 +82,24 @@ class Conv(nn.Module):
                         stride=self.stride, padding=pad)
 
 
+# Set while a remat replay runs the forward again (`frozen_batch_stats`):
+# the running statistics moved in the first pass and must not move twice.
+_STATS_FROZEN = False
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """BatchNorm normalizes with the batch's statistics as in training
+    but leaves the running ones as they are (whole-forward remat's
+    recompute, runtime/trainer.py)."""
+    global _STATS_FROZEN
+    prev, _STATS_FROZEN = _STATS_FROZEN, True
+    try:
+        yield
+    finally:
+        _STATS_FROZEN = prev
+
+
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=dtype) over the
     channel dim of [B, C, H, W]: f32 `scale` and `bias`, f32 running
@@ -109,17 +128,27 @@ class BatchNorm(nn.Module):
         if self.group is not None:
             return self._global(x)
         # torch moves the running variance toward the UNBIASED batch
-        # variance, flax toward the biased one: let torch update a copy
-        # (autograd keeps what it was given), then scale its step by
-        # (n - 1) / n
+        # variance, flax toward the biased one: let torch update copies
+        # (autograd keeps what it was given), then scale the variance's
+        # step by (n - 1) / n
         n = x.numel() // x.shape[1]
-        var = self.var.clone()
-        y = F.batch_norm(x, self.mean, var, self.scale, self.bias,
+        mean, var = self.mean.clone(), self.var.clone()
+        y = F.batch_norm(x, mean, var, self.scale, self.bias,
                          training=True, momentum=1.0 - BN_MOMENTUM, eps=BN_EPS)
         with torch.no_grad():
             kept = self.var * BN_MOMENTUM
-            self.var.copy_(kept + (var - kept) * ((n - 1) / n))
+            var = kept + (var - kept) * ((n - 1) / n)
+            self._move(mean, var)
         return y
+
+    def _move(self, mean, var) -> None:
+        """Running statistics := (mean, var), unless a remat replay runs
+        (`frozen_batch_stats`): then the same copies go to the new values
+        themselves, so the replay runs the first pass's operations (a
+        selective-checkpoint replay must) and the statistics stay."""
+        dst = (mean, var) if _STATS_FROZEN else (self.mean, self.var)
+        dst[0].copy_(mean)
+        dst[1].copy_(var)
 
 
     def _global(self, x):
@@ -136,8 +165,8 @@ class BatchNorm(nn.Module):
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
         with torch.no_grad():
-            self.mean.mul_(BN_MOMENTUM).add_(mean * (1.0 - BN_MOMENTUM))
-            self.var.mul_(BN_MOMENTUM).add_(var * (1.0 - BN_MOMENTUM))
+            self._move(self.mean * BN_MOMENTUM + mean * (1.0 - BN_MOMENTUM),
+                       self.var * BN_MOMENTUM + var * (1.0 - BN_MOMENTUM))
         shape = (1, c, 1, 1)
         y = (x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + BN_EPS)
         return (y * self.scale.view(shape) + self.bias.view(shape)).to(

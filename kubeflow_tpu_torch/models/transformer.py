@@ -362,7 +362,9 @@ class Attention(nn.Module):
         self.tp_in = self.tp_out = _identity
         self.kv_heads: list[int] | None = None
         self.model_size = 1
-        self.seq = None       # the seq axis' AxisGroup (ring, ulysses)
+        # the seq axis' AxisGroup: ring and ulysses exchange over it, the
+        # local impls gather K/V over it (ops/seq_attention.py)
+        self.seq = None
 
     def forward(self, x, positions, segment_ids=None, decode=None):
         cfg = self.cfg
@@ -392,6 +394,15 @@ class Attention(nn.Module):
                                     block_k=cfg.flash_block_k,
                                     window=cfg.attention_window,
                                     model_size=self.model_size)
+        elif self.seq is not None:
+            from kubeflow_tpu_torch.ops.seq_attention import seq_attention
+
+            out = seq_attention(q, k, v, seq=self.seq, causal=True,
+                                impl=cfg.attention_impl,
+                                segment_ids=segment_ids,
+                                block_q=cfg.flash_block_q,
+                                block_k=cfg.flash_block_k,
+                                window=cfg.attention_window)
         else:
             out = attention(q, k, v, causal=True, impl=cfg.attention_impl,
                             segment_ids=segment_ids,

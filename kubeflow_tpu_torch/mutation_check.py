@@ -5,9 +5,11 @@
 Copies the CUDA sources into `_build/mutants/<name>/` once per planted
 fault, alters the copy (each fault is one text substitution that must
 match exactly once), builds every copy at once, and runs the check of
-chip_smoke.py's kernel phase (`kernel_check.flash_errors` at llama-1b
-attention shapes: causal, window 512, segment ids) with the wrappers
-routed to each altered build. The sources in the checkout are never
+chip_smoke.py's kernel phase (`kernel_check.flash_errors`: causal,
+window 512, segment ids; at llama-1b attention shapes in bf16, and at
+smaller shapes for each other family of instantiations: f16 at head_dim
+64 on the wgmma kernels, f32 at 64 and bf16 at 256 on the SIMT kernels
+of flash_simple.cu) with the wrappers routed to each altered build. The sources in the checkout are never
 changed. The unaltered build must pass and every fault must fail; each
 fault's errors are printed beside the limit, and beside the limit the
 first version of chip_smoke.py used (3e-2 x max(1, max |ref|)), to
@@ -56,7 +58,48 @@ FAULTS = {
     "diagonal_tile_taken_as_interior": (
         "flash_sm90.cuh", "if (a.causal && k_hi > q_lo + offset) return false;",
         "if (a.causal && k_hi - 128 > q_lo + offset) return false;"),
+    # the SIMT kernels (flash_simple.cu): each kernel's walk, dq's delta
+    # and the mask all three share
+    "simple_fwd_skips_last_k_tile": (
+        "flash_simple.cu",
+        "    if (!block_runs(a, q0, kBQ, k0, kBK, offset)) continue;\n"
+        "    __syncthreads();  // the last tile's readers are done",
+        "    if (!block_runs(a, q0, kBQ, k0, kBK, offset) ||\n"
+        "        kb == a.Lk / kBK - 1) continue;\n"
+        "    __syncthreads();  // the last tile's readers are done"),
+    "simple_dq_ds_without_delta": (
+        "flash_simple.cu", "dsc[i] = a.delta[row];", "dsc[i] = 0.f;"),
+    "simple_dkv_skips_last_q_tile": (
+        "flash_simple.cu", "for (int qb = qb_lo; qb < a.Lq / kBQ; ++qb) {",
+        "for (int qb = qb_lo; qb < a.Lq / kBQ - 1; ++qb) {"),
+    "simple_window_one_key_wider": (
+        "flash_simple.cu", "(a.window <= 0 || d < a.window)",
+        "(a.window <= 0 || d <= a.window)"),
+    # the f32 instantiations read every operand rounded to TF32 (10
+    # mantissa bits, to nearest), as a TF32 product would take it
+    "simple_f32_operands_in_tf32": (
+        "flash_simple.cu",
+        "__device__ __forceinline__ float to_f<float>(float x) {\n"
+        "  return x;\n",
+        "__device__ __forceinline__ float to_f<float>(float x) {\n"
+        "  return __uint_as_float((__float_as_uint(x) + 0x1000u) & "
+        "0xffffe000u);\n"),
 }
+# (dtype, head_dim) -> (batch, length, q heads, kv heads) of the cases:
+# the main path's shape for bf16 at 64, smaller ones elsewhere (the SIMT
+# kernels and the plain versions at 64-row tiles are slow at full size)
+SHAPES = {
+    (torch.bfloat16, 64): (B, L, H, HKV),
+    (torch.float16, 64): (2, 1024, 8, 2),
+    (torch.float32, 64): (2, 1024, 8, 2),
+    (torch.bfloat16, 256): (2, 1024, 4, 2),
+}
+
+
+# each dtype's per-row limits, by output (kernel_check.row_tol)
+LIMITS = {str(dtype).removeprefix("torch."): {
+    o: kernel_check.row_tol(dtype, o) for o in ("out", "dq", "dk", "dv")}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32)}
 
 
 def plant(name: str, edit: tuple[str, str, str] | None = None,
@@ -77,20 +120,24 @@ def plant(name: str, edit: tuple[str, str, str] | None = None,
 
 
 def cases():
+    """{case: (args, kwargs)}: causal, window 512 and segments at each
+    (dtype, head_dim) of SHAPES."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for (dtype, d), (b, l, h, hkv) in SHAPES.items():
+        def randn(*shape, dtype=dtype):
+            return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
-    def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).to(
-            torch.bfloat16)
-
-    q, dout = randn(B, L, H, D), randn(B, L, H, D)
-    k, v = randn(B, L, HKV, D), randn(B, L, HKV, D)
-    cuts = torch.rand(B, L, device="cuda", generator=gen) < 4.0 / L
-    seg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
-    args = (q, k, v, dout)
-    return {"causal": (args, dict(window=0)),
-            "window": (args, dict(window=512)),
-            "segments": ((*args, seg, seg), dict(window=0))}
+        q, dout = randn(b, l, h, d), randn(b, l, h, d)
+        k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
+        cuts = torch.rand(b, l, device="cuda", generator=gen) < 4.0 / l
+        seg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+        args = (q, k, v, dout)
+        tag = f"{str(dtype).removeprefix('torch.')}/{d}"
+        out.update({f"{tag} causal": (args, dict(window=0)),
+                    f"{tag} window": (args, dict(window=512)),
+                    f"{tag} segments": ((*args, seg, seg), dict(window=0))})
+    return out
 
 
 def run_cases(data) -> dict:
@@ -98,11 +145,12 @@ def run_cases(data) -> dict:
     "max_row_err": {output: err}, "lse_max_abs_err": err}}"""
     report = {}
     for case, (args, kw) in data.items():
-        errs = kernel_check.flash_errors(*args, scale=D ** -0.5, causal=True,
-                                         **kw)
+        errs = kernel_check.flash_errors(
+            *args, scale=args[0].shape[-1] ** -0.5, causal=True, **kw)
         old = [n for n, e in errs.items() if n != "lse" and
                e["max_abs_err"] > OLD_TOL * max(1.0, e["max_abs_ref"])]
-        report[case] = {"failures": kernel_check.failures(errs),
+        report[case] = {"failures": kernel_check.failures(errs,
+                                                          args[0].dtype),
                         "old_check_fails": bool(old),
                         "max_row_err": {n: e["max_row_err"]
                                         for n, e in errs.items()
@@ -134,17 +182,15 @@ def main() -> int:
         worst = max(max(r["max_row_err"].values()) for r in rep.values())
         # the outputs that miss their limit in some case, so a fault in
         # shared code shows which kernels it reaches
-        missed = sorted({f.split(":")[0] for r in rep.values()
-                         for f in r["failures"]})
+        missed = sorted({f"{case.split()[0]} {f.split(':')[0]}"
+                         for case, r in rep.items() for f in r["failures"]})
         print(f"{name}: {'FAILS' if caught else 'passes'} the check "
               f"{'in ' + ', '.join(missed) + ' ' if missed else ''}"
-              f"(worst row err {worst:.4g}, limits {kernel_check.ROW_TOL}, "
-              f"{kernel_check.OUTPUT_TOL}); "
+              f"(worst row err {worst:.4g}, limits {LIMITS}); "
               f"the max-scaled check {'fails' if old else 'passes'} it"
               f"{'' if caught == want else '  <-- WRONG'}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "row_tol": kernel_check.ROW_TOL,
-                      "output_tol": kernel_check.OUTPUT_TOL,
+                      "row_tol": LIMITS,
                       "results": results}))
     return 0 if ok else 1
 

@@ -24,17 +24,22 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_simple.cu")
 HEADERS = ("flash_sm90.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the launchers (see the extern "C" blocks in csrc/)
+# C signatures of the launchers (see the extern "C" blocks in csrc/):
+# pointers, then B, H, Hkv, Lq, Lk, D and the element code, then scale,
+# causal, window and the stream
+_FWD = [_P] * 7 + [_I] * 7 + [_F, _I, _I, _P]
+_DQ = [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]
+_DKV = [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]
 SIGNATURES = {
-    "kft_flash_fwd": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
-    "kft_flash_bwd_dq": [_P] * 9 + [_I] * 6 + [_F, _I, _I, _P],
-    "kft_flash_bwd_dkv": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _P],
+    "kft_flash_fwd": _FWD, "kft_flash_bwd_dq": _DQ, "kft_flash_bwd_dkv": _DKV,
+    "kft_flash_simple_fwd": _FWD, "kft_flash_simple_bwd_dq": _DQ,
+    "kft_flash_simple_bwd_dkv": _DKV,
 }
 
 _lock = threading.Lock()
@@ -94,21 +99,25 @@ def build(csrc: Path = CSRC, out: Path | None = None) -> dict[str, Path]:
     return paths
 
 
-def ptxas_report(paths: dict[str, Path]) -> dict[str, dict[int, dict]]:
+# the element types as their C++ names mangle
+_MANGLED = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
+def ptxas_report(paths: dict[str, Path]) -> dict[str, dict[tuple, dict]]:
     """Registers and spill bytes of each kernel, by kernel name (the
-    `__global__` function's name without `_kernel`) and head dim, from
-    the `-Xptxas -v` logs of `build`. Registers are ptxas's count at
-    launch; a kernel that moves registers between warpgroups with
-    setmaxnreg runs its consumers above it."""
-    report: dict[str, dict[int, dict]] = {}
+    `__global__` function's name without `_kernel`) and (element type,
+    head dim), e.g. ("bf16", 64), from the `-Xptxas -v` logs of `build`.
+    Registers are ptxas's count at launch; a kernel that moves registers
+    between warpgroups with setmaxnreg runs its consumers above it."""
+    report: dict[str, dict[tuple, dict]] = {}
     for p in paths.values():
         entry = None
         for line in p.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '\S*?(flash_\w+?)_kernel"
-                          r"ILi(\d+)E", line)
+                          r"ILi(\d+)E(13__nv_bfloat16|6__half|f)E", line)
             if m:
-                entry = report.setdefault(m.group(1), {}).setdefault(
-                    int(m.group(2)), {})
+                key = (_MANGLED[m.group(3)], int(m.group(2)))
+                entry = report.setdefault(m.group(1), {}).setdefault(key, {})
             elif entry is not None:
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", line)

@@ -19,9 +19,10 @@
 // tiles (and key segment ids) into a ring of shared-memory stages
 // guarded by mbarriers. Two consumer warpgroups of 64 q rows each run
 // S = Q.K^T and dP = dO.V^T as SS wgmma, form dS in registers rounded to
-// bf16 (as the TPU kernel's ds.astype(k.dtype)), and accumulate
+// E (as the TPU kernel's ds.astype(k.dtype)), and accumulate
 // dQ += dS.K as an RS wgmma with K read MN-major straight from the TMA
-// tile. Interior tiles skip the per-element mask.
+// tile. Interior tiles skip the per-element mask. E, the element type,
+// is bf16 or f16.
 #include "flash_sm90.cuh"
 
 namespace kft::sm90 {
@@ -99,24 +100,24 @@ __device__ __forceinline__ void dq_p_ds(const Args& a, const int* ksg,
   }
 }
 
-// dQ += dS.K for one k tile: dS (64 x kBK, bf16) in registers, the K tile
+// dQ += dS.K for one k tile: dS (64 x kBK, type E) in registers, the K tile
 // `ks` MN-major in shared memory; issued, not waited for.
-template <int D, int kBK = DqTile<D>::kBK>
+template <int D, typename E, int kBK = DqTile<D>::kBK>
 __device__ __forceinline__ void dq_grad(float (&dq)[D / kCols][32],
                                         const uint32_t (&dsa)[kBK / 16][4],
-                                        const bf16* ks) {
+                                        const E* ks) {
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
     for (int n = 0; n < D / kCols; ++n)
-      wgmma_rs_n64(dq[n], dsa[kk], desc_mn(tile_at(ks, kBK, kk * 16, n * 64)));
+      wgmma_rs_n64<E>(dq[n], dsa[kk], desc_mn(tile_at(ks, kBK, kk * 16, n * 64)));
 }
 
 // Persistent: one CTA per SM walks the work items w = blockIdx.x,
 // blockIdx.x + gridDim.x, ...; its producer runs ahead into the next
 // item (two Q/dO buffers, the k/v ring continuing across items) while
 // the consumers finish the last one.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -126,8 +127,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   using T = DqTile<D>;
   constexpr int kBQ = T::kBQ, kBK = T::kBK, kS = T::kStages;
   uint8_t* smem = smem_base();
-  bf16* qbufs = reinterpret_cast<bf16*>(smem);            // 2 x (Q, dO)
-  bf16* kv = reinterpret_cast<bf16*>(smem + T::kKVOff);  // stage: K, V
+  E* qbufs = reinterpret_cast<E*>(smem);            // 2 x (Q, dO)
+  E* kv = reinterpret_cast<E*>(smem + T::kKVOff);  // stage: K, V
   float* rows = reinterpret_cast<float*>(smem + T::kRowOff);
   int* kseg_s = reinterpret_cast<int*>(smem + T::kSegOff);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
@@ -159,7 +160,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
         const QItem it = q_item(a, w, kBQ);
         const int q0 = it.qb * kBQ, hk = it.h / group;
-        bf16* qs = qbufs + (n & 1) * 2 * kBQ * D;
+        E* qs = qbufs + (n & 1) * 2 * kBQ * D;
         float* rs = rows + (n & 1) * 3 * kBQ;
         if (n >= 2) mbar_wait(&qempty[n & 1], (n / 2 + 1) & 1);
         mbar_expect_tx(&qfull[n & 1], 2 * T::kQBytes + (a.qseg ? 3 : 2) *
@@ -183,7 +184,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int s = i % kS;
           if (i >= kS) mbar_wait(&empty[s], (i / kS + 1) & 1);
           mbar_expect_tx(&full[s], 2 * T::kKVBytes + (a.kseg ? kBK * 4 : 0));
-          bf16* ks = kv + s * 2 * kBK * D;
+          E* ks = kv + s * 2 * kBK * D;
           for (int c = 0; c < D / kCols; ++c) {
             tma_load(ks + c * kBK * kCols, &tm_k, &full[s], c * kCols, hk,
                      kb * kBK, it.b);
@@ -207,7 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane / 4, t = lane % 4;
   const size_t q_ld = static_cast<size_t>(a.H) * D;
   float s[kBK / 2], dp[kBK / 2];  // S then P; dP then dS: 64 rows x kBK
-  uint32_t dsa[kBK / 16][4];      // dS rounded to bf16, wgmma's A layout
+  uint32_t dsa[kBK / 16][4];      // dS rounded to E, wgmma's A layout
   float dq[D / kCols][32];
 
   int i = 0, n = 0;
@@ -220,8 +221,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int nb = 0; nb < D / kCols; ++nb)
 #pragma unroll
       for (int e = 0; e < 32; ++e) dq[nb][e] = 0.f;
-    const bf16* qs = qbufs + (n & 1) * 2 * kBQ * D;
-    const bf16* gs = qs + kBQ * D;
+    const E* qs = qbufs + (n & 1) * 2 * kBQ * D;
+    const E* gs = qs + kBQ * D;
     const float* rs = rows + (n & 1) * 3 * kBQ;
     mbar_wait(&qfull[n & 1], (n / 2) & 1);
     // lse in log2 units and delta.scale of this thread's two rows
@@ -238,17 +239,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int kb = dq_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
          kb >= 0; kb = dq_k_tile<D>(a, q0, kb + 1, offset), ++i) {
       const int st = i % kS;
-      const bf16* ks = kv + st * 2 * kBK * D;
-      const bf16* vs = ks + kBK * D;
+      const E* ks = kv + st * 2 * kBK * D;
+      const E* vs = ks + kBK * D;
       mbar_wait(&full[st], (i / kS) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kBK>(s, desc_k(tile_at(qs, kBQ, 64 * c, kk * 16)),
+        wgmma_ss<kBK, E>(s, desc_k(tile_at(qs, kBQ, 64 * c, kk * 16)),
                       desc_k(tile_at(ks, kBK, 0, kk * 16)), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<kBK>(dp, desc_k(tile_at(gs, kBQ, 64 * c, kk * 16)),
+        wgmma_ss<kBK, E>(dp, desc_k(tile_at(gs, kBQ, 64 * c, kk * 16)),
                       desc_k(tile_at(vs, kBK, 0, kk * 16)), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -264,7 +265,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         dq_p_ds<true, kBK>(a, ksg, qpos, qseg, lse2, dsc, k0, offset, t, s,
                            dp);
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) pack_a(dsa[kk], dp, kk);
+      for (int kk = 0; kk < kBK / 16; ++kk) pack_a<E>(dsa[kk], dp, kk);
 #pragma unroll
       for (int nb = 0; nb < D / kCols; ++nb) fence_regs(dq[nb]);
       wgmma_fence();
@@ -281,21 +282,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      bf16* orow = a.out +
+      E* orow = static_cast<E*>(a.out) +
                    (static_cast<size_t>(it.b) * a.Lq + qpos[r]) * q_ld +
                    it.h * D + 2 * t;
 #pragma unroll
       for (int nb = 0; nb < D / kCols; ++nb)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + nb * kCols + 8 * j) =
-              __floats2bfloat162_rn(dq[nb][4 * j + 2 * r],
-                                    dq[nb][4 * j + 2 * r + 1]);
+          store2(orow + nb * kCols + 8 * j, dq[nb][4 * j + 2 * r],
+                 dq[nb][4 * j + 2 * r + 1]);
     }
   }
 }
 
-template <int D>
+template <int D, typename E>
 static cudaError_t launch_dq(const void* q, const void* k, const void* v,
                              const void* dout, const Args& a,
                              cudaStream_t st) {
@@ -303,19 +303,19 @@ static cudaError_t launch_dq(const void* q, const void* k, const void* v,
   CUtensorMap tq, tk, tv, tg;
   int dev = 0, sms = 0;
   cudaError_t err;
-  if ((err = make_map(&tq, q, a.B, a.Lq, a.H, D, T::kBQ)) ||
-      (err = make_map(&tg, dout, a.B, a.Lq, a.H, D, T::kBQ)) ||
-      (err = make_map(&tk, k, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
-      (err = make_map(&tv, v, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
+  if ((err = make_map<E>(&tq, q, a.B, a.Lq, a.H, D, T::kBQ)) ||
+      (err = make_map<E>(&tg, dout, a.B, a.Lq, a.H, D, T::kBQ)) ||
+      (err = make_map<E>(&tk, k, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
+      (err = make_map<E>(&tv, v, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
       (err = cudaGetDevice(&dev)) ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) ||
-      (err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+      (err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, E>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   T::kSmem)))
     return err;
   const int items = a.Lq / T::kBQ * a.H * a.B;
-  flash_bwd_dq_kernel<D><<<min(items, sms), kThreads, T::kSmem, st>>>(
+  flash_bwd_dq_kernel<D, E><<<min(items, sms), kThreads, T::kSmem, st>>>(
       tq, tk, tv, tg, a);
   return cudaGetLastError();
 }
@@ -328,20 +328,26 @@ extern "C" {
 int kft_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* qseg, const void* kseg, void* dq, int B,
-                     int H, int Hkv, int Lq, int Lk, int D, float scale,
-                     int causal, int window, void* stream) {
+                     int H, int Hkv, int Lq, int Lk, int D, int elem,
+                     float scale, int causal, int window, void* stream) {
   using namespace kft::sm90;
   Args a{};
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
-  a.out = static_cast<bf16*>(dq);
+  a.out = dq;
   a.B = B; a.H = H; a.Hkv = Hkv; a.Lq = Lq; a.Lk = Lk;
   a.scale = scale; a.causal = causal; a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return static_cast<int>(launch_dq<64>(q, k, v, dout, a, st));
-  if (D == 128) return static_cast<int>(launch_dq<128>(q, k, v, dout, a, st));
+  if (elem == kElemBf16 && D == 64)
+    return static_cast<int>(launch_dq<64, bf16>(q, k, v, dout, a, st));
+  if (elem == kElemBf16 && D == 128)
+    return static_cast<int>(launch_dq<128, bf16>(q, k, v, dout, a, st));
+  if (elem == kElemF16 && D == 64)
+    return static_cast<int>(launch_dq<64, f16>(q, k, v, dout, a, st));
+  if (elem == kElemF16 && D == 128)
+    return static_cast<int>(launch_dq<128, f16>(q, k, v, dout, a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -16,9 +16,9 @@
 // TMA into a ring of shared-memory stages guarded by mbarriers; two
 // consumer warpgroups of 64 keys each compute S^T = K.Q^T and
 // dP^T = V.dO^T as SS wgmma, form P^T and dS^T in registers rounded to
-// bf16 (as the TPU kernel's p.astype / ds.astype), and accumulate
+// E (as the TPU kernel's p.astype / ds.astype), and accumulate
 // dV += P^T.dO and dK += dS^T.Q as RS wgmma, with dO and Q read MN-major
-// straight from the TMA tiles.
+// straight from the TMA tiles. E, the element type, is bf16 or f16.
 #include "flash_sm90.cuh"
 
 namespace kft::sm90 {
@@ -52,26 +52,26 @@ __device__ __forceinline__ bool dkv_q_tile(const Args& a, int k0, int qb_lo,
 }
 
 // dV += P^T.dO and dK += dS^T.Q for one q tile: P^T and dS^T (64 keys x
-// 64 q rows, bf16) in registers, the tile's Q and dO (`qg`, dO after Q)
+// 64 q rows, type E) in registers, the tile's Q and dO (`qg`, dO after Q)
 // MN-major in shared memory; issued, not waited for.
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void dkv_grads(float (&dk)[D / kCols][32],
                                           float (&dv)[D / kCols][32],
                                           const uint32_t (&pt)[4][4],
                                           const uint32_t (&dst)[4][4],
-                                          const bf16* qg) {
+                                          const E* qg) {
   constexpr int kBQ = DkvTile<D>::kBQ;
-  const bf16* gt = qg + kBQ * D;
+  const E* gt = qg + kBQ * D;
 #pragma unroll
   for (int kk = 0; kk < kBQ / 16; ++kk)
 #pragma unroll
     for (int n = 0; n < D / kCols; ++n)
-      wgmma_rs_n64(dv[n], pt[kk], desc_mn(tile_at(gt, kBQ, kk * 16, n * 64)));
+      wgmma_rs_n64<E>(dv[n], pt[kk], desc_mn(tile_at(gt, kBQ, kk * 16, n * 64)));
 #pragma unroll
   for (int kk = 0; kk < kBQ / 16; ++kk)
 #pragma unroll
     for (int n = 0; n < D / kCols; ++n)
-      wgmma_rs_n64(dk[n], dst[kk], desc_mn(tile_at(qg, kBQ, kk * 16, n * 64)));
+      wgmma_rs_n64<E>(dk[n], dst[kk], desc_mn(tile_at(qg, kBQ, kk * 16, n * 64)));
 }
 
 // P^T = exp(S^T.scale - lse) and dS^T = P^T * (dP^T - delta) * scale for
@@ -112,7 +112,15 @@ __device__ __forceinline__ void dkv_p_ds(const Args& a, const float* rows,
         // the stage's q ids are read whether or not there are any
         const bool ok = (cc >= cc_lo[r]) & (cc < cc_hi[r]) &
                         (!a.qseg | (qseg_s[c0 + (e & 1)] == kseg[r]));
-        x = ex2((ok ? x * scale2 : kNegInf * kLog2e) - lse2[e & 1]);
+        // a masked logit cancels exactly against the lse of a q row no
+        // key may attend (-1e30): exp(0) = 1, as in the plain version and
+        // on the TPU. The fill and the lse are each rounded on their own
+        // (__fmul_rn): nvcc contracted `fill - lse * log2e` into one fma,
+        // whose unrounded product left such rows at p = 0. A valid logit
+        // keeps that fma, as the kernel computed it before
+        const float l = (e & 1) ? lse.y : lse.x;
+        x = ok ? ex2(fmaf(-l, kLog2e, x * scale2))
+               : ex2(kNegInf * kLog2e - __fmul_rn(l, kLog2e));
       } else {
         x = ex2(fmaf(x, scale2, -lse2[e & 1]));
       }
@@ -131,7 +139,7 @@ __device__ __forceinline__ void fence_acc(float (&dk)[D / kCols][32],
   }
 }
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -141,9 +149,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   using T = DkvTile<D>;
   constexpr int kBQ = T::kBQ, kBK = T::kBK, kS = T::kStages;
   uint8_t* smem = smem_base();
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + kBK * D;
-  bf16* qg = reinterpret_cast<bf16*>(smem + T::kStageOff);  // stage: Q, dO
+  E* ks = reinterpret_cast<E*>(smem);
+  E* vs = ks + kBK * D;
+  E* qg = reinterpret_cast<E*>(smem + T::kStageOff);  // stage: Q, dO
   float* rows = reinterpret_cast<float*>(smem + T::kRowOff);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
   uint64_t* empty = full + kS;
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (i >= kS) mbar_wait(&empty[s], (i / kS + 1) & 1);
         mbar_expect_tx(&full[s], 2 * T::kQBytes + (a.qseg ? 3 : 2) *
                                                       T::kRowBytes);
-        bf16* qt = qg + s * 2 * kBQ * D;
+        E* qt = qg + s * 2 * kBQ * D;
         for (int c = 0; c < D / kCols; ++c) {
           tma_load(qt + c * kBQ * kCols, &tm_q, &full[s], c * kCols, h,
                    qb * kBQ, b);
@@ -219,15 +227,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = 0; e < 32; ++e) dk[n][e] = dv[n][e] = 0.f;
   // transposed blocks: rows are this warpgroup's keys, columns the q tile
   float st[kBQ / 2], dpt[kBQ / 2];           // S^T then P^T; dP^T then dS^T
-  uint32_t pt[kBQ / 16][4], dst[kBQ / 16][4];  // P^T, dS^T rounded to bf16
+  uint32_t pt[kBQ / 16][4], dst[kBQ / 16][4];  // P^T, dS^T rounded to E
 
   mbar_wait(kvbar, 0);
   int j = 0, qb = qb_lo, i = 0;
   bool more = dkv_q_tile<D>(a, k0, qb_lo, offset, j, qb);
   while (more) {
     const int s = i % kS;
-    const bf16* qt = qg + s * 2 * kBQ * D;
-    const bf16* gt = qt + kBQ * D;
+    const E* qt = qg + s * 2 * kBQ * D;
+    const E* gt = qt + kBQ * D;
     const int q0 = qb * kBQ;
     ++qb;
     more = dkv_q_tile<D>(a, k0, qb_lo, offset, j, qb);
@@ -235,11 +243,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(st, desc_k(tile_at(ks, kBK, 64 * c, kk * 16)),
+      wgmma_ss_n64<E>(st, desc_k(tile_at(ks, kBK, 64 * c, kk * 16)),
                    desc_k(tile_at(qt, kBQ, 0, kk * 16)), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dpt, desc_k(tile_at(vs, kBK, 64 * c, kk * 16)),
+      wgmma_ss_n64<E>(dpt, desc_k(tile_at(vs, kBK, 64 * c, kk * 16)),
                    desc_k(tile_at(gt, kBQ, 0, kk * 16)), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -253,8 +261,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                           st, dpt);
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk) {
-      pack_a(pt[kk], st, kk);
-      pack_a(dst[kk], dpt, kk);
+      pack_a<E>(pt[kk], st, kk);
+      pack_a<E>(dst[kk], dpt, kk);
     }
     fence_acc<D>(dk, dv);
     wgmma_fence();
@@ -277,33 +285,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const size_t at = off + n * kCols + 8 * jj;
-        *reinterpret_cast<__nv_bfloat162*>(a.out + at) = __floats2bfloat162_rn(
-            dk[n][4 * jj + 2 * r], dk[n][4 * jj + 2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(a.out2 + at) = __floats2bfloat162_rn(
-            dv[n][4 * jj + 2 * r], dv[n][4 * jj + 2 * r + 1]);
+        store2(static_cast<E*>(a.out) + at, dk[n][4 * jj + 2 * r],
+               dk[n][4 * jj + 2 * r + 1]);
+        store2(static_cast<E*>(a.out2) + at, dv[n][4 * jj + 2 * r],
+               dv[n][4 * jj + 2 * r + 1]);
       }
   }
 }
 
-template <int D>
+template <int D, typename E>
 static cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const Args& a,
                               cudaStream_t st) {
   using T = DkvTile<D>;
   CUtensorMap tq, tk, tv, tg;
   cudaError_t err;
-  if ((err = make_map(&tq, q, a.B, a.Lq, a.H, D, T::kBQ)) ||
-      (err = make_map(&tg, dout, a.B, a.Lq, a.H, D, T::kBQ)) ||
-      (err = make_map(&tk, k, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
-      (err = make_map(&tv, v, a.B, a.Lk, a.Hkv, D, T::kBK)))
+  if ((err = make_map<E>(&tq, q, a.B, a.Lq, a.H, D, T::kBQ)) ||
+      (err = make_map<E>(&tg, dout, a.B, a.Lq, a.H, D, T::kBQ)) ||
+      (err = make_map<E>(&tk, k, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
+      (err = make_map<E>(&tv, v, a.B, a.Lk, a.Hkv, D, T::kBK)))
     return err;
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              T::kSmem);
   if (err) return err;
   const dim3 grid(a.Hkv, a.B, a.Lk / T::kBK);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, T::kSmem, st>>>(tq, tk, tv, tg,
-                                                             a);
+  flash_bwd_dkv_kernel<D, E><<<grid, kThreads, T::kSmem, st>>>(tq, tk, tv,
+                                                                tg, a);
   return cudaGetLastError();
 }
 
@@ -315,7 +323,7 @@ extern "C" {
 int kft_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       const void* qseg, const void* kseg, void* dk, void* dv,
-                      int B, int H, int Hkv, int Lq, int Lk, int D,
+                      int B, int H, int Hkv, int Lq, int Lk, int D, int elem,
                       float scale, int causal, int window, void* stream) {
   using namespace kft::sm90;
   Args a{};
@@ -323,13 +331,19 @@ int kft_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.delta = static_cast<const float*>(delta);
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
-  a.out = static_cast<bf16*>(dk);
-  a.out2 = static_cast<bf16*>(dv);
+  a.out = dk;
+  a.out2 = dv;
   a.B = B; a.H = H; a.Hkv = Hkv; a.Lq = Lq; a.Lk = Lk;
   a.scale = scale; a.causal = causal; a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return static_cast<int>(launch_dkv<64>(q, k, v, dout, a, st));
-  if (D == 128) return static_cast<int>(launch_dkv<128>(q, k, v, dout, a, st));
+  if (elem == kElemBf16 && D == 64)
+    return static_cast<int>(launch_dkv<64, bf16>(q, k, v, dout, a, st));
+  if (elem == kElemBf16 && D == 128)
+    return static_cast<int>(launch_dkv<128, bf16>(q, k, v, dout, a, st));
+  if (elem == kElemF16 && D == 64)
+    return static_cast<int>(launch_dkv<64, f16>(q, k, v, dout, a, st));
+  if (elem == kElemF16 && D == 128)
+    return static_cast<int>(launch_dkv<128, f16>(q, k, v, dout, a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,10 +20,11 @@
 // TMA into a ring of shared-memory stages guarded by mbarriers; two
 // consumer warpgroups of 64 q rows each run S = Q.K^T as an SS wgmma,
 // the softmax in registers, and O += P.V as an RS wgmma with P rounded
-// to bf16 in registers (as the TPU kernel's p.astype(v.dtype)) and V read
+// to E in registers (as the TPU kernel's p.astype(v.dtype)) and V read
 // MN-major straight from the TMA tile. Only tiles the causal or window
 // rule cuts, and every tile when segment ids are given, take the
-// per-element mask.
+// per-element mask. E, the element type of q/k/v/out, is bf16 or f16:
+// wgmma and TMA take both at the same shapes.
 #include "flash_sm90.cuh"
 
 namespace kft::sm90 {
@@ -52,25 +53,25 @@ __device__ __forceinline__ int fwd_k_tile(const Args& a, int q0, int kb,
   return -1;
 }
 
-// O += P.V for one k tile: P (64 x 128, bf16) in registers, the V tile
+// O += P.V for one k tile: P (64 x 128, type E) in registers, the V tile
 // `vs` MN-major in shared memory; issued, not waited for.
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void fwd_pv(float (&o)[D / kCols][32],
                                        const uint32_t (&pa)[8][4],
-                                       const bf16* vs) {
+                                       const E* vs) {
   constexpr int kBK = FwdTile<D>::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
     for (int n = 0; n < D / kCols; ++n)
-      wgmma_rs_n64(o[n], pa[kk], desc_mn(tile_at(vs, kBK, kk * 16, n * 64)));
+      wgmma_rs_n64<E>(o[n], pa[kk], desc_mn(tile_at(vs, kBK, kk * 16, n * 64)));
 }
 
 // Persistent: one CTA per SM walks the work items w = blockIdx.x,
 // blockIdx.x + gridDim.x, ...; its producer runs ahead into the next
 // item (two Q buffers, the k/v ring continuing across items) while the
 // consumers finish the last one.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -78,8 +79,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   using T = FwdTile<D>;
   constexpr int kBQ = T::kBQ, kBK = T::kBK, kS = T::kStages;
   uint8_t* smem = smem_base();
-  bf16* qbufs = reinterpret_cast<bf16*>(smem);                // 2 x Q
-  bf16* kv = reinterpret_cast<bf16*>(smem + T::kKVOff);      // stage: K, V
+  E* qbufs = reinterpret_cast<E*>(smem);                // 2 x Q
+  E* kv = reinterpret_cast<E*>(smem + T::kKVOff);      // stage: K, V
   int* kseg_s = reinterpret_cast<int*>(smem + T::kSegOff);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
   uint64_t* empty = full + kS;
@@ -112,7 +113,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
         const QItem it = q_item(a, w, kBQ);
         const int q0 = it.qb * kBQ, hk = it.h / group;
-        bf16* qs = qbufs + (n & 1) * kBQ * D;
+        E* qs = qbufs + (n & 1) * kBQ * D;
         if (n >= 2) mbar_wait(&qempty[n & 1], (n / 2 + 1) & 1);
         mbar_expect_tx(&qfull[n & 1], T::kQBytes);
         for (int c = 0; c < D / kCols; ++c)
@@ -123,7 +124,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int s = i % kS;
           if (i >= kS) mbar_wait(&empty[s], (i / kS + 1) & 1);
           mbar_expect_tx(&full[s], 2 * T::kKVBytes + (a.kseg ? kBK * 4 : 0));
-          bf16* ks = kv + s * 2 * kBK * D;
+          E* ks = kv + s * 2 * kBK * D;
           for (int c = 0; c < D / kCols; ++c) {
             tma_load(ks + c * kBK * kCols, &tm_k, &full[s], c * kCols, hk,
                      kb * kBK, it.b);
@@ -149,7 +150,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float fill2 = kNegInf * kLog2e;   // the -1e30 fill, in log2 units
   const size_t q_ld = static_cast<size_t>(a.H) * D;
   float sc[kBK / 2];         // S, then P: 64 rows x 128 keys
-  uint32_t pa[kBK / 16][4];  // P rounded to bf16, wgmma's A layout
+  uint32_t pa[kBK / 16][4];  // P rounded to E, wgmma's A layout
   float o[D / kCols][32];
 
   int i = 0, n = 0;
@@ -169,18 +170,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int nb = 0; nb < D / kCols; ++nb)
 #pragma unroll
       for (int e = 0; e < 32; ++e) o[nb][e] = 0.f;
-    const bf16* qs = qbufs + (n & 1) * kBQ * D;
+    const E* qs = qbufs + (n & 1) * kBQ * D;
     mbar_wait(&qfull[n & 1], (n / 2) & 1);
 
     for (int kb = fwd_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
          kb >= 0; kb = fwd_k_tile<D>(a, q0, kb + 1, offset), ++i) {
       const int s = i % kS;
-      const bf16* ks = kv + s * 2 * kBK * D;
+      const E* ks = kv + s * 2 * kBK * D;
       mbar_wait(&full[s], (i / kS) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128(sc, desc_k(tile_at(qs, kBQ, 64 * c, kk * 16)),
+        wgmma_ss_n128<E>(sc, desc_k(tile_at(qs, kBQ, 64 * c, kk * 16)),
                       desc_k(tile_at(ks, kBK, 0, kk * 16)), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
@@ -252,9 +253,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 32; ++e) o[nb][e] *= alpha[(e >> 1) & 1];
 
-      // O += P . V, P rounded to bf16
+      // O += P . V, P rounded to E
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) pack_a(pa[kk], sc, kk);
+      for (int kk = 0; kk < kBK / 16; ++kk) pack_a<E>(pa[kk], sc, kk);
 #pragma unroll
       for (int nb = 0; nb < D / kCols; ++nb) fence_regs(o[nb]);
       wgmma_fence();
@@ -273,16 +274,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 0; r < 2; ++r) {
       const float li = fmaxf(quad_sum(l[r]), 1e-20f);
       const float inv = 1.f / li;
-      bf16* orow = a.out +
+      E* orow = static_cast<E*>(a.out) +
                    (static_cast<size_t>(it.b) * a.Lq + qpos[r]) * q_ld +
                    it.h * D + 2 * t;
 #pragma unroll
       for (int nb = 0; nb < D / kCols; ++nb)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + nb * kCols + 8 * j) =
-              __floats2bfloat162_rn(o[nb][4 * j + 2 * r] * inv,
-                                    o[nb][4 * j + 2 * r + 1] * inv);
+          store2(orow + nb * kCols + 8 * j, o[nb][4 * j + 2 * r] * inv,
+                 o[nb][4 * j + 2 * r + 1] * inv);
       if (t == 0) {
         // a row that saw only masked logits keeps the fill exactly, as the
         // plain version's m = -1e30 does
@@ -294,26 +294,26 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int D, typename E>
 static cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                               const Args& a, cudaStream_t st) {
   using T = FwdTile<D>;
   CUtensorMap tq, tk, tv;
   int dev = 0, sms = 0;
   cudaError_t err;
-  if ((err = make_map(&tq, q, a.B, a.Lq, a.H, D, T::kBQ)) ||
-      (err = make_map(&tk, k, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
-      (err = make_map(&tv, v, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
+  if ((err = make_map<E>(&tq, q, a.B, a.Lq, a.H, D, T::kBQ)) ||
+      (err = make_map<E>(&tk, k, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
+      (err = make_map<E>(&tv, v, a.B, a.Lk, a.Hkv, D, T::kBK)) ||
       (err = cudaGetDevice(&dev)) ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) ||
-      (err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+      (err = cudaFuncSetAttribute(flash_fwd_kernel<D, E>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   T::kSmem)))
     return err;
   const int items = a.Lq / T::kBQ * a.H * a.B;
-  flash_fwd_kernel<D><<<min(items, sms), kThreads, T::kSmem, st>>>(tq, tk,
-                                                                   tv, a);
+  flash_fwd_kernel<D, E><<<min(items, sms), kThreads, T::kSmem, st>>>(
+      tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -328,19 +328,25 @@ const char* kft_error_string(int err) {
 // Returns a cudaError_t: the launch's own error, 0 when it was accepted.
 int kft_flash_fwd(const void* q, const void* k, const void* v,
                   const void* qseg, const void* kseg, void* out, void* lse,
-                  int B, int H, int Hkv, int Lq, int Lk, int D, float scale,
-                  int causal, int window, void* stream) {
+                  int B, int H, int Hkv, int Lq, int Lk, int D, int elem,
+                  float scale, int causal, int window, void* stream) {
   using namespace kft::sm90;
   Args a{};
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
-  a.out = static_cast<bf16*>(out);
+  a.out = out;
   a.lse_out = static_cast<float*>(lse);
   a.B = B; a.H = H; a.Hkv = Hkv; a.Lq = Lq; a.Lk = Lk;
   a.scale = scale; a.causal = causal; a.window = window;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return static_cast<int>(launch_fwd<64>(q, k, v, a, st));
-  if (D == 128) return static_cast<int>(launch_fwd<128>(q, k, v, a, st));
+  if (elem == kElemBf16 && D == 64)
+    return static_cast<int>(launch_fwd<64, bf16>(q, k, v, a, st));
+  if (elem == kElemBf16 && D == 128)
+    return static_cast<int>(launch_fwd<128, bf16>(q, k, v, a, st));
+  if (elem == kElemF16 && D == 64)
+    return static_cast<int>(launch_fwd<64, f16>(q, k, v, a, st));
+  if (elem == kElemF16 && D == 128)
+    return static_cast<int>(launch_fwd<128, f16>(q, k, v, a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,8 +6,8 @@
 // _block_runs) at any tile, with the same -1e30 fill.
 //
 // Layout: q/out/dO/dq are [B, Lq, H, D] and k/v/dk/dv [B, Lk, Hkv, D],
-// contiguous, bf16; lse/delta are [B, H, Lq] f32; segment ids [B, L]
-// int32. A tensor map describes one such tensor as 4-D (D, heads, L, B)
+// contiguous, bf16 or f16 (the element type E of each kernel template);
+// lse/delta are [B, H, Lq] f32; segment ids [B, L] int32. A tensor map describes one such tensor as 4-D (D, heads, L, B)
 // and copies boxes of 64 columns x 1 head x `rows` rows: a [rows, D] tile
 // lands in shared memory as D / 64 column blocks of `rows` x 128 bytes,
 // 128B-swizzled, which is the layout wgmma reads. No transposed copy
@@ -17,29 +17,35 @@
 // <cuda.h> for CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace kft::sm90 {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 // two consumer warpgroups (threads 0-255), then one producer warpgroup
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;
-constexpr int kCols = 64;      // bf16 columns of one 128-byte swizzled row
+constexpr int kCols = 64;      // 2-byte columns of one 128-byte swizzled row
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
+// the launchers' element codes (ELEM in ops/flash_attention.py)
+constexpr int kElemBf16 = 0, kElemF16 = 1;
 
 struct Args {
   const float* lse;    // backward: the forward's row logsumexp
   const float* delta;  // backward: rowsum(dO * O)
   const int* qseg;     // optional
   const int* kseg;     // optional
-  bf16* out;           // forward: out; dq: dq; dk/dv: dk
-  bf16* out2;          // dk/dv: dv
+  void* out;           // forward: out; dq: dq; dk/dv: dk (type E)
+  void* out2;          // dk/dv: dv (type E)
   float* lse_out;      // forward: lse
   int B, H, Hkv, Lq, Lk;
   float scale;
@@ -155,7 +161,7 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
 // K-major operand: 16 contraction columns starting at `p`, in rows of 128
 // bytes whose 8-row groups lie 1024 bytes apart (LBO is unused under the
 // 128B swizzle).
-__device__ __forceinline__ uint64_t desc_k(const bf16* p) {
+__device__ __forceinline__ uint64_t desc_k(const void* p) {
   return make_desc(p, 16, 1024);
 }
 
@@ -163,15 +169,16 @@ __device__ __forceinline__ uint64_t desc_k(const bf16* p) {
 // of N in 128 bytes, 8-row groups 1024 bytes apart. Each instruction reads
 // one 64-column block, so the offset between column blocks never applies;
 // both offsets are set to the row-group stride.
-__device__ __forceinline__ uint64_t desc_mn(const bf16* p) {
+__device__ __forceinline__ uint64_t desc_mn(const void* p) {
   return make_desc(p, 1024, 1024);
 }
 
 // Element `c` of column block `c / 64`, row `r`, of a [rows, D] tile as
 // TMA lays it out (the swizzle is applied by the hardware on both sides;
 // addresses handed to wgmma are those of the unswizzled layout).
-__device__ __forceinline__ const bf16* tile_at(const bf16* tile, int rows,
-                                               int r, int c) {
+template <typename E>
+__device__ __forceinline__ const E* tile_at(const E* tile, int rows, int r,
+                                            int c) {
   return tile + (c / kCols) * rows * kCols + r * kCols + c % kCols;
 }
 
@@ -194,114 +201,151 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The accumulator operands of a 64 x N f32 wgmma (N / 2 registers a
+// thread), and their place holders in the instruction.
+#define KFT_ACC64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+  "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+  "+f"(d[62]), "+f"(d[63])
+#define KFT_ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define KFT_REGS64 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
+  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, " \
+  "%39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
+  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+  "}"
+#define KFT_REGS32 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
+  "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
+  "%26, %27, %28, %29, %30, %31" \
+  "}"
+
+// The tensor-map data type of an element type
+template <typename E>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Elem<f16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+template <typename E>
+constexpr bool kIsF16 = std::is_same_v<E, f16>;
+
+#define KFT_WGMMA_SS_N128(TY)                                              \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " " KFT_REGS64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"           \
+               : KFT_ACC64                                                \
+               : "l"(a), "l"(b), "r"(accumulate))
+#define KFT_WGMMA_SS_N64(TY)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " KFT_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"           \
+               : KFT_ACC32                                                \
+               : "l"(a), "l"(b), "r"(accumulate))
+#define KFT_WGMMA_RS_N64(TY)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " " KFT_REGS32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+               : KFT_ACC32                                                \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
 // d (64 x 128, f32) = A . B^T (+ d if accumulate): A and B K-major,
-// bf16, in 128B-swizzled shared memory, given by their descriptors.
+// of type E, in 128B-swizzled shared memory, given by their descriptors.
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
-      "%62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kIsF16<E>)
+    KFT_WGMMA_SS_N128("f16");
+  else
+    KFT_WGMMA_SS_N128("bf16");
 }
 
-// d (64 x 64, f32) = A . B^T (+ d if accumulate): A and B K-major,
-// bf16, in 128B-swizzled shared memory, given by their descriptors.
+// d (64 x 64, f32) = A . B^T (+ d if accumulate): A and B K-major, of
+// type E, in 128B-swizzled shared memory, given by their descriptors.
+template <typename E>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (kIsF16<E>)
+    KFT_WGMMA_SS_N64("f16");
+  else
+    KFT_WGMMA_SS_N64("bf16");
 }
 
 // d (64 x N, f32) = A . B^T (+ d if accumulate), N 64 or 128, as above.
-template <int N>
+template <int N, typename E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate) {
   static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
   if constexpr (N == 128)
-    wgmma_ss_n128(d, a, b, accumulate);
+    wgmma_ss_n128<E>(d, a, b, accumulate);
   else
-    wgmma_ss_n64(d, a, b, accumulate);
+    wgmma_ss_n64<E>(d, a, b, accumulate);
 }
 
-// d (64 x 64, f32) += A . B: A (64 x 16, bf16) in registers in the
-// accumulator layout (pack_p), B (16 x 64) MN-major (N contiguous), bf16,
-// in 128B-swizzled shared memory, given by its descriptor.
+// d (64 x 64, f32) += A . B: A (64 x 16, type E) in registers in the
+// accumulator layout (pack_a), B (16 x 64) MN-major (N contiguous), type
+// E, in 128B-swizzled shared memory, given by its descriptor.
+template <typename E>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
-      "%26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(1));
+  if constexpr (kIsF16<E>)
+    KFT_WGMMA_RS_N64("f16");
+  else
+    KFT_WGMMA_RS_N64("bf16");
 }
 
-// Two f32 rounded to bf16, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 rounded to E, the lower column in the low half.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsF16<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Store two f32 rounded to E at p (4-byte aligned).
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<E>(lo, hi);
 }
 
 // The A fragment of contraction step kk (16 columns) from a 64 x N f32
-// accumulator, rounded to bf16: the accumulator layout of columns
+// accumulator, rounded to E: the accumulator layout of columns
 // 16kk..16kk+15 is the register-A layout of wgmma.
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&d)[N],
                                        int kk) {
-  a[0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = pack2<E>(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack2<E>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<E>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<E>(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // ---------------------------------------------------------------------------
@@ -392,9 +436,11 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// The tensor map of a contiguous [B, L, heads, D] bf16 tensor at `base`,
-// boxes of 64 columns x 1 head x `rows` rows, 128B swizzle. The driver's
-// encoder is looked up through the runtime, so nothing links libcuda.
+// The tensor map of a contiguous [B, L, heads, D] tensor of type E at
+// `base`, boxes of 64 columns x 1 head x `rows` rows, 128B swizzle. The
+// driver's encoder is looked up through the runtime, so nothing links
+// libcuda.
+template <typename E>
 static cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L,
                             int heads, int D, int rows) {
   static EncodeTiled encode = nullptr;
@@ -412,12 +458,12 @@ static cudaError_t make_map(CUtensorMap* map, const void* base, int B, int L,
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(L),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(D) * sizeof(bf16);
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * sizeof(E);
   const cuuint64_t strides[3] = {row, row * heads, row * heads * L};
   const cuuint32_t box[4] = {kCols, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map, Elem<E>::kMap, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -1,9 +1,14 @@
 """Flash attention: CUDA kernels for Hopper, and their plain versions.
 
 Port of kubeflow_tpu/ops/flash_attention.py. The three Pallas TPU
-kernels become three hand-written CUDA kernels for sm_90a (TMA and
-wgmma: `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu` (dq),
-`csrc/flash_bwd_dkv.cu`, built by `_build.py`):
+kernels become hand-written CUDA kernels for sm_90a, built by
+`_build.py`, in two families that together take the reference's whole
+domain (any dtype the port trains in, head_dim 64, 128 or 256;
+`KERNEL_DOMAIN`): bf16 and f16 at head_dim 64 and 128 go to the TMA and
+wgmma kernels (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu` (dq),
+`csrc/flash_bwd_dkv.cu`), f32 at every head dim and bf16/f16 at 256 to
+the SIMT kernels of `csrc/flash_simple.cu`, whose products are f32 FMAs
+(f32 stays f32, as in the reference):
 
 - forward: out and the row logsumexp `lse`, online softmax over k/v tiles;
 - backward dq, and backward dk/dv, both recomputing p from `lse`, with
@@ -25,6 +30,7 @@ keys of the blocks that ran, as on the TPU), never a row that sees a key.
 
 from __future__ import annotations
 
+import collections
 import warnings
 from typing import Optional
 
@@ -36,14 +42,30 @@ from kubeflow_tpu_torch.ops import _build
 # CPU tests compare like with like.
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
-KERNEL_HEAD_DIMS = (64, 128)
+# The CUDA kernels' domain: (dtype, head_dim) -> the (fwd, dq, dk/dv)
+# kernels that take it: SM90, the TMA/wgmma kernels; SIMPLE, the SIMT
+# kernels of csrc/flash_simple.cu.
+SM90 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SIMPLE = ("flash_simple_fwd", "flash_simple_bwd_dq", "flash_simple_bwd_dkv")
+KERNEL_DOMAIN = {
+    (torch.bfloat16, 64): SM90, (torch.bfloat16, 128): SM90,
+    (torch.float16, 64): SM90, (torch.float16, 128): SM90,
+    (torch.bfloat16, 256): SIMPLE, (torch.float16, 256): SIMPLE,
+    (torch.float32, 64): SIMPLE, (torch.float32, 128): SIMPLE,
+    (torch.float32, 256): SIMPLE,
+}
+# the element codes of the launchers (kElem* in csrc/)
+ELEM = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # (block_q, block_k) of each CUDA kernel by head dim, as its source fixes
 # them (FwdTile in csrc/flash_fwd.cu, DqTile in csrc/flash_bwd.cu, DkvTile
-# in csrc/flash_bwd_dkv.cu)
+# in csrc/flash_bwd_dkv.cu, Tile in csrc/flash_simple.cu)
 KERNEL_TILES = {
     "flash_fwd": {64: (128, 128), 128: (128, 128)},
     "flash_bwd_dq": {64: (128, 128), 128: (128, 64)},
     "flash_bwd_dkv": {64: (64, 128), 128: (64, 128)},
+    "flash_simple_fwd": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
+    "flash_simple_bwd_dq": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
+    "flash_simple_bwd_dkv": {64: (64, 64), 128: (64, 64), 256: (64, 32)},
 }
 ALL_KERNEL_TILES = sorted({t for by_d in KERNEL_TILES.values()
                            for t in by_d.values()})
@@ -57,15 +79,35 @@ def kernel_blocks(name: str, head_dim: int) -> dict[str, int]:
     return dict(block_q=block_q, block_k=block_k)
 
 
+def kernels_for(dtype: torch.dtype, head_dim: int) -> tuple[str, str, str]:
+    """The (fwd, dq, dk/dv) kernels that take `dtype` at `head_dim`."""
+    try:
+        return KERNEL_DOMAIN[(dtype, head_dim)]
+    except KeyError:
+        raise ValueError(
+            f"flash kernel takes (dtype, head_dim) in "
+            f"{sorted((str(t), d) for t, d in KERNEL_DOMAIN)}, got "
+            f"({dtype}, {head_dim})") from None
+
+
 NEG_INF = -1e30
 
-# Launches of each CUDA kernel, counted where the wrapper launches it.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# Launches of each CUDA kernel, counted where the wrapper launches it
+# (every element type and head dim of one kernel under its name), and
+# the same launches by instantiation, `name[dtype/head_dim]`.
+LAUNCHES = dict.fromkeys(SM90 + SIMPLE, 0)
+INSTANCE_LAUNCHES: collections.Counter = collections.Counter()
+
+
+def instance_name(name: str, dtype: torch.dtype | str, head_dim: int) -> str:
+    """`name[dtype/head_dim]`, the dtype by its torch name (`bfloat16`)."""
+    return f"{name}[{str(dtype).removeprefix('torch.')}/{head_dim}]"
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    INSTANCE_LAUNCHES.clear()
 
 
 # --------------------------------------------------------------------------
@@ -215,21 +257,21 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None else x.data_ptr()
 
 
-def _check_kernel_inputs(q, k, v, *rest, segs=()):
+def _check_kernel_inputs(q, k, v, *rest, segs=()) -> tuple[str, str, str]:
+    """Raise on inputs no kernel takes; the (fwd, dq, dk/dv) kernels
+    that take these."""
     b, lq, h, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
+    names = kernels_for(q.dtype, d)
     for name, x in (("q", q), ("k", k), ("v", v), *rest):
         if x.device != q.device or not x.is_contiguous():
             raise ValueError(f"flash kernel: {name} must be contiguous on "
                              f"{q.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"flash kernel takes bf16, got {name} "
-                             f"{x.dtype}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"flash kernel: {name} is {x.dtype}, q is "
+                             f"{q.dtype}")
         if x.data_ptr() % 16:
             raise ValueError(f"flash kernel: {name} is not 16-byte aligned")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
-                         f"got {d}")
     if lq % KERNEL_LENGTH or lk % KERNEL_LENGTH:
         raise ValueError(f"flash kernel needs lengths ({lq}, {lk}) that are "
                          f"multiples of {KERNEL_LENGTH}")
@@ -243,25 +285,49 @@ def _check_kernel_inputs(q, k, v, *rest, segs=()):
                               or x.data_ptr() % 16):
             raise ValueError("flash kernel: segment ids must be contiguous, "
                              f"16-byte aligned int32 [B, L] on {q.device}")
+    return names
+
+
+def _launch(name: str, q: torch.Tensor, *args) -> None:
+    """Call kernel `name`'s C launcher on the current stream and count
+    the launch, at q's dtype and head dim."""
+    src, fn = _LAUNCHERS[name]
+    lib = _build.library(src)
+    err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    INSTANCE_LAUNCHES[instance_name(name, q.dtype, q.shape[-1])] += 1
+
+
+# kernel name -> (source, C launcher)
+_LAUNCHERS = {
+    "flash_fwd": ("flash_fwd.cu", "kft_flash_fwd"),
+    "flash_bwd_dq": ("flash_bwd.cu", "kft_flash_bwd_dq"),
+    "flash_bwd_dkv": ("flash_bwd_dkv.cu", "kft_flash_bwd_dkv"),
+    "flash_simple_fwd": ("flash_simple.cu", "kft_flash_simple_fwd"),
+    "flash_simple_bwd_dq": ("flash_simple.cu", "kft_flash_simple_bwd_dq"),
+    "flash_simple_bwd_dkv": ("flash_simple.cu", "kft_flash_simple_bwd_dkv"),
+}
+
+
+def _dims(q, k) -> tuple:
+    b, lq, h, d = q.shape
+    return b, h, k.shape[2], lq, k.shape[1], d, ELEM[q.dtype]
 
 
 def flash_fwd_cuda(q, k, v, qseg=None, kseg=None, *, scale, causal,
                    window=0):
-    """Forward kernel. Same contract as flash_fwd_plain, bf16 only."""
-    _check_kernel_inputs(q, k, v, segs=((qseg, q.shape[1]),
-                                        (kseg, k.shape[1])))
-    b, lq, h, d = q.shape
-    lk, hkv = k.shape[1], k.shape[2]
+    """Forward kernel (the one `KERNEL_DOMAIN` names for q's dtype and
+    head dim). Same contract as flash_fwd_plain."""
+    name = _check_kernel_inputs(q, k, v, segs=((qseg, q.shape[1]),
+                                               (kseg, k.shape[1])))[0]
+    b, lq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
-    lib = _build.library("flash_fwd.cu")
     with torch.cuda.device(q.device):
-        err = lib.kft_flash_fwd(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(qseg), _ptr(kseg), _ptr(out),
-            _ptr(lse), b, h, hkv, lq, lk, d, float(scale), int(causal),
-            int(window), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+        _launch(name, q, _ptr(q), _ptr(k), _ptr(v),
+                _ptr(qseg), _ptr(kseg), _ptr(out), _ptr(lse), *_dims(q, k),
+                float(scale), int(causal), int(window))
     return out, lse
 
 
@@ -284,41 +350,32 @@ def _check_rows(q, *rows):
 def flash_bwd_dq_cuda(q, k, v, g, lse, delta, qseg=None, kseg=None, *,
                       scale, causal, window=0):
     """dq kernel. lse/delta are f32 [B, H, Lq]."""
-    _check_kernel_inputs(q, k, v, ("dout", g),
-                         segs=((qseg, q.shape[1]), (kseg, k.shape[1])))
+    name = _check_kernel_inputs(q, k, v, ("dout", g),
+                                segs=((qseg, q.shape[1]),
+                                      (kseg, k.shape[1])))[1]
     _check_rows(q, lse, delta)
-    b, lq, h, d = q.shape
-    lk, hkv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    lib = _build.library("flash_bwd.cu")
     with torch.cuda.device(q.device):
-        err = lib.kft_flash_bwd_dq(
-            *_bwd_args(q, k, v, g, lse, delta, qseg, kseg), _ptr(dq),
-            b, h, hkv, lq, lk, d, float(scale), int(causal), int(window),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq"] += 1
+        _launch(name, q,
+                *_bwd_args(q, k, v, g, lse, delta, qseg, kseg), _ptr(dq),
+                *_dims(q, k), float(scale), int(causal), int(window))
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, g, lse, delta, qseg=None, kseg=None, *,
                        scale, causal, window=0):
     """dk/dv kernel, summing over each kv head's group of q heads."""
-    _check_kernel_inputs(q, k, v, ("dout", g),
-                         segs=((qseg, q.shape[1]), (kseg, k.shape[1])))
+    name = _check_kernel_inputs(q, k, v, ("dout", g),
+                                segs=((qseg, q.shape[1]),
+                                      (kseg, k.shape[1])))[2]
     _check_rows(q, lse, delta)
-    b, lq, h, d = q.shape
-    lk, hkv = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _build.library("flash_bwd_dkv.cu")
     with torch.cuda.device(q.device):
-        err = lib.kft_flash_bwd_dkv(
-            *_bwd_args(q, k, v, g, lse, delta, qseg, kseg), _ptr(dk),
-            _ptr(dv), b, h, hkv, lq, lk, d, float(scale), int(causal),
-            int(window), torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv"] += 1
+        _launch(name, q,
+                *_bwd_args(q, k, v, g, lse, delta, qseg, kseg), _ptr(dk),
+                _ptr(dv), *_dims(q, k), float(scale), int(causal),
+                int(window))
     return dk, dv
 
 

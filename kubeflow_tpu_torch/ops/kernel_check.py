@@ -12,14 +12,22 @@ row, each is held to its own size. A row whose reference is all but zero
 instead, so exact zeros compare without dividing by zero.
 
 ROW_TOL: bf16 has 8 significant bits, so one rounding moves a value by
-at most 2^-9 (0.2%) of itself. The kernels and their plain versions
-round the same operands the same way and differ in summation order and
-in the exp they call, which flips a rounding now and then: a handful of
-roundings per row at most. dq is held to twice that: each row of ds
-sums to zero (sum_j p_ij (dp_ij - delta_i) = delta_i - delta_i), so
-dq_i = sum_j ds_ij k_j cancels, and the rounding of ds is relative to
-its terms, not to their sum (max row error 0.0076 of the clean kernels
-at llama-1b shapes, against 0.0035 for out, PERF.md).
+at most 2^-9 (0.2%) of itself (f16 has 11: the same limit holds the f16
+kernels with room). The kernels and their plain versions round the same
+operands the same way and differ in summation order and in the exp they
+call, which flips a rounding now and then: a handful of roundings per
+row at most. dq is held to twice that: each row of ds sums to zero
+(sum_j p_ij (dp_ij - delta_i) = delta_i - delta_i), so dq_i = sum_j
+ds_ij k_j cancels, and the rounding of ds is relative to its terms, not
+to their sum (max row error 0.0076 of the clean kernels at llama-1b
+shapes, against 0.0035 for out, PERF.md).
+
+F32_ROW_TOL: the f32 kernels round no operand; they differ from their
+plain versions only in f32 summation order and exp (row errors of a few
+1e-6 at llama-1b shapes, PERF.md). A kernel that took its products in
+TF32 (10 bits kept) or bf16 computes another function: one TF32 rounding
+of each operand already moves a row by a few 1e-4, so the f32 limit sits
+at 1e-4, below that and well above the clean kernels.
 `python -m kubeflow_tpu_torch.mutation_check` shows on the card which
 planted faults these limits catch.
 """
@@ -33,8 +41,9 @@ import torch
 
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
-ROW_TOL = 1e-2
-OUTPUT_TOL = {"dq": 2e-2}              # by output name; else ROW_TOL
+ROW_TOL = 1e-2                         # bf16 and f16 kernels
+F32_ROW_TOL = 1e-4                     # f32 kernels
+OUTPUT_FACTOR = {"dq": 2}              # by output name; else 1
 FLOOR = 1e-3
 LSE_TOL = dict(atol=1e-3, rtol=1e-3)   # f32 lse, 2,048-term sums
 
@@ -81,22 +90,22 @@ def errors(got: torch.Tensor, want: torch.Tensor) -> dict[str, float]:
 
 def flash_errors(q, k, v, dout, qseg=None, kseg=None, *, scale, causal,
                  window=0) -> dict[str, dict[str, float]]:
-    """Run the three flash kernels and their plain versions on the same
-    card tensors, each plain version at its kernel's tiles
-    (`KERNEL_TILES` at q's head dim); return `errors` for each of out,
-    lse, dq, dk and dv. The backward kernels and both plain backward runs
-    take the plain forward's lse and delta, so each kernel is held on its
-    own."""
+    """Run the three flash kernels that take q's dtype and head dim
+    (`KERNEL_DOMAIN`) and their plain versions on the same card tensors,
+    each plain version at its kernel's tiles (`KERNEL_TILES` at q's head
+    dim); return `errors` for each of out, lse, dq, dk and dv. The
+    backward kernels and both plain backward runs take the plain
+    forward's lse and delta, so each kernel is held on its own."""
     cfg = dict(scale=scale, causal=causal, window=window)
     d = q.shape[-1]
+    fwd, dq_k, dkv = fa.kernels_for(q.dtype, d)
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, qseg, kseg, **cfg,
-                                      **fa.kernel_blocks("flash_fwd", d))
+                                      **fa.kernel_blocks(fwd, d))
     dq_p, _, _ = fa.flash_bwd_plain(q, k, v, out_p, lse_p, dout, qseg, kseg,
-                                    **cfg,
-                                    **fa.kernel_blocks("flash_bwd_dq", d))
+                                    **cfg, **fa.kernel_blocks(dq_k, d))
     _, dk_p, dv_p = fa.flash_bwd_plain(
         q, k, v, out_p, lse_p, dout, qseg, kseg, **cfg,
-        **fa.kernel_blocks("flash_bwd_dkv", d))
+        **fa.kernel_blocks(dkv, d))
     out, lse = fa.flash_fwd_cuda(q, k, v, qseg, kseg, **cfg)
     delta = fa.flash_delta(out_p, dout)
     dq = fa.flash_bwd_dq_cuda(q, k, v, dout, lse_p, delta, qseg, kseg, **cfg)
@@ -109,19 +118,27 @@ def flash_errors(q, k, v, dout, qseg=None, kseg=None, *, scale, causal,
             "dv": errors(dv, dv_p)}
 
 
-def failures(errs: dict[str, dict[str, float]]) -> list[str]:
-    """The outputs of `flash_errors` (or any name -> `errors` map; "lse"
-    is held to LSE_TOL, "dq" to OUTPUT_TOL) that miss their limit."""
+def row_tol(dtype: torch.dtype, output: str = "out") -> float:
+    """The per-row limit of a kernel output of `dtype`."""
+    base = F32_ROW_TOL if dtype == torch.float32 else ROW_TOL
+    return base * OUTPUT_FACTOR.get(output, 1)
+
+
+def failures(errs: dict[str, dict[str, float]],
+             dtype: torch.dtype) -> list[str]:
+    """The outputs of `flash_errors` on inputs of `dtype` (or any name ->
+    `errors` map; "lse" is held to LSE_TOL, the others to `row_tol`)
+    that miss their limit."""
     bad = []
     for name, e in errs.items():
-        tol = OUTPUT_TOL.get(name, ROW_TOL)
         if name == "lse":
+            limit = LSE_TOL
             ok = e["max_abs_err"] <= (LSE_TOL["atol"]
                                       + LSE_TOL["rtol"] * e["max_abs_ref"])
         else:
-            ok = e["max_row_err"] <= tol
+            limit = row_tol(dtype, name)
+            ok = e["max_row_err"] <= limit
         if not ok:
-            limit = LSE_TOL if name == "lse" else tol
             bad.append(f"{name}: max row err {e['max_row_err']:.4g}, max abs "
                        f"err {e['max_abs_err']:.4g} (limit {limit})")
     return bad
@@ -129,4 +146,7 @@ def failures(errs: dict[str, dict[str, float]]) -> list[str]:
 
 # the outputs each kernel writes
 KERNEL_OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
-                  "flash_bwd_dkv": ("dk", "dv")}
+                  "flash_bwd_dkv": ("dk", "dv"),
+                  "flash_simple_fwd": ("out", "lse"),
+                  "flash_simple_bwd_dq": ("dq",),
+                  "flash_simple_bwd_dkv": ("dk", "dv")}

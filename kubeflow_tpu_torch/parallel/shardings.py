@@ -567,22 +567,26 @@ def apply_moe(model, plan: dict[str, ParamShard] | None, mesh: Mesh) -> None:
                 p.data = p.data.chunk(expert.size, d)[expert.rank].contiguous()
 
 
+# the attention impls a seq axis takes: the exchanges, and the local
+# impls over K/V gathered from every rank (ops/seq_attention.py)
+SEQ_IMPLS = ("ring", "ulysses", "auto", "flash", "reference")
+
+
 def apply_seq(model, seq) -> None:
     """Sequence parallelism over `seq` (the seq axis' AxisGroup, None at
-    extent 1): the model holds this rank's block of the sequence and its
-    attention exchanges over the group, which needs attention_impl ring
-    or ulysses."""
+    extent 1): the model (an LM, or BERT) holds this rank's block of the
+    sequence and its attention exchanges over the group (ring, ulysses)
+    or gathers the keys of every rank (the local impls)."""
     if seq is None:
         return
     impl = model.cfg.attention_impl
-    if impl not in ("ring", "ulysses"):
-        raise ValueError(
-            f"a seq axis of {seq.size} shards the sequence over ranks: "
-            f"attention_impl {impl!r} attends within this rank's block "
-            "only; use ring or ulysses")
+    if impl not in SEQ_IMPLS:
+        raise ValueError(f"a seq axis of {seq.size} takes attention_impl "
+                         f"in {SEQ_IMPLS}, not {impl!r}")
     model.seq = seq
     for blk in model.blocks():
-        blk.attn.seq = seq
+        if hasattr(blk, "attn"):       # BERT's blocks take it per call
+            blk.attn.seq = seq
 
 
 def grad_groups(plan: dict[str, ParamShard], mesh: Mesh, names) -> dict:

@@ -141,7 +141,9 @@ def run_builtin_trainer(cfg_dict: dict, device: str = "cuda") -> int:
             server.shutdown()
     fa = sys.modules.get("kubeflow_tpu_torch.ops.flash_attention")
     if fa is not None:
-        log.info("flash kernel launches: %s", json.dumps(fa.LAUNCHES))
+        log.info("flash kernel launches: %s; by instantiation: %s",
+                 json.dumps(fa.LAUNCHES),
+                 json.dumps(dict(fa.INSTANCE_LAUNCHES)))
     print(json.dumps({"summary": summary}), flush=True)
     return EX_TEMPFAIL if summary.get("preempted") else 0
 

@@ -3,8 +3,10 @@
 Tasks, as the reference's `_batch_xy` selects them: `lm` (TransformerLM,
 next-token targets), `classification` (images and labels: ResNet, ViT)
 and `seq_classification` (tokens and one label per sequence: BERT).
-One step: the forward (an LM rematerialized per block under `remat`),
-the loss (an LM's chunked over the sequence when `xent_chunks` > 1),
+One step: the forward (an LM rematerialized per block under `remat`, a
+classifier's whole forward checkpointed under `remat` with the
+reference's dots|full policies, BatchNorm's running statistics moving
+once), the loss (an LM's chunked over the sequence when `xent_chunks` > 1),
 backward (over `grad_accum_steps` microbatches when > 1), and an
 optimizer update whose learning rate follows the reference's optax
 warmup-cosine schedule. A ResNet's BatchNorm statistics move with each
@@ -33,9 +35,13 @@ divided by the all-reduced count. Eval metrics are global, the stop
 flag is agreed over the world every step (any rank's stop stops all at
 that step), and the checkpoint holds the whole state, written by rank 0.
 
-The LM's other axes: `seq` cuts every row into blocks of positions, one
-per rank of a seq group (the model's ring or Ulysses attention spans
-them), and the loss sums over seq as over the batch axes; `expert`
+The other axes: `seq` cuts every row of tokens into blocks of
+positions, one per rank of a seq group (the LM's ring or Ulysses
+attention spans them, its local impls and BERT's attention gather K/V
+over the group), and the loss sums over seq as over the batch axes;
+images and labels, as the reference's batch spec, replicate over seq
+(each gradient then sums over seq and divides by the count summed
+there too); `expert`
 shards the batch and the MoE experts (parallel/shardings.py
 `apply_moe`); `pipe` runs the GPipe schedule over stages
 (parallel/pipeline.py), the last stage taking the loss. MoE blocks add
@@ -47,7 +53,9 @@ weighted by valid targets across microbatches.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import glob
 import logging
 import math
@@ -146,13 +154,41 @@ class TrainConfig:
 TASKS = ("classification", "seq_classification", "lm")
 
 
-def _unported(cfg: TrainConfig) -> str | None:
-    """The first config feature the port lacks, with its ROADMAP item."""
-    if cfg.task != "lm" and cfg.remat:
-        return (f"remat for task={cfg.task!r}: the reference checkpoints "
-                "the whole forward; replaying it here would move the "
-                "BatchNorm statistics twice (ROADMAP Queue 1 item 19b)")
-    return None
+# a classifier's whole-forward remat policies (the reference's
+# jax.checkpoint policies: nothing_saveable, dots_with_no_batch_dims_saveable)
+CLASSIFIER_REMAT = ("full", "dots")
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    """`dots` for a classifier: the outputs of plain linear GEMMs
+    (F.linear's mm/addmm), as jax's dots_with_no_batch_dims_saveable
+    saves dot_generals without batch dims; no convolution (not a
+    dot_general) and no bmm (batch dims)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_contexts(policy: str):
+    """(forward, recompute) contexts of a classifier's checkpointed
+    forward: under `dots` the selective-checkpoint pair; the recompute
+    leaves BatchNorm's running statistics where the forward moved them."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    from kubeflow_tpu_torch.models.resnet import frozen_batch_stats
+
+    fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+    if policy == "dots":
+        fwd, rec = create_selective_checkpoint_contexts(_save_dots)
+
+    @contextlib.contextmanager
+    def replay():
+        with rec, frozen_batch_stats():
+            yield
+
+    return fwd, replay()
 
 
 def _batch_xy(cfg: TrainConfig, batch: dict):
@@ -263,9 +299,11 @@ class Trainer:
 
         if cfg.task not in TASKS:
             raise ValueError(f"unknown task {cfg.task!r} ({' | '.join(TASKS)})")
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(f"not ported yet: {missing}")
+        if cfg.task != "lm" and cfg.remat \
+                and cfg.remat_policy not in CLASSIFIER_REMAT:
+            raise ValueError(
+                f"remat_policy {cfg.remat_policy!r} is not supported for "
+                f"task={cfg.task!r} (whole-forward remat takes dots|full)")
         if cfg.task == "seq_classification" and cfg.data_path:
             raise ValueError("seq_classification trains on synthetic "
                              "batches: token shards carry no labels")
@@ -298,12 +336,7 @@ class Trainer:
                     f"global_batch {cfg.global_batch} not divisible by "
                     f"pp_microbatches {cfg.pp_microbatches}")
         self.seq = axis_group(self.mesh, (AXIS_SEQ,))
-        if self.seq is not None:
-            if cfg.task != "lm":
-                raise ValueError(
-                    f"a seq axis of {self.seq.size} cuts the LM's rows into "
-                    f"blocks of positions; task={cfg.task!r} trains on "
-                    "meshes with seq 1")
+        if self.seq is not None and cfg.task != "classification":
             if cfg.seq_len % self.seq.size:
                 raise ValueError(f"seq_len {cfg.seq_len} not divisible by "
                                  f"the seq axis {self.seq.size}")
@@ -329,9 +362,10 @@ class Trainer:
             S.apply_tensor_parallel(self.model, self.plan, self.mesh)
             S.apply_fsdp(self.model, self.plan, self.mesh)
         self._moe = []
+        if cfg.task != "classification":
+            S.apply_seq(self.model, self.seq)
         if cfg.task == "lm":
             S.apply_moe(self.model, self.plan, self.mesh)
-            S.apply_seq(self.model, self.seq)
             self._moe = self.model.moe_blocks()
         # the loss and its valid count sum over every rank that holds a
         # part of the global batch's positions
@@ -439,15 +473,17 @@ class Trainer:
     def _shard(self, batch: dict) -> dict:
         """This rank's contiguous block of rows of a global host batch
         (its index over the batch axes) and, under a seq group, its block
-        of positions of each row (targets are built before the cut)."""
+        of positions of each row of tokens (LM targets are built before
+        the cut; a sequence's label and an image replicate over seq)."""
         if self.dp > 1:
             i = self.mesh.index(BATCH_AXES)
             batch = {k: a[i * len(a) // self.dp:(i + 1) * len(a) // self.dp]
                      for k, a in batch.items()}
-        if self.seq is not None:
+        if self.seq is not None and self.cfg.task != "classification":
             r, n = self.seq.rank, self.seq.size
+            cut = (set(batch) if self.cfg.task == "lm" else {"tokens"})
             batch = {k: a[:, r * a.shape[1] // n:(r + 1) * a.shape[1] // n]
-                     for k, a in batch.items()}
+                     if k in cut else a for k, a in batch.items()}
         return batch
 
     def _sharded(self, it: Iterator[dict]) -> Iterator[dict]:
@@ -600,7 +636,15 @@ class Trainer:
         cfg = self.cfg
         x, y = _batch_xy(cfg, batch)
         if cfg.task != "lm":
-            logits = self.model(x)
+            if cfg.remat and torch.is_grad_enabled():
+                from torch.utils.checkpoint import checkpoint
+
+                logits = checkpoint(
+                    self.model, x, use_reentrant=False,
+                    context_fn=functools.partial(_remat_contexts,
+                                                 cfg.remat_policy))
+            else:
+                logits = self.model(x)
             return _xent_loss(logits, y), _masked_accuracy(logits.argmax(-1), y)
         seg = batch.get("segment_ids")
         if cfg.xent_chunks > 1:

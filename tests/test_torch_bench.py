@@ -63,9 +63,12 @@ def test_resnet_workload_is_run_resnet_s_config():
         "--image-size", "128", "--stem", "conv7", "--steps", "3"]))
     assert (cfg.model, cfg.global_batch, cfg.image_size, cfg.total_steps,
             cfg.model_kwargs) == ("resnet18", 64, 128, 3, {"stem": "conv7"})
-    with pytest.raises(NotImplementedError, match="item 19b"):
-        bench.resnet_config(bench.parse_args(["--workload", "resnet",
-                                              "--resnet-remat", "full"]))
+    for policy in ("full", "dots"):
+        cfg = bench.resnet_config(bench.parse_args([
+            "--workload", "resnet", "--resnet-remat", policy]))
+        assert (cfg.remat, cfg.remat_policy) == (True, policy)
+    with pytest.raises(SystemExit):          # the reference's choices
+        bench.parse_args(["--workload", "resnet", "--resnet-remat", "mlp"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main(["--workload", "resnet", "--steps", "1"])

@@ -300,7 +300,8 @@ def test_launcher_trains_a_resnet_config_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    ({"remat": True}, NotImplementedError, "item 19b"),
+    # whole-forward remat takes the reference's dots|full only
+    ({"remat": True, "remat_policy": "mlp"}, ValueError, "dots|full"),
     ({"model_kwargs": {"num_classes": 5}}, ValueError, "conflicts"),
     ({"task": "seq_classification", "model": "bert-test",
       "data_path": "shards-*"}, ValueError, "no labels"),

@@ -176,7 +176,8 @@ def test_dispatch_on_cpu():
 
 
 def test_flash_supported_rule():
-    # the reference's rule, whatever the dtype; the kernel's own is narrower
+    # the reference's rule, whatever the dtype; the CUDA kernels' domain
+    # covers every dtype the port trains in at each of its head dims
     bf = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16)
     assert tattn._flash_supported(bf, bf)
     assert tattn._flash_supported(bf.float(), bf.float())
@@ -185,9 +186,15 @@ def test_flash_supported_rule():
     assert tattn._flash_supported(wide, wide)
     narrow = torch.zeros(1, 256, 2, 32, dtype=torch.bfloat16)
     assert not tattn._flash_supported(narrow, narrow)
-    assert tattn._kernel_takes(bf)
-    assert not tattn._kernel_takes(bf.float())
-    assert not tattn._kernel_takes(wide)
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for d in (64, 128, 256):
+            x = torch.zeros(1, 256, 2, d, dtype=dtype)
+            assert tattn._flash_supported(x, x)
+            fwd, dq, dkv = tflash.kernels_for(dtype, d)
+            for name in (fwd, dq, dkv):
+                assert d in tflash.KERNEL_TILES[name]
+    with pytest.raises(ValueError):
+        tflash.kernels_for(torch.float64, 64)
 
 
 def test_cpu_wrappers_never_launch_kernels():

@@ -27,9 +27,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, lq, lk, h, hkv, d, seed=0):
+def _inputs(dev, b, lq, lk, h, hkv, d, seed=0, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(torch.bfloat16)  # noqa: E731
+    mk = lambda *s: torch.randn(*s, device=dev, generator=g).to(dtype)  # noqa: E731
     return mk(b, lq, h, d), mk(b, lk, hkv, d), mk(b, lk, hkv, d), mk(b, lq, h, d)
 
 
@@ -79,12 +79,59 @@ CASES = [
     (2, 256, 256, 4, 2, 128, True, 96, False),
     (1, 384, 384, 2, 2, 128, False, 224, False),
     (1, 256, 256, 8, 1, 128, True, 0, True),
+    # lq != lk with distinct q and kv segment ids: rows no key may attend
+    # inside tiles that run (their masked logits give p = 1)
+    (1, 384, 256, 4, 2, 64, True, 0, True),
+    (1, 384, 256, 4, 1, 128, True, 96, True),
+    (2, 256, 512, 4, 2, 64, True, 0, True),
     # head_dim 128 at the main path's full shape (llama-1b widths: 16
     # heads of 128, 4 kv heads, batch 8, seq 2048)
     (8, 2048, 2048, 16, 4, 128, True, 0, False),
     # the entry() forward's shape (gpt-125m: 12 q heads = 12 kv heads)
     (2, 256, 256, 12, 12, 64, True, 0, False),
 ]
+
+
+# The rest of the reference's domain (ops/flash_attention.py
+# KERNEL_DOMAIN): f16 on the wgmma kernels at head_dim 64 and 128; f32 at
+# 64, 128 and 256 and bf16/f16 at 256 on the SIMT kernels of
+# flash_simple.cu, at the edges of their 64-row and 64-key tiles (32-row
+# q tiles and 32-key dk/dv tiles at 256).
+DOMAIN_CASES = [
+    # dtype, b, lq, lk, h, hkv, d, causal, window, segments
+    (torch.float16, 2, 256, 256, 4, 2, 64, True, 0, False),
+    (torch.float16, 1, 384, 256, 4, 1, 128, True, 96, True),
+    (torch.float16, 1, 256, 384, 4, 2, 64, False, 0, True),
+    (torch.float32, 2, 256, 256, 4, 2, 64, True, 0, False),
+    (torch.float32, 1, 128, 384, 4, 2, 64, True, 0, True),
+    (torch.float32, 1, 384, 128, 2, 2, 128, True, 80, False),
+    (torch.float32, 1, 256, 256, 4, 1, 128, False, 0, True),
+    (torch.float32, 1, 256, 256, 4, 1, 256, False, 0, False),
+    (torch.float32, 2, 256, 256, 4, 2, 256, True, 96, True),
+    (torch.bfloat16, 2, 256, 256, 4, 2, 256, True, 0, False),
+    (torch.bfloat16, 1, 384, 512, 4, 1, 256, True, 200, True),
+    (torch.float16, 1, 256, 256, 2, 2, 256, False, 64, False),
+    (torch.float16, 1, 512, 256, 8, 2, 256, True, 0, False),
+    # rank 1 of a seq-2 world at llama-1b widths: its q block against the
+    # gathered key prefix (end-aligned offset = the block's start)
+    (torch.float32, 1, 1024, 2048, 32, 8, 64, True, 0, False),
+]
+
+
+@pytest.mark.parametrize("case", DOMAIN_CASES,
+                         ids=lambda c: "-".join(map(str, c)).replace(
+                             "torch.", ""))
+def test_domain_kernels_match_plain(dev, case):
+    dtype, b, lq, lk, h, hkv, d, causal, window, segments = case
+    q, k, v, dout = _inputs(dev, b, lq, lk, h, hkv, d, dtype=dtype)
+    qseg = kseg = None
+    if segments:
+        qseg = _segs(dev, b, lq)
+        kseg = qseg if lq == lk else _segs(dev, b, lk)
+    errs = kernel_check.flash_errors(q, k, v, dout, qseg, kseg,
+                                     scale=d ** -0.5, causal=causal,
+                                     window=window)
+    assert not kernel_check.failures(errs, dtype), errs
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
@@ -98,7 +145,7 @@ def test_kernels_match_plain(dev, case):
     errs = kernel_check.flash_errors(q, k, v, dout, qseg, kseg,
                                      scale=d ** -0.5, causal=causal,
                                      window=window)
-    assert not kernel_check.failures(errs), errs
+    assert not kernel_check.failures(errs, torch.bfloat16), errs
 
 
 def test_autograd_reaches_kernels(dev):
@@ -108,6 +155,7 @@ def test_autograd_reaches_kernels(dev):
     fa.flash_attention(q, k, v).backward(dout)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        **dict.fromkeys(fa.SIMPLE, 0),
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
@@ -116,18 +164,30 @@ def test_kernel_rejects_unsupported_input(dev):
     with pytest.raises(ValueError):
         fa.flash_fwd_cuda(q, k, v, scale=0.125, causal=True)
     q, k, v, _ = _inputs(dev, 1, 128, 128, 2, 2, 64)
-    with pytest.raises(ValueError):
-        fa.flash_fwd_cuda(q.float(), k.float(), v.float(), scale=0.125,
+    with pytest.raises(ValueError):          # no kernel takes f64
+        fa.flash_fwd_cuda(q.double(), k.double(), v.double(), scale=0.125,
                           causal=True)
+    with pytest.raises(ValueError):          # nor mixed dtypes
+        fa.flash_fwd_cuda(q, k.float(), v, scale=0.125, causal=True)
 
 
 def test_auto_raises_for_shapes_the_kernel_lacks(dev):
-    # the reference sends f32 and head_dim 256 to its flash kernel
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256)):
-        q = torch.zeros(1, 128, 2, d, device=dev, dtype=dtype)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attn.attention(q, q, q, impl="auto")
-        attn.attention(q, q, q, impl="reference")
+    """No shape the reference sends to its flash kernel is left: `auto`
+    launches a kernel for f32 and f16 at head_dim 64 and bf16 at 256,
+    never raising and never taking the plain path, and agrees with the
+    reference attention."""
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 256),
+                     (torch.float16, 64)):
+        q, k, v, _ = _inputs(dev, 1, 128, 128, 2, 2, d, dtype=dtype)
+        fa.reset_launches()
+        got = attn.attention(q, k, v, impl="auto")
+        torch.cuda.synchronize()
+        fwd = fa.kernels_for(dtype, d)[0]
+        assert sum(fa.LAUNCHES.values()) == fa.LAUNCHES[fwd] == 1, (dtype, d)
+        assert fa.INSTANCE_LAUNCHES == {fa.instance_name(fwd, dtype, d): 1}
+        want = attn.attention(q, k, v, impl="reference")
+        e = kernel_check.errors(got, want)
+        assert e["max_row_err"] <= kernel_check.row_tol(dtype), (dtype, d, e)
 
 
 def test_head_product_matches_plain_formula(dev):
@@ -172,6 +232,7 @@ def test_custom_ops_launch_the_kernels(dev, monkeypatch):
                               True, 512, 512, 0)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        **dict.fromkeys(fa.SIMPLE, 0),
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     with pytest.raises(ValueError):          # shapes the kernel lacks raise
         torch.ops.kftpu.flash_fwd(q[:, :100], k[:, :100], v[:, :100], None,
@@ -199,7 +260,8 @@ def test_remat_step_launches(dev, policy, fwd_per_layer):
     loss.backward()
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert dict(fa.LAUNCHES) == {"flash_fwd": 2 * fwd_per_layer,
+    assert dict(fa.LAUNCHES) == {**dict.fromkeys(fa.SIMPLE, 0),
+                                 "flash_fwd": 2 * fwd_per_layer,
                                  "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
 
 

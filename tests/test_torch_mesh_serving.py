@@ -390,10 +390,12 @@ def test_cli_starts_its_world_and_stops_it_in_order():
         lines = [json.loads(ln) for ln in out.splitlines()
                  if ln.startswith('{"serving_rank"')]
         assert sorted(ln["serving_rank"] for ln in lines) == [0, 1]
-        # each rank counts the flash launches while it served: decode
-        # attends by bmm over the cache
-        assert all(ln["launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                      "flash_bwd_dkv": 0} for ln in lines)
+        # each rank counts the launches of every flash kernel while it
+        # served: decode attends by bmm over the cache
+        from kubeflow_tpu_torch.ops import flash_attention as fa
+
+        assert all(ln["launches"] == dict.fromkeys(fa.LAUNCHES, 0)
+                   for ln in lines)
     finally:
         _kill_tree(proc)
 

@@ -100,7 +100,8 @@ def test_train_config_rejects_unknown_keys():
 
 
 @pytest.mark.parametrize("kw", [
-    {"task": "classification", "model": "resnet18", "remat": True},
+    {"task": "classification", "model": "resnet18", "remat": True,
+     "model_kwargs": {"dtype": "float32", "num_filters": 8}},
     {"task": "classification", "model": "vit-test", "remat": True,
      "checkpoint_dir": "ckpt"},
     {"task": "seq_classification", "model": "bert-test", "remat": True,
@@ -108,13 +109,17 @@ def test_train_config_rejects_unknown_keys():
     {"task": "classification", "model": "vit-test", "remat": True,
      "remat_policy": "dots"}])
 def test_unported_config_raises(kw):
-    # every task is ported (tests/test_torch_classification.py), and BERT's
-    # ring attention and the LM's MoE blocks are (tests/test_torch_ring.py,
-    # test_torch_moe.py); what still raises is whole-forward remat for the
-    # classifiers, naming its ROADMAP item
-    cfg = _cfg(ttrainer, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        ttrainer.Trainer(cfg, device="cpu")
+    # no config is refused as unported any more: every task is ported
+    # (tests/test_torch_classification.py), BERT's ring attention and the
+    # LM's MoE blocks are (tests/test_torch_ring.py, test_torch_moe.py),
+    # and so is whole-forward remat for the classifiers
+    # (tests/test_torch_classifier_remat.py): each config trains a step
+    assert not hasattr(ttrainer, "_unported")
+    cfg = _cfg(ttrainer, **{"global_batch": 2, "image_size": 32,
+                            "num_classes": 10, **kw})
+    t = ttrainer.Trainer(cfg, device="cpu")
+    m = t.train_step(t._to_device(next(t.data_iter())))
+    assert np.isfinite(float(m["loss"])) and t.step == 1
 
 
 def test_optimizer_update_rules_match_optax():
