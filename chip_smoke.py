@@ -10,9 +10,11 @@
 2. Kernel phase, every instantiation of the flash kernels' domain
    (`KERNEL_DOMAIN`: bf16 and f16 at head_dim 64 and 128 on the three
    warp-specialised sm_90a kernels, a TMA producer thread feeding an
-   mbarrier ring and two consumer warpgroups running wgmma; f32 at 64,
-   128 and 256 and bf16/f16 at 256 on the three SIMT kernels of
-   flash_simple.cu, f32 FMAs), at llama-1b's attention shapes (q
+   mbarrier ring and two consumer warpgroups running wgmma; bf16 and
+   f16 at 256 on the wgmma forward (64-key tiles), the SIMT dq and the
+   split wgmma dk/dv of flash_bwd_dkv_split.cu; f32 at 64, 128 and 256
+   on the three SIMT kernels of flash_simple.cu, f32 FMAs), at
+   llama-1b's attention shapes (q
    [8, 2048, 32, 64] with 8 kv heads; llama-1b-hd128's [8, 2048, 16,
    128] with 4; [8, 2048, 8, 256] with 2), causal: runs each kernel and
    holds it against its plain PyTorch version on the same inputs, the
@@ -33,6 +35,15 @@
 4. Small reference check: a 2-layer llama-1b-width model gives the same
    logits through the flash kernel as through reference attention, each
    token's logits within 2e-2 per row (two layers of bf16 activations).
+   Then the D256 model check: llama-1b's width over 8 heads of 256 with
+   2 kv heads, 2 layers, one batch [8, 2048], one forward and backward
+   each in bf16 through flash, in bf16 through reference attention and
+   in f32 through reference attention, same weights: flash's logits
+   within 2e-2 per row of the bf16 reference's, its loss within 1e-2
+   relative, each gradient within 1e-2 per row beyond the bf16
+   reference's own row error against the f32 run, and 2 launches each
+   of flash_fwd, flash_simple_bwd_dq and flash_bwd_dkv_split at
+   bfloat16/256 (none of any other kernel).
 5. Remat check: a 2-layer llama-1b-width bf16 model, one batch [8, 2048],
    8 xent chunks. Under each remat policy (full, dots, mlp, slim,
    slim@1) the loss and every parameter gradient are held against no
@@ -304,13 +315,14 @@ Any failure exits non-zero. The lines before the last hold the
 `{"kernels": [...]}` record, one row per kernel and instantiation (`name`
 `kernel[dtype/head_dim]`; `launches`: the launches of that
 instantiation, counted by instantiation (`flash_attention.
-INSTANCE_LAUNCHES`), for bf16 at head_dim 64 on the pinned main path and
-for the f32 SIMT kernels at 64 on phase 32's rank 0 (`launches_path`
-names it); null for the instantiations no path runs, which are timed at
-the kernel phase's shapes; `kernel_launches_by_path`, for the two that
-paths run, each path's count of the kernel over all its instantiations
-(`flash_attention.LAUNCHES`, which holds all six kernels): the training
-paths, entry, `resume`
+INSTANCE_LAUNCHES`), for bf16 at head_dim 64 on the pinned main path,
+for the f32 SIMT kernels at 64 on phase 32's rank 0 and for bf16 at 256
+on phase 4's D256 model check (`launches_path` names it); null for the
+instantiations no path runs, which are timed at
+the kernel phase's shapes; `kernel_launches_by_path`, for the three
+that paths run, each path's count of the kernel over all its instantiations
+(`flash_attention.LAUNCHES`, which holds all seven kernels): the
+`d256_model` check, the training paths, entry, `resume`
 (run B: 16 a step of each kernel, 16 more forwards per eval batch), and
 the serving, rolling, speculative, router and checkpoint-serving paths
 and the classification paths (resnet50, classifier, vit-b16,
@@ -455,10 +467,13 @@ KERNEL_SHAPES = {
 # tensor cores for the 2-byte types; f32 at the CUDA cores' FMA rate, since
 # TF32 would not compute the same function
 PEAK_OPS = {"bfloat16": PEAK_BF16, "float16": PEAK_BF16, "float32": 67e12}
-# TPU kernel each port kernel replaces, by role
+# TPU kernel each port kernel replaces, by role, and its source
 REPLACES = {"fwd": f"{SRC}:140", "dq": f"{SRC}:305", "dkv": f"{SRC}:362"}
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd_dq": "flash_bwd.cu",
-           "flash_bwd_dkv": "flash_bwd_dkv.cu"}
+           "flash_bwd_dkv": "flash_bwd_dkv.cu",
+           "flash_bwd_dkv_split": "flash_bwd_dkv_split.cu",
+           **dict.fromkeys(("flash_simple_fwd", "flash_simple_bwd_dq",
+                            "flash_simple_bwd_dkv"), "flash_simple.cu")}
 
 
 def _kernel_rows(fa, ptxas: dict, dtype_name: str, d: int) -> list[dict]:
@@ -504,15 +519,19 @@ def _kernel_rows(fa, ptxas: dict, dtype_name: str, d: int) -> list[dict]:
     out_p, lse_p = fa.flash_fwd_plain(q, k, v, **cfg,
                                       **fa.kernel_blocks(fwd, d))
     delta = fa.flash_delta(out_p, dout)
-    simple = fwd in fa.SIMPLE                 # the SIMT kernels: slower
-    reps = dict(n=5, reps=3) if simple else {}
     timed = kernel_check.device_ms
+
+    def reps(slow: bool) -> dict:             # the SIMT kernels, f32 SDPA
+        return dict(n=5, reps=3) if slow else {}
+
     ms = {
-        fwd: timed(lambda: fa.flash_fwd_cuda(q, k, v, **cfg), **reps),
+        fwd: timed(lambda: fa.flash_fwd_cuda(q, k, v, **cfg),
+                   **reps(fwd in fa.SIMPLE)),
         dq_name: timed(lambda: fa.flash_bwd_dq_cuda(
-            q, k, v, dout, lse_p, delta, **cfg), **reps),
+            q, k, v, dout, lse_p, delta, **cfg),
+            **reps(dq_name in fa.SIMPLE)),
         dkv: timed(lambda: fa.flash_bwd_dkv_cuda(
-            q, k, v, dout, lse_p, delta, **cfg), **reps),
+            q, k, v, dout, lse_p, delta, **cfg), **reps(dkv in fa.SIMPLE)),
     }
     # the plain versions at each kernel's tiles; the plain backward
     # computes dq, dk and dv together
@@ -530,11 +549,12 @@ def _kernel_rows(fa, ptxas: dict, dtype_name: str, d: int) -> list[dict]:
     kt = k.repeat_interleave(h // hkv, 2).transpose(1, 2).detach().requires_grad_()
     vt = v.repeat_interleave(h // hkv, 2).transpose(1, 2).detach().requires_grad_()
     gt = dout.transpose(1, 2)
+    slow = dtype == torch.float32
     sdpa_fwd = timed(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), **reps)
+        qt, kt, vt, is_causal=True), **reps(slow))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     sdpa_bwd = timed(lambda: torch.autograd.grad(
-        o, (qt, kt, vt), gt, retain_graph=True), **reps)
+        o, (qt, kt, vt), gt, retain_graph=True), **reps(slow))
     library_ms = {fwd: sdpa_fwd, dq_name: sdpa_bwd, dkv: sdpa_bwd}
 
     # bound: the larger of the operations over the dtype's peak and the
@@ -554,13 +574,13 @@ def _kernel_rows(fa, ptxas: dict, dtype_name: str, d: int) -> list[dict]:
         flops, nbytes = work[name]
         t_ops = flops / PEAK_OPS[dtype_name] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        src = "flash_simple.cu" if simple else SOURCES[name]
+        bound = max(t_ops, t_bytes)
         reg = ptxas[name][(dtype_name.replace("bfloat", "bf").replace(
             "float", "f"), d)]
         rows.append({
             "name": f"{name}[{dtype_name}/{d}]", "kernel": name,
             "dtype": dtype_name, "head_dim": d, "route": "cuda",
-            "source": f"kubeflow_tpu_torch/ops/csrc/{src}",
+            "source": f"kubeflow_tpu_torch/ops/csrc/{SOURCES[name]}",
             "replaces": REPLACES[role], "launches": None,
             "shape": [b, l, h, d], "kv_heads": hkv,
             "tile": list(fa.KERNEL_TILES[name][d]),
@@ -571,14 +591,15 @@ def _kernel_rows(fa, ptxas: dict, dtype_name: str, d: int) -> list[dict]:
             "max_abs_err_window": errs[name]["window"]["max_abs_err"],
             "max_abs_err_segments": errs[name]["segments"]["max_abs_err"],
             "ms": ms[name], "plain_ms": plain_ms[name],
-            "bound_ms": max(t_ops, t_bytes),
+            "bound_ms": bound,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms[name],
         })
         print(f"kernel {name} {dtype_name}/{d} at {[b, l, h, d]} kv {hkv}, "
               f"tile {fa.KERNEL_TILES[name][d]}: {ms[name]:.3f} ms (bound "
-              f"{max(t_ops, t_bytes):.3f} ms, plain {plain_ms[name]:.1f} ms, "
-              f"sdpa {library_ms[name]:.3f} ms), {reg}, row errors "
+              f"{bound:.3f} ms, {100 * bound / ms[name]:.1f}% of it; plain "
+              f"{plain_ms[name]:.1f} ms, sdpa {library_ms[name]:.3f} ms), "
+              f"{reg}, row errors "
               f"{ {t: round(e['max_row_err'], 5) for t, e in errs[name].items()} }",
               flush=True)
     bwd = ms[dq_name] + ms[dkv]
@@ -659,6 +680,92 @@ def reference_check() -> None:
     print(f"reference check: 2-layer llama-1b logits, flash vs reference "
           f"attention, max row err {e['max_row_err']:.4g}, max abs err "
           f"{e['max_abs_err']:.4g}", flush=True)
+
+
+# the D256 model check: llama-1b's width over 8 heads of 256 with 2 kv
+# heads (KERNEL_SHAPES' D256 shape), cut to 2 layers
+D256_MODEL = dict(n_layers=2, n_heads=8, n_kv_heads=2, head_dim=256)
+
+
+def d256_model_check(fa) -> dict:
+    """One forward and backward of `D256_MODEL` at [B, L], same weights and
+    tokens, three times: in bf16 through the flash kernels, in bf16
+    through reference attention, and in f32 through reference attention
+    (TF32 off), the exact-dtype computation of the same function. Holds
+    flash's logits to the bf16 reference's within REF_ROW_TOL per row and
+    its loss within kernel_check's ROW_TOL; each gradient's rows to the
+    f32 run's within the bf16 reference's own distance from it plus
+    ROW_TOL (two bf16 attention paths differ by 1-3% per gradient row,
+    each as far from f32: the limit is the error the kernels add). The
+    flash run must launch each of its three D256 kernels once per layer
+    (the wgmma forward, the SIMT dq, the split dk/dv) and nothing else.
+    Returns its launches by kernel; by instantiation they go to
+    INSTANCE_COUNTS["d256_model"]."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import kernel_check
+
+    layers = D256_MODEL["n_layers"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tok = torch.randint(0, 32000, (B, L + 1), device="cuda", generator=gen)
+    res = {}
+    for tag, impl, dtype in (("flash", "flash", torch.bfloat16),
+                             ("reference", "reference", torch.bfloat16),
+                             ("f32", "reference", torch.float32)):
+        model = get_model("llama-1b", device="cuda", seed=0,
+                          attention_impl=impl, dtype=dtype, **D256_MODEL)
+        fa.reset_launches()
+        logits = model(tok[:, :-1])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               tok[:, 1:].reshape(-1))
+        loss.backward()
+        torch.cuda.synchronize()
+        res[tag] = (logits.detach(), loss.detach().reshape(1, 1),
+                    {n: p.grad for n, p in model.named_parameters()},
+                    dict(fa.LAUNCHES), dict(fa.INSTANCE_LAUNCHES))
+        del model, logits, loss
+    logits, loss, grads, launches, inst = res["flash"]
+    want_inst = {fa.instance_name(n, "bfloat16", 256): layers
+                 for n in fa.SM90_D256}
+    if launches != {**dict.fromkeys(fa.LAUNCHES, 0),
+                    **dict.fromkeys(fa.SM90_D256, layers)} \
+            or inst != want_inst:
+        fail(f"d256 model: flash launches {launches}, by instantiation "
+             f"{inst}, want {want_inst}")
+    for tag in ("reference", "f32"):
+        if any(res[tag][3].values()):
+            fail(f"d256 model: reference attention ({tag}) launched "
+                 f"{res[tag][3]}")
+    if logits.shape != (B, L, 32000) or logits.dtype != torch.float32:
+        fail(f"d256 model: logits {tuple(logits.shape)} {logits.dtype}")
+    INSTANCE_COUNTS["d256_model"] = inst
+    e = check_rows("d256 model logits flash vs reference", logits,
+                   res["reference"][0], REF_ROW_TOL)
+    e_loss = check_rows("d256 model loss flash vs reference", loss,
+                        res["reference"][1], kernel_check.ROW_TOL)
+    worst = (-math.inf, "", 0.0, 0.0)
+    for name, g in grads.items():
+        row = g.shape[-1]
+        exact = res["f32"][2][name].reshape(-1, row)
+        floor = kernel_check.errors(res["reference"][2][name].reshape(-1, row),
+                                    exact)["max_row_err"]
+        got = check_rows(f"d256 model gradient {name}: flash vs f32 (the "
+                         f"bf16 reference's own row err {floor:.4g})",
+                         g.reshape(-1, row), exact,
+                         floor + kernel_check.ROW_TOL)["max_row_err"]
+        worst = max(worst, (got - floor, name, got, floor))
+    print(f"d256 model check: llama-1b width, 8 heads of 256 (2 kv), "
+          f"{layers} layers, bf16 [{B}, {L}]: flash vs reference logits max "
+          f"row err {e['max_row_err']:.4g}, loss {loss.item():.6f} "
+          f"(rel err {e_loss['max_row_err']:.3g}); {len(grads)} gradients "
+          f"against f32, largest excess over the bf16 reference's row err "
+          f"{worst[0]:.4g} ({worst[1]}: {worst[2]:.4g} against "
+          f"{worst[3]:.4g}, limit +{kernel_check.ROW_TOL}); launches {inst}",
+          flush=True)
+    del res, logits, grads
+    return launches
 
 
 def remat_check(fa) -> None:
@@ -4160,7 +4267,7 @@ def main() -> int:
     rows = timed_phase("kernels", kernel_phase, fa, ptxas)
     timed_phase("head", head_check)
     timed_phase("reference", reference_check)
-    launches = {}
+    launches = {"d256_model": timed_phase("d256 model", d256_model_check, fa)}
     launches["entry"], at_entry = timed_phase("entry", entry_phase, fa)
     timed_phase("remat", remat_check, fa)
     step_s = {}
@@ -4315,13 +4422,15 @@ def main() -> int:
     launches["classifier_remat"] = dict(fa.LAUNCHES)
     # the launches of each instantiation that a path runs, counted by
     # instantiation: the bf16 head_dim 64 ones on the pinned main path, the
-    # f32 head_dim 64 SIMT ones on phase 32's f32 rank 0; no path runs the
-    # others (launches null; their rows: the kernel phase's shapes). Beside
-    # them, every path's count of the kernel over all its instantiations.
+    # f32 head_dim 64 SIMT ones on phase 32's f32 rank 0, the bf16 head_dim
+    # 256 ones on the D256 model check; no path runs the others (launches
+    # null; their rows: the kernel phase's shapes). Beside them, every
+    # path's count of the kernel over all its instantiations.
     for row in rows:
         k, inst = row["kernel"], (row["dtype"], row["head_dim"])
         paths = {"pinned": ("bfloat16", 64),
-                 "seq_f32_rank0": ("float32", 64)}
+                 "seq_f32_rank0": ("float32", 64),
+                 "d256_model": ("bfloat16", 256)}
         main = next((t for t, i in paths.items() if i == inst), None)
         if main is not None:
             row["launches"] = INSTANCE_COUNTS[main].get(row["name"], 0)

@@ -34,8 +34,8 @@ B, L, H, HKV, D = 8, 2048, 32, 8, 64
 # window keeps the values it would write alive
 ABLATIONS = {
     "fwd_no_qk_product": ("flash_fwd", (
-        "flash_fwd.cu", "        wgmma_ss_n128<E>(sc, desc_k(",
-        "        if constexpr (D == 0) wgmma_ss_n128<E>(sc, desc_k(")),
+        "flash_fwd.cu", "        wgmma_ss<kBK, E>(sc, desc_k(",
+        "        if constexpr (D == 0) wgmma_ss<kBK, E>(sc, desc_k(")),
     "fwd_no_pv_product": ("flash_fwd", (
         "flash_fwd.cu", "      fwd_pv<D>(o, pa, ks + kBK * D);",
         "      if constexpr (D == 0) fwd_pv<D>(o, pa, ks + kBK * D);")),

@@ -8,9 +8,12 @@ match exactly once), builds every copy at once, and runs the check of
 chip_smoke.py's kernel phase (`kernel_check.flash_errors`: causal,
 window 512, segment ids; at llama-1b attention shapes in bf16, and at
 smaller shapes for each other family of instantiations: f16 at head_dim
-64 on the wgmma kernels, f32 at 64 and bf16 at 256 on the SIMT kernels
-of flash_simple.cu) with the wrappers routed to each altered build. The sources in the checkout are never
-changed. The unaltered build must pass and every fault must fail; each
+64 on the wgmma kernels, f32 at 64 on the SIMT kernels of
+flash_simple.cu, bf16 at 256 on the wgmma forward, the SIMT dq and the
+split dk/dv of flash_bwd_dkv_split.cu) with the wrappers routed to each
+altered build. The sources in the checkout are never changed. The
+unaltered build must pass and every fault must fail, a fault of
+`MUST_CATCH` in the cases it names; each
 fault's errors are printed beside the limit, and beside the limit the
 first version of chip_smoke.py used (3e-2 x max(1, max |ref|)), to
 show which faults that one let through. Exits non-zero when the clean
@@ -69,6 +72,23 @@ FAULTS = {
         "    __syncthreads();  // the last tile's readers are done"),
     "simple_dq_ds_without_delta": (
         "flash_simple.cu", "dsc[i] = a.delta[row];", "dsc[i] = 0.f;"),
+    # the forward's P.V reads the V tile of the ring's next stage
+    "fwd_v_from_next_stage": (
+        "flash_fwd.cu", "fwd_pv<D>(o, pa, ks + kBK * D);",
+        "fwd_pv<D>(o, pa, kv + (s + 1) % kS * 2 * kBK * D + kBK * D);"),
+    # the split dk/dv kernel of head_dim 256: its walk, dS without delta,
+    # and warpgroup B's delta read from the other stage's rows
+    "dkv_split_skips_last_q_tile": (
+        "flash_bwd_dkv_split.cu", "for (; qb < a.Lq / T::kBQ; ++qb)",
+        "for (; qb < a.Lq / T::kBQ - 1; ++qb)"),
+    "dkv_split_ds_without_delta": (
+        "flash_bwd_dkv_split.cu",
+        "const float dsc[2] = {del.x * a.scale, del.y * a.scale};",
+        "const float dsc[2] = {0.f, 0.f};"),
+    "dkv_split_delta_of_other_stage": (
+        "flash_bwd_dkv_split.cu",
+        "split_ds<kBQ>(a, rs + kBQ, pt, tid, t, st);",
+        "split_ds<kBQ>(a, rows + (s ^ 1) * 3 * kBQ + kBQ, pt, tid, t, st);"),
     "simple_dkv_skips_last_q_tile": (
         "flash_simple.cu", "for (int qb = qb_lo; qb < a.Lq / kBQ; ++qb) {",
         "for (int qb = qb_lo; qb < a.Lq / kBQ - 1; ++qb) {"),
@@ -85,6 +105,12 @@ FAULTS = {
         "  return __uint_as_float((__float_as_uint(x) + 0x1000u) & "
         "0xffffe000u);\n"),
 }
+# faults that must fail in the cases of one (dtype, head_dim): those that
+# reach the head_dim 256 wgmma kernels
+MUST_CATCH = dict.fromkeys(
+    ("fwd_skips_last_k_tile", "fwd_v_from_next_stage",
+     "dkv_split_skips_last_q_tile", "dkv_split_ds_without_delta",
+     "dkv_split_delta_of_other_stage"), "bfloat16/256")
 # (dtype, head_dim) -> (batch, length, q heads, kv heads) of the cases:
 # the main path's shape for bf16 at 64, smaller ones elsewhere (the SIMT
 # kernels and the plain versions at 64-row tiles are slow at full size)
@@ -175,7 +201,8 @@ def main() -> int:
             results[name] = run_cases(data)
     ok = True
     for name, rep in results.items():
-        caught = any(r["failures"] for r in rep.values())
+        caught = any(r["failures"] for case, r in rep.items()
+                     if case.startswith(MUST_CATCH.get(name, "")))
         old = any(r["old_check_fails"] for r in rep.values())
         want = name != "clean"
         ok &= caught == want

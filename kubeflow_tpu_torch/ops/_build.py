@@ -24,7 +24,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_simple.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv.cu",
+           "flash_bwd_dkv_split.cu", "flash_simple.cu")
 HEADERS = ("flash_sm90.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +39,7 @@ _DQ = [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]
 _DKV = [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]
 SIGNATURES = {
     "kft_flash_fwd": _FWD, "kft_flash_bwd_dq": _DQ, "kft_flash_bwd_dkv": _DKV,
+    "kft_flash_bwd_dkv_split": _DKV,
     "kft_flash_simple_fwd": _FWD, "kft_flash_simple_bwd_dq": _DQ,
     "kft_flash_simple_bwd_dkv": _DKV,
 }

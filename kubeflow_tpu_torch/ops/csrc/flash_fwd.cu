@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel` / `_flash_fwd`
 // (kubeflow_tpu/ops/flash_attention.py). A work item is one (128-row q
 // tile, q head, batch row), heaviest causal tiles first, on a persistent
-// grid of one CTA per SM; it walks the 128-key k/v tiles the
-// causal/window rules let it see, and keeps the online
+// grid of one CTA per SM; it walks the k/v tiles (128 keys; 64 at head
+// dim 256) the causal/window rules let it see, and keeps the online
 // softmax (running max m, running sum l, output accumulator) in
 // registers, as the TPU kernel keeps it in VMEM scratch across its
 // sequential k grid axis.
@@ -15,7 +15,8 @@
 // with the softmax's exp as large at D 64 (one exp per 128 FLOPs of
 // products: a 128 x 128 tile takes as long on the SM's 16 exp units as
 // on its tensor cores). On the card the softmax's instruction stream,
-// not the products, sets the time at D 64 (PERF.md).
+// not the products, sets the time at D 64 (PERF.md). At D 256 there is
+// one exp per 512 FLOPs of products: the products should set the time.
 // Design: warp specialisation. One producer thread streams k/v tiles by
 // TMA into a ring of shared-memory stages guarded by mbarriers; two
 // consumer warpgroups of 64 q rows each run S = Q.K^T as an SS wgmma,
@@ -25,21 +26,34 @@
 // rule cuts, and every tile when segment ids are given, take the
 // per-element mask. E, the element type of q/k/v/out, is bf16 or f16:
 // wgmma and TMA take both at the same shapes.
+//
+// Shared memory and registers by head dim (FwdTile): at D 64 and 128,
+// two Q buffers of 128 rows (the producer loads the next item's Q while
+// the consumers finish this one) and 128-key K/V stages (3 at D 64, 2 at
+// 128); a consumer thread holds S over 128 keys (64 registers), P packed
+// (32) and O (D / 2). At D 256 that layout would pass both limits (two
+// Q buffers are 128 KB, two 128-key stages 256 KB more; O alone is 128
+// registers), so D 256 takes one Q buffer (64 KB), 64-key K/V stages
+// (2 x 64 KB) and S over 64 keys: 193 KB of shared memory, and O 128 +
+// S 32 + P 16 registers a consumer thread under setmaxnreg 232.
 #include "flash_sm90.cuh"
 
 namespace kft::sm90 {
 
 template <int D>
 struct FwdTile {
-  static constexpr int kBQ = 128, kBK = 128;  // KERNEL_TILES["flash_fwd"]
+  // KERNEL_TILES["flash_fwd"]
+  static constexpr int kBQ = 128, kBK = D == 256 ? 64 : 128;
   static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQBufs = D == 256 ? 1 : 2;
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK * D * 2;  // one of K, V
-  // shared memory: 2 x Q | stages x (K | V) | stages x kseg | barriers
-  static constexpr int kKVOff = 2 * kQBytes;
+  // shared memory: Q buffers | stages x (K | V) | stages x kseg | barriers
+  static constexpr int kKVOff = kQBufs * kQBytes;
   static constexpr int kSegOff = kKVOff + kStages * 2 * kKVBytes;
   static constexpr int kBarOff = kSegOff + kStages * kBK * 4;
-  static constexpr int kSmem = kBarOff + (2 * kStages + 4) * 8 + 1024;
+  static constexpr int kSmem =
+      kBarOff + (2 * kStages + 2 * kQBufs) * 8 + 1024;
 };
 
 // The first k tile at or after kb that _block_runs lets the q tile at q0
@@ -53,12 +67,12 @@ __device__ __forceinline__ int fwd_k_tile(const Args& a, int q0, int kb,
   return -1;
 }
 
-// O += P.V for one k tile: P (64 x 128, type E) in registers, the V tile
-// `vs` MN-major in shared memory; issued, not waited for.
+// O += P.V for one k tile: P (64 x kBK, type E) in registers, the V
+// tile `vs` MN-major in shared memory; issued, not waited for.
 template <int D, typename E>
-__device__ __forceinline__ void fwd_pv(float (&o)[D / kCols][32],
-                                       const uint32_t (&pa)[8][4],
-                                       const E* vs) {
+__device__ __forceinline__ void fwd_pv(
+    float (&o)[D / kCols][32], const uint32_t (&pa)[FwdTile<D>::kBK / 16][4],
+    const E* vs) {
   constexpr int kBK = FwdTile<D>::kBK;
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk)
@@ -69,8 +83,8 @@ __device__ __forceinline__ void fwd_pv(float (&o)[D / kCols][32],
 
 // Persistent: one CTA per SM walks the work items w = blockIdx.x,
 // blockIdx.x + gridDim.x, ...; its producer runs ahead into the next
-// item (two Q buffers, the k/v ring continuing across items) while the
-// consumers finish the last one.
+// item (the k/v ring continuing across items, and with two Q buffers the
+// next Q) while the consumers finish the last one.
 template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -78,14 +92,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const __grid_constant__ CUtensorMap tm_v, const Args a) {
   using T = FwdTile<D>;
   constexpr int kBQ = T::kBQ, kBK = T::kBK, kS = T::kStages;
+  constexpr int kQB = T::kQBufs;
   uint8_t* smem = smem_base();
-  E* qbufs = reinterpret_cast<E*>(smem);                // 2 x Q
+  E* qbufs = reinterpret_cast<E*>(smem);                // kQB x Q
   E* kv = reinterpret_cast<E*>(smem + T::kKVOff);      // stage: K, V
   int* kseg_s = reinterpret_cast<int*>(smem + T::kSegOff);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
   uint64_t* empty = full + kS;
   uint64_t* qfull = empty + kS;
-  uint64_t* qempty = qfull + 2;
+  uint64_t* qempty = qfull + kQB;
 
   const int items = a.Lq / kBQ * a.H * a.B;
   const int group = a.H / a.Hkv;
@@ -96,7 +111,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kQB; ++s) {
       mbar_init(&qfull[s], 1);
       mbar_init(&qempty[s], 8);
     }
@@ -113,11 +128,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
         const QItem it = q_item(a, w, kBQ);
         const int q0 = it.qb * kBQ, hk = it.h / group;
-        E* qs = qbufs + (n & 1) * kBQ * D;
-        if (n >= 2) mbar_wait(&qempty[n & 1], (n / 2 + 1) & 1);
-        mbar_expect_tx(&qfull[n & 1], T::kQBytes);
+        const int qi = n % kQB;
+        E* qs = qbufs + qi * kBQ * D;
+        if (n >= kQB) mbar_wait(&qempty[qi], (n / kQB + 1) & 1);
+        mbar_expect_tx(&qfull[qi], T::kQBytes);
         for (int c = 0; c < D / kCols; ++c)
-          tma_load(qs + c * kBQ * kCols, &tm_q, &qfull[n & 1], c * kCols,
+          tma_load(qs + c * kBQ * kCols, &tm_q, &qfull[qi], c * kCols,
                    it.h, q0, it.b);
         for (int kb = fwd_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
              kb >= 0; kb = fwd_k_tile<D>(a, q0, kb + 1, offset), ++i) {
@@ -149,7 +165,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float scale2 = a.scale * kLog2e;  // logits in log2 units
   const float fill2 = kNegInf * kLog2e;   // the -1e30 fill, in log2 units
   const size_t q_ld = static_cast<size_t>(a.H) * D;
-  float sc[kBK / 2];         // S, then P: 64 rows x 128 keys
+  float sc[kBK / 2];         // S, then P: 64 rows x kBK keys
   uint32_t pa[kBK / 16][4];  // P rounded to E, wgmma's A layout
   float o[D / kCols][32];
 
@@ -163,15 +179,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       qseg[0] = a.qseg[static_cast<size_t>(it.b) * a.Lq + qpos[0]];
       qseg[1] = a.qseg[static_cast<size_t>(it.b) * a.Lq + qpos[1]];
     }
-    // m in log2 units; l is this thread's share of the row sum (its 32
-    // columns of each tile), summed over the quad at the end
+    // m in log2 units; l is this thread's share of the row sum (its
+    // kBK / 4 columns of each tile), summed over the quad at the end
     float m[2] = {fill2, fill2}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int nb = 0; nb < D / kCols; ++nb)
 #pragma unroll
       for (int e = 0; e < 32; ++e) o[nb][e] = 0.f;
-    const E* qs = qbufs + (n & 1) * kBQ * D;
-    mbar_wait(&qfull[n & 1], (n / 2) & 1);
+    const int qi = n % kQB;
+    const E* qs = qbufs + qi * kBQ * D;
+    mbar_wait(&qfull[qi], (n / kQB) & 1);
 
     for (int kb = fwd_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
          kb >= 0; kb = fwd_k_tile<D>(a, q0, kb + 1, offset), ++i) {
@@ -181,8 +198,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128<E>(sc, desc_k(tile_at(qs, kBQ, 64 * c, kk * 16)),
-                      desc_k(tile_at(ks, kBK, 0, kk * 16)), kk > 0);
+        wgmma_ss<kBK, E>(sc, desc_k(tile_at(qs, kBQ, 64 * c, kk * 16)),
+                         desc_k(tile_at(ks, kBK, 0, kk * 16)), kk > 0);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
@@ -268,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(&qempty[n & 1]);
+    if (lane == 0) mbar_arrive(&qempty[qi]);
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -347,6 +364,10 @@ int kft_flash_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(launch_fwd<64, f16>(q, k, v, a, st));
   if (elem == kElemF16 && D == 128)
     return static_cast<int>(launch_fwd<128, f16>(q, k, v, a, st));
+  if (elem == kElemBf16 && D == 256)
+    return static_cast<int>(launch_fwd<256, bf16>(q, k, v, a, st));
+  if (elem == kElemF16 && D == 256)
+    return static_cast<int>(launch_fwd<256, f16>(q, k, v, a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,18 +1,19 @@
 // Flash attention for the rest of the reference's domain, in SIMT code:
-// f32 at head_dim 64, 128 and 256, bf16 and f16 at head_dim 256. A
-// forward (out and lse), a dq and a dk/dv kernel, each templated on
-// (head_dim D, element type E).
+// a forward (out and lse) and a dk/dv kernel for f32 at head_dim 64, 128
+// and 256, and a dq kernel for those and for bf16 and f16 at head_dim
+// 256, each templated on (head_dim D, element type E).
 //
 // Replaces, for those inputs, the Pallas TPU kernels `_fwd_kernel`,
 // `_bwd_dq_kernel` and `_bwd_dkv_kernel` (kubeflow_tpu/ops/
 // flash_attention.py), which take any dtype at head_dim 64, 128 or 256;
-// the wgmma kernels (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu) take
-// the 2-byte types at head_dim 64 and 128. Every product here is an f32
-// FMA on the CUDA cores: f32 stays f32, as in the reference's kernel (a
-// TF32 tensor-core product would round the operands to 10 bits and
-// compute another function), and bf16/f16 operands are widened to f32
-// in shared memory, with P and dS rounded to E before their products, as
-// the TPU kernels' p.astype / ds.astype.
+// the wgmma kernels take the 2-byte types at head_dim 64 and 128
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu) and at 256 the forward
+// and dk/dv (flash_fwd.cu, flash_bwd_dkv_split.cu). Every product here
+// is an f32 FMA on the CUDA cores: f32 stays f32, as in the reference's
+// kernel (a TF32 tensor-core product would round the operands to 10 bits
+// and compute another function), and bf16/f16 operands are widened to
+// f32 in shared memory, with dS rounded to E before its product, as the
+// TPU kernel's ds.astype.
 //
 // Bound: the products (2 L^2 D FLOPs per (batch, head) for the forward
 // under a causal mask, 3 and 4 times that for dq and dk/dv) over the
@@ -555,14 +556,17 @@ struct Dim {
   static constexpr int value = D;
 };
 
-// fn(Dim<D>{}, E{}) for the (element, head dim) pairs of the domain
-template <typename Fn>
+// fn(Dim<D>{}, E{}) for the (element, head dim) pairs a kernel takes:
+// f32 at every head dim, and with kTwoByte256 (dq) bf16 and f16 at 256
+template <bool kTwoByte256, typename Fn>
 static cudaError_t on_domain(int elem, int D, Fn&& fn) {
   if (elem == kElemF32 && D == 64) return fn(Dim<64>{}, float{});
   if (elem == kElemF32 && D == 128) return fn(Dim<128>{}, float{});
   if (elem == kElemF32 && D == 256) return fn(Dim<256>{}, float{});
-  if (elem == kElemBf16 && D == 256) return fn(Dim<256>{}, bf16{});
-  if (elem == kElemF16 && D == 256) return fn(Dim<256>{}, f16{});
+  if constexpr (kTwoByte256) {
+    if (elem == kElemBf16 && D == 256) return fn(Dim<256>{}, bf16{});
+    if (elem == kElemF16 && D == 256) return fn(Dim<256>{}, f16{});
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -606,7 +610,7 @@ int kft_flash_simple_fwd(const void* q, const void* k, const void* v,
   a.out = out;
   a.lse_out = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(on_domain(elem, D, [&](auto dim, auto e) {
+  return static_cast<int>(on_domain<false>(elem, D, [&](auto dim, auto e) {
     constexpr int kD = decltype(dim)::value;
     using E = decltype(e);
     return launch(flash_simple_fwd_kernel<kD, E>,
@@ -628,7 +632,7 @@ int kft_flash_simple_bwd_dq(const void* q, const void* k, const void* v,
   a.delta = static_cast<const float*>(delta);
   a.out = dq;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(on_domain(elem, D, [&](auto dim, auto e) {
+  return static_cast<int>(on_domain<true>(elem, D, [&](auto dim, auto e) {
     constexpr int kD = decltype(dim)::value;
     using E = decltype(e);
     return launch(flash_simple_bwd_dq_kernel<kD, E>,
@@ -652,7 +656,7 @@ int kft_flash_simple_bwd_dkv(const void* q, const void* k, const void* v,
   a.out = dk;
   a.out2 = dv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(on_domain(elem, D, [&](auto dim, auto e) {
+  return static_cast<int>(on_domain<false>(elem, D, [&](auto dim, auto e) {
     constexpr int kD = decltype(dim)::value;
     using E = decltype(e);
     return launch(flash_simple_bwd_dkv_kernel<kD, E>,

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels
-// (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu): TMA tile loads into a
-// ring of shared-memory stages guarded by mbarriers, wgmma on
-// 128B-swizzled tiles, setmaxnreg, and the TPU kernels' mask and
-// block-skip rules (kubeflow_tpu/ops/flash_attention.py: _block_mask,
-// _block_runs) at any tile, with the same -1e30 fill.
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_dkv.cu, flash_bwd_dkv_split.cu):
+// TMA tile loads into a ring of shared-memory stages guarded by
+// mbarriers, named barriers, wgmma on 128B-swizzled tiles, setmaxnreg,
+// and the TPU kernels' mask and block-skip rules (kubeflow_tpu/ops/
+// flash_attention.py: _block_mask, _block_runs) at any tile, with the
+// same -1e30 fill.
 //
 // Layout: q/out/dO/dq are [B, Lq, H, D] and k/v/dk/dv [B, Lk, Hkv, D],
 // contiguous, bf16 or f16 (the element type E of each kernel template);
@@ -143,6 +144,17 @@ __device__ __forceinline__ void reg_dealloc() {
 template <int R>
 __device__ __forceinline__ void reg_alloc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') of `count` threads:
+// the threads that arrive go on, those that sync wait until all `count`
+// have come. Shared-memory writes before an arrive are seen after the
+// sync.
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -4,11 +4,18 @@ Port of kubeflow_tpu/ops/flash_attention.py. The three Pallas TPU
 kernels become hand-written CUDA kernels for sm_90a, built by
 `_build.py`, in two families that together take the reference's whole
 domain (any dtype the port trains in, head_dim 64, 128 or 256;
-`KERNEL_DOMAIN`): bf16 and f16 at head_dim 64 and 128 go to the TMA and
-wgmma kernels (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu` (dq),
-`csrc/flash_bwd_dkv.cu`), f32 at every head dim and bf16/f16 at 256 to
-the SIMT kernels of `csrc/flash_simple.cu`, whose products are f32 FMAs
-(f32 stays f32, as in the reference):
+`KERNEL_DOMAIN`):
+
+- bf16 and f16 go to the TMA and wgmma kernels: at head_dim 64 and 128
+  all three (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu` (dq),
+  `csrc/flash_bwd_dkv.cu`); at 256 the forward (`flash_fwd.cu` with
+  64-key tiles) and `csrc/flash_bwd_dkv_split.cu`, whose two warpgroups
+  split dk and dv between them, with dq on the SIMT kernel below;
+- f32 at every head dim goes to the SIMT kernels of
+  `csrc/flash_simple.cu`, whose products are f32 FMAs (f32 stays f32, as
+  in the reference).
+
+The kernels compute:
 
 - forward: out and the row logsumexp `lse`, online softmax over k/v tiles;
 - backward dq, and backward dk/dv, both recomputing p from `lse`, with
@@ -44,13 +51,15 @@ DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
 # The CUDA kernels' domain: (dtype, head_dim) -> the (fwd, dq, dk/dv)
 # kernels that take it: SM90, the TMA/wgmma kernels; SIMPLE, the SIMT
-# kernels of csrc/flash_simple.cu.
+# kernels of csrc/flash_simple.cu; SM90_D256, the 2-byte types at head_dim
+# 256: the wgmma forward, the SIMT dq and the split wgmma dk/dv.
 SM90 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SIMPLE = ("flash_simple_fwd", "flash_simple_bwd_dq", "flash_simple_bwd_dkv")
+SM90_D256 = ("flash_fwd", "flash_simple_bwd_dq", "flash_bwd_dkv_split")
 KERNEL_DOMAIN = {
     (torch.bfloat16, 64): SM90, (torch.bfloat16, 128): SM90,
     (torch.float16, 64): SM90, (torch.float16, 128): SM90,
-    (torch.bfloat16, 256): SIMPLE, (torch.float16, 256): SIMPLE,
+    (torch.bfloat16, 256): SM90_D256, (torch.float16, 256): SM90_D256,
     (torch.float32, 64): SIMPLE, (torch.float32, 128): SIMPLE,
     (torch.float32, 256): SIMPLE,
 }
@@ -58,11 +67,13 @@ KERNEL_DOMAIN = {
 ELEM = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # (block_q, block_k) of each CUDA kernel by head dim, as its source fixes
 # them (FwdTile in csrc/flash_fwd.cu, DqTile in csrc/flash_bwd.cu, DkvTile
-# in csrc/flash_bwd_dkv.cu, Tile in csrc/flash_simple.cu)
+# in csrc/flash_bwd_dkv.cu, SplitTile in csrc/flash_bwd_dkv_split.cu, Tile
+# in csrc/flash_simple.cu)
 KERNEL_TILES = {
-    "flash_fwd": {64: (128, 128), 128: (128, 128)},
+    "flash_fwd": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
     "flash_bwd_dq": {64: (128, 128), 128: (128, 64)},
     "flash_bwd_dkv": {64: (64, 128), 128: (64, 128)},
+    "flash_bwd_dkv_split": {256: (64, 64)},
     "flash_simple_fwd": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
     "flash_simple_bwd_dq": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
     "flash_simple_bwd_dkv": {64: (64, 64), 128: (64, 64), 256: (64, 32)},
@@ -95,7 +106,7 @@ NEG_INF = -1e30
 # Launches of each CUDA kernel, counted where the wrapper launches it
 # (every element type and head dim of one kernel under its name), and
 # the same launches by instantiation, `name[dtype/head_dim]`.
-LAUNCHES = dict.fromkeys(SM90 + SIMPLE, 0)
+LAUNCHES = dict.fromkeys(SM90 + SIMPLE + SM90_D256, 0)
 INSTANCE_LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -304,6 +315,8 @@ _LAUNCHERS = {
     "flash_fwd": ("flash_fwd.cu", "kft_flash_fwd"),
     "flash_bwd_dq": ("flash_bwd.cu", "kft_flash_bwd_dq"),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu", "kft_flash_bwd_dkv"),
+    "flash_bwd_dkv_split": ("flash_bwd_dkv_split.cu",
+                            "kft_flash_bwd_dkv_split"),
     "flash_simple_fwd": ("flash_simple.cu", "kft_flash_simple_fwd"),
     "flash_simple_bwd_dq": ("flash_simple.cu", "kft_flash_simple_bwd_dq"),
     "flash_simple_bwd_dkv": ("flash_simple.cu", "kft_flash_simple_bwd_dkv"),

@@ -147,6 +147,7 @@ def failures(errs: dict[str, dict[str, float]],
 # the outputs each kernel writes
 KERNEL_OUTPUTS = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
                   "flash_bwd_dkv": ("dk", "dv"),
+                  "flash_bwd_dkv_split": ("dk", "dv"),
                   "flash_simple_fwd": ("out", "lse"),
                   "flash_simple_bwd_dq": ("dq",),
                   "flash_simple_bwd_dkv": ("dk", "dv")}

@@ -94,9 +94,10 @@ CASES = [
 
 # The rest of the reference's domain (ops/flash_attention.py
 # KERNEL_DOMAIN): f16 on the wgmma kernels at head_dim 64 and 128; f32 at
-# 64, 128 and 256 and bf16/f16 at 256 on the SIMT kernels of
-# flash_simple.cu, at the edges of their 64-row and 64-key tiles (32-row
-# q tiles and 32-key dk/dv tiles at 256).
+# 64, 128 and 256 on the SIMT kernels of flash_simple.cu, at the edges of
+# their 64-row and 64-key tiles (32-row q tiles and 32-key dk/dv tiles at
+# 256); bf16/f16 at 256 on the wgmma forward (128-row, 64-key tiles), the
+# SIMT dq and the split wgmma dk/dv (64 x 64).
 DOMAIN_CASES = [
     # dtype, b, lq, lk, h, hkv, d, causal, window, segments
     (torch.float16, 2, 256, 256, 4, 2, 64, True, 0, False),
@@ -115,6 +116,24 @@ DOMAIN_CASES = [
     # rank 1 of a seq-2 world at llama-1b widths: its q block against the
     # gathered key prefix (end-aligned offset = the block's start)
     (torch.float32, 1, 1024, 2048, 32, 8, 64, True, 0, False),
+    # head_dim 256 in bf16 and f16 at the edges of the D256 tiles: one
+    # 128-row q tile (one item of the persistent forward, two 64-key
+    # tiles), lq > lk and lq < lk by one and two tiles with distinct q and
+    # kv segment ids (rows no key may attend inside tiles that run),
+    # windows that are not a multiple of 64, GQA groups of 1, 2, 4 and 8,
+    # non-causal, and the kernel phase's full shape
+    (torch.bfloat16, 1, 128, 128, 4, 1, 256, True, 0, False),
+    (torch.float16, 1, 128, 128, 8, 1, 256, True, 64, True),
+    (torch.bfloat16, 1, 384, 256, 4, 2, 256, True, 0, True),
+    (torch.float16, 1, 384, 256, 4, 1, 256, True, 96, True),
+    (torch.bfloat16, 1, 256, 384, 8, 2, 256, True, 96, True),
+    (torch.float16, 2, 128, 384, 4, 2, 256, True, 0, False),
+    (torch.bfloat16, 2, 384, 384, 4, 4, 256, False, 0, False),
+    (torch.float16, 1, 384, 384, 2, 2, 256, False, 200, True),
+    (torch.bfloat16, 1, 512, 128, 4, 1, 256, True, 0, False),
+    (torch.float16, 2, 256, 256, 4, 1, 256, True, 200, False),
+    (torch.bfloat16, 8, 2048, 2048, 8, 2, 256, True, 0, False),
+    (torch.float16, 8, 2048, 2048, 8, 2, 256, True, 0, True),
 ]
 
 
@@ -155,8 +174,28 @@ def test_autograd_reaches_kernels(dev):
     fa.flash_attention(q, k, v).backward(dout)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        **dict.fromkeys(fa.SIMPLE, 0),
+        **dict.fromkeys(fa.LAUNCHES, 0),
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_autograd_reaches_d256_kernels(dev, dtype):
+    """head_dim 256 in a 2-byte type: one forward and backward launch the
+    wgmma forward, the SIMT dq and the split wgmma dk/dv once each, by
+    name and by instantiation, and nothing else."""
+    q, k, v, dout = _inputs(dev, 1, 256, 256, 4, 1, 256, dtype=dtype)
+    q.requires_grad_()
+    fa.reset_launches()
+    fa.flash_attention(q, k, v).backward(dout)
+    torch.cuda.synchronize()
+    assert dict(fa.LAUNCHES) == {
+        **dict.fromkeys(fa.LAUNCHES, 0),
+        "flash_fwd": 1, "flash_simple_bwd_dq": 1, "flash_bwd_dkv_split": 1}
+    assert fa.INSTANCE_LAUNCHES == {
+        f"flash_fwd[{str(dtype)[6:]}/256]": 1,
+        f"flash_simple_bwd_dq[{str(dtype)[6:]}/256]": 1,
+        f"flash_bwd_dkv_split[{str(dtype)[6:]}/256]": 1}
 
 
 def test_kernel_rejects_unsupported_input(dev):
@@ -232,7 +271,7 @@ def test_custom_ops_launch_the_kernels(dev, monkeypatch):
                               True, 512, 512, 0)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        **dict.fromkeys(fa.SIMPLE, 0),
+        **dict.fromkeys(fa.LAUNCHES, 0),
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     with pytest.raises(ValueError):          # shapes the kernel lacks raise
         torch.ops.kftpu.flash_fwd(q[:, :100], k[:, :100], v[:, :100], None,
@@ -260,7 +299,7 @@ def test_remat_step_launches(dev, policy, fwd_per_layer):
     loss.backward()
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert dict(fa.LAUNCHES) == {**dict.fromkeys(fa.SIMPLE, 0),
+    assert dict(fa.LAUNCHES) == {**dict.fromkeys(fa.LAUNCHES, 0),
                                  "flash_fwd": 2 * fwd_per_layer,
                                  "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
 

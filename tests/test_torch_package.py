@@ -100,11 +100,11 @@ def test_kernel_build_is_lazy():
     # every file of csrc is a source the build compiles or a header its
     # hash covers
     assert [p.name for p in sorted((PKG / "ops" / "csrc").iterdir())] == [
-        "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_fwd.cu", "flash_simple.cu",
-        "flash_sm90.cuh"]
+        "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_bwd_dkv_split.cu",
+        "flash_fwd.cu", "flash_simple.cu", "flash_sm90.cuh"]
     assert sorted(_build.SOURCES + _build.HEADERS) == [
-        "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_fwd.cu", "flash_simple.cu",
-        "flash_sm90.cuh"]
+        "flash_bwd.cu", "flash_bwd_dkv.cu", "flash_bwd_dkv_split.cu",
+        "flash_fwd.cu", "flash_simple.cu", "flash_sm90.cuh"]
 
 
 def test_serving_runtime_and_utils_modules_are_scanned():
