@@ -11,9 +11,9 @@
    (`KERNEL_DOMAIN`: bf16 and f16 at head_dim 64 and 128 on the three
    warp-specialised sm_90a kernels, a TMA producer thread feeding an
    mbarrier ring and two consumer warpgroups running wgmma; bf16 and
-   f16 at 256 on the wgmma forward (64-key tiles), the SIMT dq and the
-   split wgmma dk/dv of flash_bwd_dkv_split.cu; f32 at 64, 128 and 256
-   on the three SIMT kernels of flash_simple.cu, f32 FMAs), at
+   f16 at 256 on the wgmma forward (64-key tiles) and dq (32-key tiles)
+   and the split wgmma dk/dv of flash_bwd_dkv_split.cu; f32 at 64, 128
+   and 256 on the three SIMT kernels of flash_simple.cu, f32 FMAs), at
    llama-1b's attention shapes (q
    [8, 2048, 32, 64] with 8 kv heads; llama-1b-hd128's [8, 2048, 16,
    128] with 4; [8, 2048, 8, 256] with 2), causal: runs each kernel and
@@ -42,8 +42,8 @@
    within 2e-2 per row of the bf16 reference's, its loss within 1e-2
    relative, each gradient within 1e-2 per row beyond the bf16
    reference's own row error against the f32 run, and 2 launches each
-   of flash_fwd, flash_simple_bwd_dq and flash_bwd_dkv_split at
-   bfloat16/256 (none of any other kernel).
+   of flash_fwd, flash_bwd_dq and flash_bwd_dkv_split at bfloat16/256
+   (none of any other kernel, flash_simple_bwd_dq among them).
 5. Remat check: a 2-layer llama-1b-width bf16 model, one batch [8, 2048],
    8 xent chunks. Under each remat policy (full, dots, mlp, slim,
    slim@1) the loss and every parameter gradient are held against no
@@ -309,7 +309,8 @@
    parameters within 1e-2 per row of no remat's, its eval-mode logits
    and BatchNorm statistics within 1e-3 relative; step ms, images/s and
    peak GB of each; no flash launch.
-Each phase prints its wall seconds.
+Each phase prints its wall seconds, and the script its own at the end.
+Any kernel that ptxas reports spilling registers fails the build phase.
 
 Any failure exits non-zero. The lines before the last hold the
 `{"kernels": [...]}` record, one row per kernel and instantiation (`name`
@@ -698,7 +699,7 @@ def d256_model_check(fa) -> dict:
     ROW_TOL (two bf16 attention paths differ by 1-3% per gradient row,
     each as far from f32: the limit is the error the kernels add). The
     flash run must launch each of its three D256 kernels once per layer
-    (the wgmma forward, the SIMT dq, the split dk/dv) and nothing else.
+    (the wgmma forward and dq, the split dk/dv) and nothing else.
     Returns its launches by kernel; by instantiation they go to
     INSTANCE_COUNTS["d256_model"]."""
     import torch
@@ -4214,6 +4215,7 @@ def earlier_phases_worker(argv: list[str]) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError as e:
@@ -4252,6 +4254,11 @@ def main() -> int:
             for (t, d), names in fa.KERNEL_DOMAIN.items() for n in names}
     if built != want:
         fail(f"build log names kernels {sorted(built)}, want {sorted(want)}")
+    spilled = {f"{n}[{dt}/{d}]": r.get("spill_bytes")
+               for n, by_d in ptxas.items() for (dt, d), r in by_d.items()
+               if r.get("spill_bytes") != 0}
+    if spilled:
+        fail(f"kernels spill registers (bytes, or no report): {spilled}")
 
     phase_s = {}
 
@@ -4441,6 +4448,7 @@ def main() -> int:
             row["at_entry_shape"] = at_entry
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Where a flash kernel's time goes: ablated builds, timed on the card.
 
-    python -m kubeflow_tpu_torch.kernel_ablation
+    python -m kubeflow_tpu_torch.kernel_ablation [--head-dim 256]
 
 Builds altered copies of the CUDA sources under `_build/ablations/`, as
 `mutation_check` builds its faults (one text substitution each, which
 must match once), each leaving one part of a kernel out, and times that
 kernel in every build at the llama-1b attention shapes of chip_smoke.py's
-kernel phase (q [8, 2048, 32, 64], k/v 8 heads, bf16, causal), with
+kernel phase (q [8, 2048, 32, 64], k/v 8 heads, bf16, causal; with
+`--head-dim 256`, [8, 2048, 8, 256] with 2 kv heads, where the forward,
+dq and the split dk/dv run: the ablations of the forward and dq), with
 `kernel_check.device_ms`. An ablated kernel computes a wrong result:
 only its time is read. Each ablated build is timed between two timings
 of the unaltered build; a part's cost is their mean less the ablated
@@ -17,6 +19,7 @@ record. Needs one CUDA GPU and `nvcc`.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -27,7 +30,8 @@ from kubeflow_tpu_torch.mutation_check import plant
 from kubeflow_tpu_torch.ops import _build, kernel_check
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
-B, L, H, HKV, D = 8, 2048, 32, 8, 64
+# head_dim -> (batch, length, q heads, kv heads): the kernel phase's
+SHAPES = {64: (8, 2048, 32, 8), 256: (8, 2048, 8, 2)}
 
 # name -> (kernel, (file, text, replacement)); `if constexpr (D == 0)`
 # drops a statement at compile time, and a store under an impossible
@@ -80,13 +84,23 @@ ABLATIONS = {
 }
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(prog="kernel_ablation")
+    parser.add_argument("--head-dim", type=int, default=64,
+                        choices=sorted(SHAPES))
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ablation: needs a CUDA GPU")
-    with ThreadPoolExecutor(len(ABLATIONS) + 1) as pool:
+    d = args.head_dim
+    b, l, h, hkv = SHAPES[d]
+    # the ablations of the kernels that take bf16 at this head dim
+    names = fa.kernels_for(torch.bfloat16, d)
+    ablations = {n: (kernel, edit) for n, (kernel, edit) in ABLATIONS.items()
+                 if kernel in names}
+    with ThreadPoolExecutor(len(ablations) + 1) as pool:
         clean = pool.submit(_build.build)
         built = {n: pool.submit(plant, n, edit, "ablations")
-                 for n, (_, edit) in ABLATIONS.items()}
+                 for n, (_, edit) in ablations.items()}
         builds = {"clean": clean.result()}
         builds.update({n: f.result() for n, f in built.items()})
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -95,15 +109,16 @@ def main() -> int:
         return torch.randn(*shape, device="cuda", generator=gen).to(
             torch.bfloat16)
 
-    q, dout = randn(B, L, H, D), randn(B, L, H, D)
-    k, v = randn(B, L, HKV, D), randn(B, L, HKV, D)
-    cfg = dict(scale=D ** -0.5, causal=True)
+    q, dout = randn(b, l, h, d), randn(b, l, h, d)
+    k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
+    cfg = dict(scale=d ** -0.5, causal=True)
     out, lse = fa.flash_fwd_cuda(q, k, v, **cfg)
     delta = fa.flash_delta(out, dout)
-    run = {"flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **cfg),
-           "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(
+    fwd, dq_name, dkv = names
+    run = {fwd: lambda: fa.flash_fwd_cuda(q, k, v, **cfg),
+           dq_name: lambda: fa.flash_bwd_dq_cuda(
                q, k, v, dout, lse, delta, **cfg),
-           "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(
+           dkv: lambda: fa.flash_bwd_dkv_cuda(
                q, k, v, dout, lse, delta, **cfg)}
 
     def timed(paths, kernel: str) -> float:
@@ -114,7 +129,7 @@ def main() -> int:
     # card that speeds up or slows down during the run shows in the
     # bracket instead of in the part's cost
     report = {}
-    for n, (kernel, _) in ABLATIONS.items():
+    for n, (kernel, _) in ablations.items():
         before = timed(builds["clean"], kernel)
         ablated = timed(builds[n], kernel)
         after = timed(builds["clean"], kernel)
@@ -124,9 +139,10 @@ def main() -> int:
         print(f"{n}: {kernel} {ablated:.4f} ms, unaltered {before:.4f} / "
               f"{after:.4f} ms, the part costs {cost:+.4f} ms", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "shape": [b, l, h, d], "kv_heads": hkv,
                       "ablations": report}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

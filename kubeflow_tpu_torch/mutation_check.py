@@ -8,9 +8,9 @@ match exactly once), builds every copy at once, and runs the check of
 chip_smoke.py's kernel phase (`kernel_check.flash_errors`: causal,
 window 512, segment ids; at llama-1b attention shapes in bf16, and at
 smaller shapes for each other family of instantiations: f16 at head_dim
-64 on the wgmma kernels, f32 at 64 on the SIMT kernels of
-flash_simple.cu, bf16 at 256 on the wgmma forward, the SIMT dq and the
-split dk/dv of flash_bwd_dkv_split.cu) with the wrappers routed to each
+64 on the wgmma kernels, f32 at 64 and at 256 on the SIMT kernels of
+flash_simple.cu, bf16 at 256 on the wgmma forward and dq and the split
+dk/dv of flash_bwd_dkv_split.cu) with the wrappers routed to each
 altered build. The sources in the checkout are never changed. The
 unaltered build must pass and every fault must fail, a fault of
 `MUST_CATCH` in the cases it names; each
@@ -64,12 +64,13 @@ FAULTS = {
     # the SIMT kernels (flash_simple.cu): each kernel's walk, dq's delta
     # and the mask all three share
     "simple_fwd_skips_last_k_tile": (
-        "flash_simple.cu",
-        "    if (!block_runs(a, q0, kBQ, k0, kBK, offset)) continue;\n"
-        "    __syncthreads();  // the last tile's readers are done",
-        "    if (!block_runs(a, q0, kBQ, k0, kBK, offset) ||\n"
-        "        kb == a.Lk / kBK - 1) continue;\n"
-        "    __syncthreads();  // the last tile's readers are done"),
+        "flash_simple.cu", "for (; kb < a.Lk / T::kBK; ++kb)",
+        "for (; kb < a.Lk / T::kBK - 1; ++kb)"),
+    # the forward's stream: each step reads the stage after the one its
+    # chunk was copied into (the next chunk, in flight or landed)
+    "simple_fwd_stage_one_off": (
+        "flash_simple.cu", "const float* st = ring + slot * T::kStage;",
+        "const float* st = ring + (slot + 1) % kS * T::kStage;"),
     "simple_dq_ds_without_delta": (
         "flash_simple.cu", "dsc[i] = a.delta[row];", "dsc[i] = 0.f;"),
     # the forward's P.V reads the V tile of the ring's next stage
@@ -106,11 +107,15 @@ FAULTS = {
         "0xffffe000u);\n"),
 }
 # faults that must fail in the cases of one (dtype, head_dim): those that
-# reach the head_dim 256 wgmma kernels
-MUST_CATCH = dict.fromkeys(
-    ("fwd_skips_last_k_tile", "fwd_v_from_next_stage",
-     "dkv_split_skips_last_q_tile", "dkv_split_ds_without_delta",
-     "dkv_split_delta_of_other_stage"), "bfloat16/256")
+# reach the head_dim 256 wgmma kernels, and the f32 forward's stage fault
+# at 256 (four stages there, two at 64)
+MUST_CATCH = {
+    **dict.fromkeys(
+        ("fwd_skips_last_k_tile", "fwd_v_from_next_stage",
+         "dq_skips_last_k_tile", "dq_ds_without_delta",
+         "dkv_split_skips_last_q_tile", "dkv_split_ds_without_delta",
+         "dkv_split_delta_of_other_stage"), "bfloat16/256"),
+    "simple_fwd_stage_one_off": "float32/256"}
 # (dtype, head_dim) -> (batch, length, q heads, kv heads) of the cases:
 # the main path's shape for bf16 at 64, smaller ones elsewhere (the SIMT
 # kernels and the plain versions at 64-row tiles are slow at full size)
@@ -118,6 +123,7 @@ SHAPES = {
     (torch.bfloat16, 64): (B, L, H, HKV),
     (torch.float16, 64): (2, 1024, 8, 2),
     (torch.float32, 64): (2, 1024, 8, 2),
+    (torch.float32, 256): (2, 1024, 4, 2),
     (torch.bfloat16, 256): (2, 1024, 4, 2),
 }
 

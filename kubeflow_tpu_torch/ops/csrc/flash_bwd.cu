@@ -14,7 +14,8 @@
 // Design, as flash_fwd.cu: a work item is one (128-row q tile, q head,
 // batch row), heaviest causal tiles first, on a persistent grid of one
 // CTA per SM. One producer thread loads the item's Q and dO tiles by TMA
-// (resident for the whole walk, double-buffered across items) with
+// (resident for the whole walk; double-buffered across items at D 64
+// and 128) with
 // their lse, delta and segment rows by bulk copy, and streams K and V
 // tiles (and key segment ids) into a ring of shared-memory stages
 // guarded by mbarriers. Two consumer warpgroups of 64 q rows each run
@@ -23,6 +24,18 @@
 // dQ += dS.K as an RS wgmma with K read MN-major straight from the TMA
 // tile. Interior tiles skip the per-element mask. E, the element type,
 // is bf16 or f16.
+//
+// Shared memory and registers by head dim (DqTile): at D 64 and 128, two
+// Q/dO buffers (the producer loads the next item's while the consumers
+// finish this one) and K/V stages of 128 keys (3 at D 64) or 64 (2 at
+// 128). At D 256 one Q and one dO tile are 64 KB each, so two buffers
+// alone would pass the 227 KB a CTA may hold: D 256 takes one Q/dO buffer
+// (128 KB) and two 32-key K/V stages (2 x 32 KB), 195 KB in all. A
+// consumer thread then holds dQ over 256 columns (128 registers), S and
+// dP over 32 keys (16 each) and dS packed (8); 64 keys would add 32 more
+// and spill under setmaxnreg 232. S and dP at 32 keys are m64n32k16 SS
+// products, which read more shared memory per multiply-add than the
+// wider ones (flash_sm90.cuh wgmma_ss_n32).
 #include "flash_sm90.cuh"
 
 namespace kft::sm90 {
@@ -31,19 +44,22 @@ template <int D>
 struct DqTile {
   // KERNEL_TILES["flash_bwd_dq"]: at D 128, S, dP and dQ of 128 keys
   // would hold 192 f32 registers a thread, and two stages of 128-key K/V
-  // beside the double-buffered Q and dO would not fit shared memory
-  static constexpr int kBQ = 128, kBK = D == 64 ? 128 : 64;
+  // beside the double-buffered Q and dO would not fit shared memory; at D
+  // 256, see the top of the file
+  static constexpr int kBQ = 128, kBK = D == 64 ? 128 : D == 128 ? 64 : 32;
   static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kQBufs = D == 256 ? 1 : 2;
   static constexpr int kQBytes = kBQ * D * 2;   // one of Q, dO
   static constexpr int kKVBytes = kBK * D * 2;  // one of K, V
   static constexpr int kRowBytes = kBQ * 4;     // one of lse, delta, qseg
-  // shared memory: 2 x (Q | dO) | stages x (K | V) | 2 x (lse | delta |
-  // qseg) | stages x kseg | barriers
-  static constexpr int kKVOff = 4 * kQBytes;
+  // shared memory: Q buffers x (Q | dO) | stages x (K | V) | Q buffers x
+  // (lse | delta | qseg) | stages x kseg | barriers
+  static constexpr int kKVOff = kQBufs * 2 * kQBytes;
   static constexpr int kRowOff = kKVOff + kStages * 2 * kKVBytes;
-  static constexpr int kSegOff = kRowOff + 2 * 3 * kRowBytes;
+  static constexpr int kSegOff = kRowOff + kQBufs * 3 * kRowBytes;
   static constexpr int kBarOff = kSegOff + kStages * kBK * 4;
-  static constexpr int kSmem = kBarOff + (2 * kStages + 4) * 8 + 1024;
+  static constexpr int kSmem =
+      kBarOff + (2 * kStages + 2 * kQBufs) * 8 + 1024;
 };
 
 // The first k tile at or after kb that _block_runs lets the q tile at q0
@@ -115,8 +131,8 @@ __device__ __forceinline__ void dq_grad(float (&dq)[D / kCols][32],
 
 // Persistent: one CTA per SM walks the work items w = blockIdx.x,
 // blockIdx.x + gridDim.x, ...; its producer runs ahead into the next
-// item (two Q/dO buffers, the k/v ring continuing across items) while
-// the consumers finish the last one.
+// item (the k/v ring continuing across items, and with two Q/dO buffers
+// the next Q and dO) while the consumers finish the last one.
 template <int D, typename E>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -126,15 +142,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const Args a) {
   using T = DqTile<D>;
   constexpr int kBQ = T::kBQ, kBK = T::kBK, kS = T::kStages;
+  constexpr int kQB = T::kQBufs;
   uint8_t* smem = smem_base();
-  E* qbufs = reinterpret_cast<E*>(smem);            // 2 x (Q, dO)
+  E* qbufs = reinterpret_cast<E*>(smem);            // kQB x (Q, dO)
   E* kv = reinterpret_cast<E*>(smem + T::kKVOff);  // stage: K, V
   float* rows = reinterpret_cast<float*>(smem + T::kRowOff);
   int* kseg_s = reinterpret_cast<int*>(smem + T::kSegOff);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::kBarOff);
   uint64_t* empty = full + kS;
   uint64_t* qfull = empty + kS;
-  uint64_t* qempty = qfull + 2;
+  uint64_t* qempty = qfull + kQB;
 
   const int items = a.Lq / kBQ * a.H * a.B;
   const int group = a.H / a.Hkv;
@@ -145,7 +162,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kQB; ++s) {
       mbar_init(&qfull[s], 1);
       mbar_init(&qempty[s], 8);
     }
@@ -160,25 +177,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int w = blockIdx.x; w < items; w += gridDim.x, ++n) {
         const QItem it = q_item(a, w, kBQ);
         const int q0 = it.qb * kBQ, hk = it.h / group;
-        E* qs = qbufs + (n & 1) * 2 * kBQ * D;
-        float* rs = rows + (n & 1) * 3 * kBQ;
-        if (n >= 2) mbar_wait(&qempty[n & 1], (n / 2 + 1) & 1);
-        mbar_expect_tx(&qfull[n & 1], 2 * T::kQBytes + (a.qseg ? 3 : 2) *
-                                                           T::kRowBytes);
+        const int qi = n % kQB;
+        E* qs = qbufs + qi * 2 * kBQ * D;
+        float* rs = rows + qi * 3 * kBQ;
+        if (n >= kQB) mbar_wait(&qempty[qi], (n / kQB + 1) & 1);
+        mbar_expect_tx(&qfull[qi], 2 * T::kQBytes + (a.qseg ? 3 : 2) *
+                                                        T::kRowBytes);
         for (int c = 0; c < D / kCols; ++c) {
-          tma_load(qs + c * kBQ * kCols, &tm_q, &qfull[n & 1], c * kCols,
+          tma_load(qs + c * kBQ * kCols, &tm_q, &qfull[qi], c * kCols,
                    it.h, q0, it.b);
-          tma_load(qs + kBQ * D + c * kBQ * kCols, &tm_do, &qfull[n & 1],
+          tma_load(qs + kBQ * D + c * kBQ * kCols, &tm_do, &qfull[qi],
                    c * kCols, it.h, q0, it.b);
         }
         const size_t row =
             (static_cast<size_t>(it.b) * a.H + it.h) * a.Lq + q0;
-        bulk_load(rs, a.lse + row, T::kRowBytes, &qfull[n & 1]);
-        bulk_load(rs + kBQ, a.delta + row, T::kRowBytes, &qfull[n & 1]);
+        bulk_load(rs, a.lse + row, T::kRowBytes, &qfull[qi]);
+        bulk_load(rs + kBQ, a.delta + row, T::kRowBytes, &qfull[qi]);
         if (a.qseg)
           bulk_load(rs + 2 * kBQ,
                     a.qseg + static_cast<size_t>(it.b) * a.Lq + q0,
-                    T::kRowBytes, &qfull[n & 1]);
+                    T::kRowBytes, &qfull[qi]);
         for (int kb = dq_k_tile<D>(a, q0, kb_lo(a, q0, kBK, offset), offset);
              kb >= 0; kb = dq_k_tile<D>(a, q0, kb + 1, offset), ++i) {
           const int s = i % kS;
@@ -221,10 +239,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int nb = 0; nb < D / kCols; ++nb)
 #pragma unroll
       for (int e = 0; e < 32; ++e) dq[nb][e] = 0.f;
-    const E* qs = qbufs + (n & 1) * 2 * kBQ * D;
+    const int qi = n % kQB;
+    const E* qs = qbufs + qi * 2 * kBQ * D;
     const E* gs = qs + kBQ * D;
-    const float* rs = rows + (n & 1) * 3 * kBQ;
-    mbar_wait(&qfull[n & 1], (n / 2) & 1);
+    const float* rs = rows + qi * 3 * kBQ;
+    mbar_wait(&qfull[qi], (n / kQB) & 1);
     // lse in log2 units and delta.scale of this thread's two rows
     float lse2[2], dsc[2];
     int qseg[2];
@@ -278,7 +297,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) mbar_arrive(&empty[st]);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(&qempty[n & 1]);
+    if (lane == 0) mbar_arrive(&qempty[qi]);
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -348,6 +367,10 @@ int kft_flash_bwd_dq(const void* q, const void* k, const void* v,
     return static_cast<int>(launch_dq<64, f16>(q, k, v, dout, a, st));
   if (elem == kElemF16 && D == 128)
     return static_cast<int>(launch_dq<128, f16>(q, k, v, dout, a, st));
+  if (elem == kElemBf16 && D == 256)
+    return static_cast<int>(launch_dq<256, bf16>(q, k, v, dout, a, st));
+  if (elem == kElemF16 && D == 256)
+    return static_cast<int>(launch_dq<256, f16>(q, k, v, dout, a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -236,6 +236,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
   "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
   "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define KFT_ACC16 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 #define KFT_REGS64 \
   "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
@@ -249,6 +253,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, " \
   "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
   "%26, %27, %28, %29, %30, %31" \
+  "}"
+
+#define KFT_REGS16 \
+  "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
   "}"
 
 // The tensor-map data type of an element type
@@ -276,6 +285,12 @@ constexpr bool kIsF16 = std::is_same_v<E, f16>;
                "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
                " " KFT_REGS32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"           \
                : KFT_ACC32                                                \
+               : "l"(a), "l"(b), "r"(accumulate))
+#define KFT_WGMMA_SS_N32(TY)                                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY    \
+               " " KFT_REGS16 ", %16, %17, p, 1, 1, 0, 0;\n}\n"           \
+               : KFT_ACC16                                                \
                : "l"(a), "l"(b), "r"(accumulate))
 #define KFT_WGMMA_RS_N64(TY)                                               \
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
@@ -306,15 +321,30 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
     KFT_WGMMA_SS_N64("bf16");
 }
 
-// d (64 x N, f32) = A . B^T (+ d if accumulate), N 64 or 128, as above.
+// d (64 x 32, f32) = A . B^T (+ d if accumulate), as above. At N 32 each
+// instruction reads 2 KB of A and 1 KB of B for 32K multiply-adds: more
+// shared-memory bytes a product than the wider shapes (dq at head_dim 256).
+template <typename E>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  if constexpr (kIsF16<E>)
+    KFT_WGMMA_SS_N32("f16");
+  else
+    KFT_WGMMA_SS_N32("bf16");
+}
+
+// d (64 x N, f32) = A . B^T (+ d if accumulate), N 32, 64 or 128, as above.
 template <int N, typename E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  static_assert(N == 32 || N == 64 || N == 128,
+                "wgmma_ss: N is 32, 64 or 128");
   if constexpr (N == 128)
     wgmma_ss_n128<E>(d, a, b, accumulate);
-  else
+  else if constexpr (N == 64)
     wgmma_ss_n64<E>(d, a, b, accumulate);
+  else
+    wgmma_ss_n32<E>(d, a, b, accumulate);
 }
 
 // d (64 x 64, f32) += A . B: A (64 x 16, type E) in registers in the

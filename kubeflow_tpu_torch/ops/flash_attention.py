@@ -9,8 +9,9 @@ domain (any dtype the port trains in, head_dim 64, 128 or 256;
 - bf16 and f16 go to the TMA and wgmma kernels: at head_dim 64 and 128
   all three (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu` (dq),
   `csrc/flash_bwd_dkv.cu`); at 256 the forward (`flash_fwd.cu` with
-  64-key tiles) and `csrc/flash_bwd_dkv_split.cu`, whose two warpgroups
-  split dk and dv between them, with dq on the SIMT kernel below;
+  64-key tiles), dq (`flash_bwd.cu` with 32-key tiles) and
+  `csrc/flash_bwd_dkv_split.cu`, whose two warpgroups split dk and dv
+  between them;
 - f32 at every head dim goes to the SIMT kernels of
   `csrc/flash_simple.cu`, whose products are f32 FMAs (f32 stays f32, as
   in the reference).
@@ -52,10 +53,10 @@ DEFAULT_BLOCK_K = 512
 # The CUDA kernels' domain: (dtype, head_dim) -> the (fwd, dq, dk/dv)
 # kernels that take it: SM90, the TMA/wgmma kernels; SIMPLE, the SIMT
 # kernels of csrc/flash_simple.cu; SM90_D256, the 2-byte types at head_dim
-# 256: the wgmma forward, the SIMT dq and the split wgmma dk/dv.
+# 256: the wgmma forward and dq, and the split wgmma dk/dv.
 SM90 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SIMPLE = ("flash_simple_fwd", "flash_simple_bwd_dq", "flash_simple_bwd_dkv")
-SM90_D256 = ("flash_fwd", "flash_simple_bwd_dq", "flash_bwd_dkv_split")
+SM90_D256 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv_split")
 KERNEL_DOMAIN = {
     (torch.bfloat16, 64): SM90, (torch.bfloat16, 128): SM90,
     (torch.float16, 64): SM90, (torch.float16, 128): SM90,
@@ -67,14 +68,14 @@ KERNEL_DOMAIN = {
 ELEM = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # (block_q, block_k) of each CUDA kernel by head dim, as its source fixes
 # them (FwdTile in csrc/flash_fwd.cu, DqTile in csrc/flash_bwd.cu, DkvTile
-# in csrc/flash_bwd_dkv.cu, SplitTile in csrc/flash_bwd_dkv_split.cu, Tile
-# in csrc/flash_simple.cu)
+# in csrc/flash_bwd_dkv.cu, SplitTile in csrc/flash_bwd_dkv_split.cu,
+# FwdTile and Tile in csrc/flash_simple.cu)
 KERNEL_TILES = {
     "flash_fwd": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
-    "flash_bwd_dq": {64: (128, 128), 128: (128, 64)},
+    "flash_bwd_dq": {64: (128, 128), 128: (128, 64), 256: (128, 32)},
     "flash_bwd_dkv": {64: (64, 128), 128: (64, 128)},
     "flash_bwd_dkv_split": {256: (64, 64)},
-    "flash_simple_fwd": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
+    "flash_simple_fwd": {64: (64, 64), 128: (64, 64), 256: (64, 64)},
     "flash_simple_bwd_dq": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
     "flash_simple_bwd_dkv": {64: (64, 64), 128: (64, 64), 256: (64, 32)},
 }

@@ -1,7 +1,7 @@
 """head_dim 256 in bf16 and f16 on the CPU: the plain blockwise forward
 and backward at the tiles of the kernels that take those inputs on the
 card (ops/flash_attention.py KERNEL_DOMAIN: the wgmma forward at
-(128, 64), the SIMT dq at (32, 64), the split wgmma dk/dv at (64, 64))
+(128, 64), the wgmma dq at (128, 32), the split wgmma dk/dv at (64, 64))
 against the JAX package's Pallas kernels in interpret mode, each run at
 the same tiles: the forward at the forward's, its out and lse feeding
 the backward at dq's tiles (dq) and at dk/dv's (dk, dv), as the port's
@@ -33,7 +33,7 @@ from kubeflow_tpu_torch.ops import flash_attention as tflash
 
 TOL = 3e-2
 JNP = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}
-D256 = ("flash_fwd", "flash_simple_bwd_dq", "flash_bwd_dkv_split")
+D256 = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv_split")
 
 # b, lq, lk, h, hkv, causal, window, segments
 CASES = {
@@ -134,7 +134,7 @@ def test_plain_at_d256_tiles_matches_jax(name, dtype):
 
 
 def test_d256_domain_names_the_wgmma_kernels():
-    """bf16 and f16 at head_dim 256: the wgmma forward, the SIMT dq and the
+    """bf16 and f16 at head_dim 256: the wgmma forward and dq and the
     split wgmma dk/dv; f32 stays on the SIMT kernels."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tflash.kernels_for(dtype, 256) == D256 == tflash.SM90_D256
@@ -150,6 +150,11 @@ def test_d256_tiles_keep_the_reference_lengths():
     the reference's rule does (multiples of 128)."""
     assert tflash.KERNEL_LENGTH == 128
     assert tflash.KERNEL_TILES["flash_fwd"][256] == (128, 64)
+    assert tflash.KERNEL_TILES["flash_bwd_dq"][256] == (128, 32)
+    # the f32 forward takes 64-row q tiles at every head dim; the f32 dq
+    # keeps its 32-row tiles at 256
+    assert tflash.KERNEL_TILES["flash_simple_fwd"] == {
+        64: (64, 64), 128: (64, 64), 256: (64, 64)}
     assert tflash.KERNEL_TILES["flash_simple_bwd_dq"][256] == (32, 64)
     assert tflash.KERNEL_TILES["flash_bwd_dkv_split"] == {256: (64, 64)}
     # the D 64/128 wgmma tiles are as before
@@ -171,14 +176,21 @@ def test_d256_kernels_have_sources_and_launchers():
 
 
 def test_simt_source_keeps_only_dq_at_two_byte_d256():
-    """flash_simple.cu instantiates its forward and dk/dv for f32 alone;
-    its dq also for bf16 and f16 at 256 (the D256 triple's dq)."""
+    """flash_simple.cu instantiates f32 alone: each of its three
+    launchers goes through the one domain, f32 at head_dim 64, 128 and
+    256, and no 2-byte type is named (the D256 dq moved to the wgmma
+    kernel of flash_bwd.cu)."""
     text = (_build.CSRC / "flash_simple.cu").read_text()
-    calls = re.findall(r"on_domain<(true|false)>\(.*?launch\("
+    calls = re.findall(r"on_domain\(elem, D, .*?launch\("
                        r"(flash_simple_\w+)_kernel", text, re.S)
-    assert {name: wide for wide, name in calls} == {
-        "flash_simple_fwd": "false", "flash_simple_bwd_dkv": "false",
-        "flash_simple_bwd_dq": "true"}
+    assert sorted(calls) == ["flash_simple_bwd_dkv", "flash_simple_bwd_dq",
+                             "flash_simple_fwd"]
+    domain = re.search(r"static cudaError_t on_domain\(.*?\n}", text,
+                       re.S).group(0)
+    assert re.findall(r"fn\(Dim<(\d+)>\{\}, (\w+)\{\}\)", domain) == [
+        ("64", "float"), ("128", "float"), ("256", "float")]
+    for two_byte in ("bf16", "f16", "__nv_bfloat16", "__half"):
+        assert not re.search(rf"\b{two_byte}\b", text), two_byte
 
 
 def test_ptxas_report_names_the_split_kernel(tmp_path):
@@ -195,20 +207,28 @@ def test_ptxas_report_names_the_split_kernel(tmp_path):
         "'_ZN3kft4sm9016flash_fwd_kernelILi256E6__halfEEv14CUtensorMap_stS3_"
         "S3_NS0_4ArgsE' for 'sm_90a'\n"
         "ptxas info    : Used 168 registers, used 1 barriers\n"
-        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN3kft4sm9019flash_bwd_dq_kernelILi256E13__nv_bfloat16EEv14CUtens"
+        "orMap_stS3_S3_S3_NS0_4ArgsE' for 'sm_90a'\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
     got = _build.ptxas_report({"x": log.with_suffix(".so")})
     assert got == {
         "flash_bwd_dkv_split": {("bf16", 256): {"registers": 168,
                                                 "spill_bytes": 0}},
-        "flash_fwd": {("f16", 256): {"registers": 168, "spill_bytes": 16}}}
+        "flash_fwd": {("f16", 256): {"registers": 168, "spill_bytes": 16}},
+        "flash_bwd_dq": {("bf16", 256): {"registers": 168,
+                                         "spill_bytes": 0}}}
 
 
 def test_planted_faults_and_ablations_match_their_sources():
     """Each planted fault of mutation_check and each ablation of
     kernel_ablation is one text substitution that must match its source
     exactly once (the card run raises otherwise); the faults that must
-    fail in the head_dim 256 cases are faults, and reach both new
-    kernels' sources."""
+    fail in the head_dim 256 cases are faults, and reach the sources of
+    every kernel that takes head_dim 256 in a wgmma form (the forward,
+    dq, the split dk/dv) and the f32 forward's stream of stages."""
     from kubeflow_tpu_torch import kernel_ablation, mutation_check
 
     edits = {**mutation_check.FAULTS,
@@ -218,5 +238,9 @@ def test_planted_faults_and_ablations_match_their_sources():
         assert old != new, name
     assert set(mutation_check.MUST_CATCH) <= set(mutation_check.FAULTS)
     assert {mutation_check.FAULTS[n][0] for n in mutation_check.MUST_CATCH} \
-        == {"flash_fwd.cu", "flash_bwd_dkv_split.cu"}
+        == {"flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dkv_split.cu",
+            "flash_simple.cu"}
+    assert {mutation_check.MUST_CATCH[n] for n in (
+        "dq_skips_last_k_tile", "dq_ds_without_delta")} == {"bfloat16/256"}
     assert (torch.bfloat16, 256) in mutation_check.SHAPES
+    assert (torch.float32, 256) in mutation_check.SHAPES

@@ -32,6 +32,12 @@ CASES = {
                                  96, True),
     "f32-d128-noncausal-gqa": (torch.float32, 1, 128, 256, 4, 2, 128, False,
                                0, False),
+    # the f32 forward's 64 x 64 tiles at head_dim 64, and at 256 with lq <
+    # lk under a window that is not a multiple of 64
+    "f32-d64-causal-gqa": (torch.float32, 2, 256, 256, 4, 2, 64, True, 0,
+                           False),
+    "f32-d256-lq128-lk256-window": (torch.float32, 1, 128, 256, 2, 1, 256,
+                                    True, 80, False),
     "f16-d64-causal-gqa": (torch.float16, 2, 128, 128, 4, 2, 64, True, 0,
                            False),
     "f16-d256-window": (torch.float16, 1, 256, 256, 2, 1, 256, True, 64,

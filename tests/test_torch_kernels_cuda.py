@@ -95,9 +95,9 @@ CASES = [
 # The rest of the reference's domain (ops/flash_attention.py
 # KERNEL_DOMAIN): f16 on the wgmma kernels at head_dim 64 and 128; f32 at
 # 64, 128 and 256 on the SIMT kernels of flash_simple.cu, at the edges of
-# their 64-row and 64-key tiles (32-row q tiles and 32-key dk/dv tiles at
+# their 64-row and 64-key tiles (32-row dq tiles and 32-key dk/dv tiles at
 # 256); bf16/f16 at 256 on the wgmma forward (128-row, 64-key tiles), the
-# SIMT dq and the split wgmma dk/dv (64 x 64).
+# wgmma dq (128-row, 32-key tiles) and the split wgmma dk/dv (64 x 64).
 DOMAIN_CASES = [
     # dtype, b, lq, lk, h, hkv, d, causal, window, segments
     (torch.float16, 2, 256, 256, 4, 2, 64, True, 0, False),
@@ -134,6 +134,24 @@ DOMAIN_CASES = [
     (torch.float16, 2, 256, 256, 4, 1, 256, True, 200, False),
     (torch.bfloat16, 8, 2048, 2048, 8, 2, 256, True, 0, False),
     (torch.float16, 8, 2048, 2048, 8, 2, 256, True, 0, True),
+    # the D256 wgmma dq's 32-key tiles and single Q/dO buffer: windows
+    # that are not a multiple of 32, lq > lk and lq < lk with distinct q
+    # and kv segment ids, a CTA that walks several items (batch 4 x 8
+    # heads x 3 q tiles on a grid of one CTA per SM), non-causal
+    (torch.bfloat16, 1, 256, 384, 4, 1, 256, True, 40, True),
+    (torch.float16, 2, 384, 128, 4, 2, 256, True, 0, True),
+    (torch.bfloat16, 1, 128, 256, 8, 2, 256, False, 72, False),
+    (torch.float16, 4, 384, 384, 8, 8, 256, True, 0, False),
+    # the f32 forward's 64 x 64 tiles at every head dim and its stream of
+    # K/V chunks through the ring: one tile (a stream shorter than the
+    # ring), lq > lk and lq < lk with distinct q and kv segment ids,
+    # windows that are not a multiple of 64, non-causal, GQA 4
+    (torch.float32, 1, 128, 128, 2, 1, 64, True, 0, False),
+    (torch.float32, 1, 384, 256, 4, 2, 256, True, 0, True),
+    (torch.float32, 1, 128, 512, 4, 1, 256, True, 200, False),
+    (torch.float32, 2, 256, 256, 8, 2, 128, True, 40, True),
+    (torch.float32, 1, 512, 384, 4, 4, 64, False, 100, True),
+    (torch.float32, 1, 256, 256, 2, 2, 256, False, 0, False),
 ]
 
 
@@ -182,7 +200,7 @@ def test_autograd_reaches_kernels(dev):
                          ids=["bf16", "f16"])
 def test_autograd_reaches_d256_kernels(dev, dtype):
     """head_dim 256 in a 2-byte type: one forward and backward launch the
-    wgmma forward, the SIMT dq and the split wgmma dk/dv once each, by
+    wgmma forward, the wgmma dq and the split wgmma dk/dv once each, by
     name and by instantiation, and nothing else."""
     q, k, v, dout = _inputs(dev, 1, 256, 256, 4, 1, 256, dtype=dtype)
     q.requires_grad_()
@@ -191,10 +209,10 @@ def test_autograd_reaches_d256_kernels(dev, dtype):
     torch.cuda.synchronize()
     assert dict(fa.LAUNCHES) == {
         **dict.fromkeys(fa.LAUNCHES, 0),
-        "flash_fwd": 1, "flash_simple_bwd_dq": 1, "flash_bwd_dkv_split": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv_split": 1}
     assert fa.INSTANCE_LAUNCHES == {
         f"flash_fwd[{str(dtype)[6:]}/256]": 1,
-        f"flash_simple_bwd_dq[{str(dtype)[6:]}/256]": 1,
+        f"flash_bwd_dq[{str(dtype)[6:]}/256]": 1,
         f"flash_bwd_dkv_split[{str(dtype)[6:]}/256]": 1}
 
 
