@@ -13,8 +13,9 @@
    mbarrier ring and two consumer warpgroups running wgmma; bf16 and
    f16 at 256 on the wgmma forward (64-key tiles) and dq (32-key tiles)
    and the split wgmma dk/dv of flash_bwd_dkv_split.cu; f32 at 64, 128
-   and 256 on the three SIMT kernels of flash_simple.cu, f32 FMAs), at
-   llama-1b's attention shapes (q
+   and 256 on the three SIMT kernels of flash_simple.cu, f32 FMAs on 64
+   x 64 tiles, register-blocked, their streamed operands in cp.async
+   rings), at llama-1b's attention shapes (q
    [8, 2048, 32, 64] with 8 kv heads; llama-1b-hd128's [8, 2048, 16,
    128] with 4; [8, 2048, 8, 256] with 2), causal: runs each kernel and
    holds it against its plain PyTorch version on the same inputs, the

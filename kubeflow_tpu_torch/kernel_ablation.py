@@ -1,6 +1,7 @@
 """Where a flash kernel's time goes: ablated builds, timed on the card.
 
     python -m kubeflow_tpu_torch.kernel_ablation [--head-dim 256]
+        [--dtype float32]
 
 Builds altered copies of the CUDA sources under `_build/ablations/`, as
 `mutation_check` builds its faults (one text substitution each, which
@@ -8,13 +9,15 @@ must match once), each leaving one part of a kernel out, and times that
 kernel in every build at the llama-1b attention shapes of chip_smoke.py's
 kernel phase (q [8, 2048, 32, 64], k/v 8 heads, bf16, causal; with
 `--head-dim 256`, [8, 2048, 8, 256] with 2 kv heads, where the forward,
-dq and the split dk/dv run: the ablations of the forward and dq), with
-`kernel_check.device_ms`. An ablated kernel computes a wrong result:
-only its time is read. Each ablated build is timed between two timings
-of the unaltered build; a part's cost is their mean less the ablated
-time: what the part adds to the kernel's time, after whatever the rest
-of the kernel hides of it. Prints one line per ablation and a JSON
-record. Needs one CUDA GPU and `nvcc`.
+dq and the split dk/dv run: the ablations of the forward and dq; with
+`--dtype float32`, the SIMT kernels of flash_simple.cu at that shape:
+the ablations of their dq and dk/dv), with `kernel_check.device_ms`. An
+ablated kernel computes a wrong result: only its time is read. Each
+ablated build is timed between two timings of the unaltered build; a
+part's cost is their mean less the ablated time: what the part adds to
+the kernel's time, after whatever the rest of the kernel hides of it.
+Prints one line per ablation and a JSON record. Needs one CUDA GPU and
+`nvcc`.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from kubeflow_tpu_torch.ops import _build, kernel_check
 from kubeflow_tpu_torch.ops import flash_attention as fa
 
 # head_dim -> (batch, length, q heads, kv heads): the kernel phase's
-SHAPES = {64: (8, 2048, 32, 8), 256: (8, 2048, 8, 2)}
+SHAPES = {64: (8, 2048, 32, 8), 128: (8, 2048, 16, 4), 256: (8, 2048, 8, 2)}
 
 # name -> (kernel, (file, text, replacement)); `if constexpr (D == 0)`
 # drops a statement at compile time, and a store under an impossible
@@ -81,6 +84,27 @@ ABLATIONS = {
         "flash_bwd.cu",
         "if (tile_interior(a, r_lo, r_lo + 63, k0, k0 + kBK - 1, offset))",
         "if (true)")),
+    # the f32 SIMT backward (flash_simple.cu): its two kinds of product are
+    # helpers both kernels call, so one edit ablates a kind in both and
+    # each ablation times one kernel; the exp is each kernel's own
+    "simple_dq_no_s_dp_products": ("flash_simple_bwd_dq", (
+        "flash_simple.cu", "  for (int x = 0; x < 64; x += 4) {",
+        "  for (int x = 0; x < 0; x += 4) {")),
+    "simple_dq_no_dq_product": ("flash_simple_bwd_dq", (
+        "flash_simple.cu", "  for (int y = 0; y < kBT; ++y) {",
+        "  for (int y = 0; y < 0; ++y) {")),
+    "simple_dq_no_exp": ("flash_simple_bwd_dq", (
+        "flash_simple.cu",
+        "s[i][j] = ex2(x) * (dp[i][j] - at(dlt, i)) * a.scale;",
+        "s[i][j] = x * (dp[i][j] - at(dlt, i)) * a.scale;")),
+    "simple_dkv_no_st_dpt_products": ("flash_simple_bwd_dkv", (
+        "flash_simple.cu", "  for (int x = 0; x < 64; x += 4) {",
+        "  for (int x = 0; x < 0; x += 4) {")),
+    "simple_dkv_no_dv_dk_products": ("flash_simple_bwd_dkv", (
+        "flash_simple.cu", "  for (int y = 0; y < kBT; ++y) {",
+        "  for (int y = 0; y < 0; ++y) {")),
+    "simple_dkv_no_exp": ("flash_simple_bwd_dkv", (
+        "flash_simple.cu", "st[i][c] = ex2(x);", "st[i][c] = x;")),
 }
 
 
@@ -88,13 +112,16 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(prog="kernel_ablation")
     parser.add_argument("--head-dim", type=int, default=64,
                         choices=sorted(SHAPES))
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float32"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ablation: needs a CUDA GPU")
     d = args.head_dim
     b, l, h, hkv = SHAPES[d]
-    # the ablations of the kernels that take bf16 at this head dim
-    names = fa.kernels_for(torch.bfloat16, d)
+    dtype = getattr(torch, args.dtype)
+    # the ablations of the kernels that take this dtype at this head dim
+    names = fa.kernels_for(dtype, d)
     ablations = {n: (kernel, edit) for n, (kernel, edit) in ABLATIONS.items()
                  if kernel in names}
     with ThreadPoolExecutor(len(ablations) + 1) as pool:
@@ -106,8 +133,7 @@ def main(argv: list[str]) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen).to(
-            torch.bfloat16)
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
 
     q, dout = randn(b, l, h, d), randn(b, l, h, d)
     k, v = randn(b, l, hkv, d), randn(b, l, hkv, d)
@@ -121,9 +147,12 @@ def main(argv: list[str]) -> int:
            dkv: lambda: fa.flash_bwd_dkv_cuda(
                q, k, v, dout, lse, delta, **cfg)}
 
+    # the SIMT kernels take milliseconds a launch: fewer launches a timing
+    reps = dict(n=5, reps=3) if dtype == torch.float32 else {}
+
     def timed(paths, kernel: str) -> float:
         with _build.using(paths):
-            return kernel_check.device_ms(run[kernel])
+            return kernel_check.device_ms(run[kernel], **reps)
 
     # each ablated build between two timings of the unaltered one, so a
     # card that speeds up or slows down during the run shows in the
@@ -139,6 +168,7 @@ def main(argv: list[str]) -> int:
         print(f"{n}: {kernel} {ablated:.4f} ms, unaltered {before:.4f} / "
               f"{after:.4f} ms, the part costs {cost:+.4f} ms", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
+                      "dtype": args.dtype,
                       "shape": [b, l, h, d], "kv_heads": hkv,
                       "ablations": report}))
     return 0

@@ -10,7 +10,8 @@ wrappers routed to each build in turn (`_build.using`):
 
 1. `SAME`: the kernels both builds share run on the same card tensors
    (the kernel phase's shapes, causal, window 512, segment ids); every
-   output (out, lse, dq, dk, dv) must be equal bit for bit.
+   output they write (out and lse; dq, dk and dv where the backward
+   kernels are shared too) must be equal bit for bit.
 2. `TIMED`: each kernel this change redesigned, in the other build and
    in this one, at the kernel phase's shapes, causal: `kernel_check.
    device_ms` in the order other, this, this, other, so a card that
@@ -35,23 +36,19 @@ from kubeflow_tpu_torch.ops import flash_attention as fa
 # (dtype, head_dim) -> (batch, length, q heads, kv heads): the kernel
 # phase's shapes (chip_smoke.py KERNEL_SHAPES)
 SHAPES = {64: (8, 2048, 32, 8), 128: (8, 2048, 16, 4), 256: (8, 2048, 8, 2)}
-# the instantiations both builds must compute bit for bit alike: the
-# wgmma kernels at head_dim 64 and 128
-SAME = [(dtype, d) for dtype in (torch.bfloat16, torch.float16)
-        for d in (64, 128)]
-# label -> (kernel in the other build, kernel in this one, dtype, head_dim)
-TIMED = {
-    "dq bfloat16/256": ("flash_simple_bwd_dq", "flash_bwd_dq",
-                        torch.bfloat16, 256),
-    "dq float16/256": ("flash_simple_bwd_dq", "flash_bwd_dq",
-                       torch.float16, 256),
-    "fwd float32/64": ("flash_simple_fwd", "flash_simple_fwd",
-                       torch.float32, 64),
-    "fwd float32/128": ("flash_simple_fwd", "flash_simple_fwd",
-                        torch.float32, 128),
-    "fwd float32/256": ("flash_simple_fwd", "flash_simple_fwd",
-                        torch.float32, 256),
+# (dtype, head_dim) -> the kernels (by role) both builds must compute bit
+# for bit alike: every wgmma kernel, and the f32 SIMT forward
+SAME = {
+    **{(dtype, d): ("fwd", "dq", "dkv")
+       for dtype in (torch.bfloat16, torch.float16) for d in (64, 128, 256)},
+    **{(torch.float32, d): ("fwd",) for d in (64, 128, 256)},
 }
+# label -> (kernel in the other build, kernel in this one, dtype, head_dim):
+# the f32 SIMT backward kernels
+TIMED = {f"{role} float32/{d}": (name, name, torch.float32, d)
+         for d in (64, 128, 256)
+         for role, name in (("dq", "flash_simple_bwd_dq"),
+                            ("dkv", "flash_simple_bwd_dkv"))}
 
 
 def _inputs(dtype, d, seed=0):
@@ -106,7 +103,7 @@ def main(argv: list[str]) -> int:
     card = torch.cuda.get_device_name(0)
     report = {"same": {}, "timed": {}}
     ok = True
-    for dtype, d in SAME:
+    for (dtype, d), roles in SAME.items():
         q, k, v, dout, seg = _inputs(dtype, d)
         fwd, dq_name, dkv = fa.kernels_for(dtype, d)
         for tag, segs, window in (("causal", (), 0), ("window", (), 512),
@@ -116,16 +113,19 @@ def main(argv: list[str]) -> int:
                 with _build.using(paths):
                     out, lse = _call(fwd, q, k, v, None, None, None, *segs,
                                      window=window)
+                    got = {"out": out, "lse": lse}
                     delta = fa.flash_delta(out, dout)
-                    outs[which] = (out, lse,
-                                   *_call(dq_name, q, k, v, dout, lse, delta,
-                                          *segs, window=window),
-                                   *_call(dkv, q, k, v, dout, lse, delta,
-                                          *segs, window=window))
+                    if "dq" in roles:
+                        got["dq"], = _call(dq_name, q, k, v, dout, lse,
+                                           delta, *segs, window=window)
+                    if "dkv" in roles:
+                        got["dk"], got["dv"] = _call(
+                            dkv, q, k, v, dout, lse, delta, *segs,
+                            window=window)
                     torch.cuda.synchronize()
-            equal = {n: bool(torch.equal(a, b)) for n, a, b in zip(
-                ("out", "lse", "dq", "dk", "dv"), outs["this"],
-                outs["other"])}
+                    outs[which] = got
+            equal = {n: bool(torch.equal(x, outs["other"][n]))
+                     for n, x in outs["this"].items()}
             case = f"{str(dtype)[6:]}/{d} {tag}"
             report["same"][case] = equal
             ok &= all(equal.values())

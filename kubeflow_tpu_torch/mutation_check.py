@@ -61,8 +61,8 @@ FAULTS = {
     "diagonal_tile_taken_as_interior": (
         "flash_sm90.cuh", "if (a.causal && k_hi > q_lo + offset) return false;",
         "if (a.causal && k_hi - 128 > q_lo + offset) return false;"),
-    # the SIMT kernels (flash_simple.cu): each kernel's walk, dq's delta
-    # and the mask all three share
+    # the SIMT kernels (flash_simple.cu): the k-tile walk of the forward
+    # and dq, dq's delta, dk/dv's q-tile walk, and the mask all three share
     "simple_fwd_skips_last_k_tile": (
         "flash_simple.cu", "for (; kb < a.Lk / T::kBK; ++kb)",
         "for (; kb < a.Lk / T::kBK - 1; ++kb)"),
@@ -72,7 +72,17 @@ FAULTS = {
         "flash_simple.cu", "const float* st = ring + slot * T::kStage;",
         "const float* st = ring + (slot + 1) % kS * T::kStage;"),
     "simple_dq_ds_without_delta": (
-        "flash_simple.cu", "dsc[i] = a.delta[row];", "dsc[i] = 0.f;"),
+        "flash_simple.cu", "dlt = ld4(rows + kBT + 4 * ty);",
+        "dlt = make_float4(0.f, 0.f, 0.f, 0.f);"),
+    # the backward's streams: dq's second pass over K reads K's last
+    # chunk (still in its stage) for every column chunk of dQ, and dk/dv's
+    # dV product takes Q's chunks where it streams dO's again
+    "simple_dq_second_k_pass_stale_stage": (
+        "flash_simple.cu", "rows_product(dq[n], dst, step(), ty, tx);",
+        "rows_product(dq[n], dst, (step(), ks), ty, tx);"),
+    "simple_dkv_dv_fed_q_chunks": (
+        "flash_simple.cu", "(pc / kC % 2 ? gg : qg)",
+        "(pc / kC == 1 ? gg : qg)"),
     # the forward's P.V reads the V tile of the ring's next stage
     "fwd_v_from_next_stage": (
         "flash_fwd.cu", "fwd_pv<D>(o, pa, ks + kBK * D);",
@@ -91,8 +101,8 @@ FAULTS = {
         "split_ds<kBQ>(a, rs + kBQ, pt, tid, t, st);",
         "split_ds<kBQ>(a, rows + (s ^ 1) * 3 * kBQ + kBQ, pt, tid, t, st);"),
     "simple_dkv_skips_last_q_tile": (
-        "flash_simple.cu", "for (int qb = qb_lo; qb < a.Lq / kBQ; ++qb) {",
-        "for (int qb = qb_lo; qb < a.Lq / kBQ - 1; ++qb) {"),
+        "flash_simple.cu", "for (; qb < a.Lq / kBT; ++qb)",
+        "for (; qb < a.Lq / kBT - 1; ++qb)"),
     "simple_window_one_key_wider": (
         "flash_simple.cu", "(a.window <= 0 || d < a.window)",
         "(a.window <= 0 || d <= a.window)"),
@@ -107,15 +117,20 @@ FAULTS = {
         "0xffffe000u);\n"),
 }
 # faults that must fail in the cases of one (dtype, head_dim): those that
-# reach the head_dim 256 wgmma kernels, and the f32 forward's stage fault
-# at 256 (four stages there, two at 64)
+# reach the head_dim 256 wgmma kernels, and the f32 kernels' stream faults
+# at 256 (four stages there, two at 64; the backward's second passes
+# stream chunks only where a tile has more than one), with the f32
+# backward's delta and walk faults
 MUST_CATCH = {
     **dict.fromkeys(
         ("fwd_skips_last_k_tile", "fwd_v_from_next_stage",
          "dq_skips_last_k_tile", "dq_ds_without_delta",
          "dkv_split_skips_last_q_tile", "dkv_split_ds_without_delta",
          "dkv_split_delta_of_other_stage"), "bfloat16/256"),
-    "simple_fwd_stage_one_off": "float32/256"}
+    **dict.fromkeys(
+        ("simple_fwd_stage_one_off", "simple_dq_ds_without_delta",
+         "simple_dq_second_k_pass_stale_stage", "simple_dkv_skips_last_q_tile",
+         "simple_dkv_dv_fed_q_chunks"), "float32/256")}
 # (dtype, head_dim) -> (batch, length, q heads, kv heads) of the cases:
 # the main path's shape for bf16 at 64, smaller ones elsewhere (the SIMT
 # kernels and the plain versions at 64-row tiles are slow at full size)

@@ -69,15 +69,15 @@ ELEM = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # (block_q, block_k) of each CUDA kernel by head dim, as its source fixes
 # them (FwdTile in csrc/flash_fwd.cu, DqTile in csrc/flash_bwd.cu, DkvTile
 # in csrc/flash_bwd_dkv.cu, SplitTile in csrc/flash_bwd_dkv_split.cu,
-# FwdTile and Tile in csrc/flash_simple.cu)
+# FwdTile and kBT in csrc/flash_simple.cu)
 KERNEL_TILES = {
     "flash_fwd": {64: (128, 128), 128: (128, 128), 256: (128, 64)},
     "flash_bwd_dq": {64: (128, 128), 128: (128, 64), 256: (128, 32)},
     "flash_bwd_dkv": {64: (64, 128), 128: (64, 128)},
     "flash_bwd_dkv_split": {256: (64, 64)},
     "flash_simple_fwd": {64: (64, 64), 128: (64, 64), 256: (64, 64)},
-    "flash_simple_bwd_dq": {64: (64, 64), 128: (64, 64), 256: (32, 64)},
-    "flash_simple_bwd_dkv": {64: (64, 64), 128: (64, 64), 256: (64, 32)},
+    "flash_simple_bwd_dq": {64: (64, 64), 128: (64, 64), 256: (64, 64)},
+    "flash_simple_bwd_dkv": {64: (64, 64), 128: (64, 64), 256: (64, 64)},
 }
 ALL_KERNEL_TILES = sorted({t for by_d in KERNEL_TILES.values()
                            for t in by_d.values()})

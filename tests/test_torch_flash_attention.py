@@ -52,10 +52,12 @@ CASES = {
 }
 
 
-# The block pairs the plain version runs at: the reference's 64 x 64 and
+# The block pairs the plain version runs at: the reference's 64 x 64,
 # each CUDA kernel's own tiles at every head dim, which the card holds the
-# kernels against.
-BLOCKS = sorted({(64, 64), *tflash.ALL_KERNEL_TILES})
+# kernels against, and two asymmetric pairs a caller may ask of the plain
+# version on the CPU (flash_attention's block_q / block_k), which hold the
+# skip and mask rules where q and k blocks differ in size.
+BLOCKS = sorted({(64, 64), (32, 64), (64, 32), *tflash.ALL_KERNEL_TILES})
 # At 128-row or 128-key blocks a length must be a multiple of 128 (or
 # shorter than the block): these cases keep their offsets at such lengths.
 LONG = {"lq_lt_lk": (1, 128, 384, 2, 1, 32, True, 0, False),

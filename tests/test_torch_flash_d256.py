@@ -151,11 +151,12 @@ def test_d256_tiles_keep_the_reference_lengths():
     assert tflash.KERNEL_LENGTH == 128
     assert tflash.KERNEL_TILES["flash_fwd"][256] == (128, 64)
     assert tflash.KERNEL_TILES["flash_bwd_dq"][256] == (128, 32)
-    # the f32 forward takes 64-row q tiles at every head dim; the f32 dq
-    # keeps its 32-row tiles at 256
-    assert tflash.KERNEL_TILES["flash_simple_fwd"] == {
-        64: (64, 64), 128: (64, 64), 256: (64, 64)}
-    assert tflash.KERNEL_TILES["flash_simple_bwd_dq"][256] == (32, 64)
+    # the f32 SIMT kernels take 64 x 64 tiles at every head dim: the
+    # forward, and dq and dk/dv, whose stationary tiles leave room for 64
+    # rows at 256 because they stream K (or Q and dO) twice
+    for name in tflash.SIMPLE:
+        assert tflash.KERNEL_TILES[name] == {
+            64: (64, 64), 128: (64, 64), 256: (64, 64)}, name
     assert tflash.KERNEL_TILES["flash_bwd_dkv_split"] == {256: (64, 64)}
     # the D 64/128 wgmma tiles are as before
     assert tflash.KERNEL_TILES["flash_fwd"][64] == (128, 128)
@@ -228,7 +229,8 @@ def test_planted_faults_and_ablations_match_their_sources():
     exactly once (the card run raises otherwise); the faults that must
     fail in the head_dim 256 cases are faults, and reach the sources of
     every kernel that takes head_dim 256 in a wgmma form (the forward,
-    dq, the split dk/dv) and the f32 forward's stream of stages."""
+    dq, the split dk/dv) and the f32 kernels' streams of stages; each f32
+    backward kernel has ablations of its products and its exp."""
     from kubeflow_tpu_torch import kernel_ablation, mutation_check
 
     edits = {**mutation_check.FAULTS,
@@ -244,3 +246,10 @@ def test_planted_faults_and_ablations_match_their_sources():
         "dq_skips_last_k_tile", "dq_ds_without_delta")} == {"bfloat16/256"}
     assert (torch.bfloat16, 256) in mutation_check.SHAPES
     assert (torch.float32, 256) in mutation_check.SHAPES
+    assert {mutation_check.MUST_CATCH[n] for n in (
+        "simple_fwd_stage_one_off", "simple_dq_second_k_pass_stale_stage",
+        "simple_dkv_dv_fed_q_chunks")} == {"float32/256"}
+    for kernel in ("flash_simple_bwd_dq", "flash_simple_bwd_dkv"):
+        parts = {n.split("_no_")[1] for n, (k, _) in
+                 kernel_ablation.ABLATIONS.items() if k == kernel}
+        assert len(parts) == 3 and "exp" in parts, (kernel, parts)

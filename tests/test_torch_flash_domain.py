@@ -25,7 +25,9 @@ TOL = {torch.float32: (2e-5, 5e-4), torch.float16: (3e-2, 3e-2),
 JNP = {torch.float32: jnp.float32, torch.float16: jnp.float16,
        torch.bfloat16: jnp.bfloat16}
 
-# dtype, b, lq, lk, h, hkv, d, causal, window, segments
+# dtype, b, lq, lk, h, hkv, d, causal, window, segments (False, True:
+# the keys' ids end-aligned to the rows, or "distinct": ids drawn apart for
+# rows and keys, one row's id held by no key)
 CASES = {
     "f32-d256-causal": (torch.float32, 1, 128, 128, 2, 1, 256, True, 0, False),
     "f32-d256-window-segments": (torch.float32, 1, 256, 256, 2, 2, 256, True,
@@ -38,6 +40,16 @@ CASES = {
                            False),
     "f32-d256-lq128-lk256-window": (torch.float32, 1, 128, 256, 2, 1, 256,
                                     True, 80, False),
+    # the f32 backward's 64 x 64 tiles at every head dim: one q tile, and
+    # one k tile; lq != lk with distinct q and kv ids (rows no key may
+    # attend, inside tiles that run); windows that are not a multiple of
+    # 64; GQA 4
+    "f32-d64-lq64-lk192-distinct-gqa4": (torch.float32, 1, 64, 192, 4, 1,
+                                         64, True, 0, "distinct"),
+    "f32-d128-lq192-lk64-window-distinct": (torch.float32, 1, 192, 64, 2, 2,
+                                            128, True, 40, "distinct"),
+    "f32-d256-lq128-lk192-window-distinct-gqa4": (
+        torch.float32, 1, 128, 192, 4, 1, 256, True, 100, "distinct"),
     "f16-d64-causal-gqa": (torch.float16, 2, 128, 128, 4, 2, 64, True, 0,
                            False),
     "f16-d256-window": (torch.float16, 1, 256, 256, 2, 1, 256, True, 64,
@@ -56,6 +68,9 @@ def _inputs(b, lq, lk, h, hkv, d, segments, seed=0):
     if segments:
         kseg = np.cumsum(rng.random((b, lk)) < 3.0 / lk, axis=1).astype(np.int32)
         qseg = kseg[:, lk - lq:]          # end-aligned with the keys
+    if segments == "distinct":
+        qseg = np.cumsum(rng.random((b, lq)) < 3.0 / lq, axis=1).astype(np.int32)
+        qseg[:, lq // 2] = 1000           # no key holds this id
     return q, k, v, g, qseg, kseg
 
 
@@ -78,8 +93,14 @@ def test_plain_at_kernel_tiles_matches_jax(name):
                                        **cfg, **tflash.kernel_blocks(dkv, d))
     assert out.dtype == dq.dtype == dk.dtype == dtype
     # the reference at the forward kernel's blocks (its backward shares
-    # them); every row sees a key, so blocking moves no row's value
+    # them). Blocking moves only a row no key may attend (it averages the
+    # keys of the blocks that ran): the other cases have none, and in the
+    # distinct-id cases all three kernels tile alike, as the reference
     bq, bk = tflash.KERNEL_TILES[fwd][d]
+    if segments == "distinct":
+        assert lse[0, 0, lq // 2] == torch.tensor(tflash.NEG_INF)
+        assert {tflash.KERNEL_TILES[n][d] for n in (fwd, dq_name, dkv)} == {
+            (bq, bk)}
 
     def f(q, k, v):
         return jflash.flash_attention(q, k, v, causal=causal, block_q=bq,

@@ -95,9 +95,9 @@ CASES = [
 # The rest of the reference's domain (ops/flash_attention.py
 # KERNEL_DOMAIN): f16 on the wgmma kernels at head_dim 64 and 128; f32 at
 # 64, 128 and 256 on the SIMT kernels of flash_simple.cu, at the edges of
-# their 64-row and 64-key tiles (32-row dq tiles and 32-key dk/dv tiles at
-# 256); bf16/f16 at 256 on the wgmma forward (128-row, 64-key tiles), the
-# wgmma dq (128-row, 32-key tiles) and the split wgmma dk/dv (64 x 64).
+# their 64-row and 64-key tiles; bf16/f16 at 256 on the wgmma forward
+# (128-row, 64-key tiles), the wgmma dq (128-row, 32-key tiles) and the
+# split wgmma dk/dv (64 x 64).
 DOMAIN_CASES = [
     # dtype, b, lq, lk, h, hkv, d, causal, window, segments
     (torch.float16, 2, 256, 256, 4, 2, 64, True, 0, False),
@@ -152,6 +152,21 @@ DOMAIN_CASES = [
     (torch.float32, 2, 256, 256, 8, 2, 128, True, 40, True),
     (torch.float32, 1, 512, 384, 4, 4, 64, False, 100, True),
     (torch.float32, 1, 256, 256, 2, 2, 256, False, 0, False),
+    # the f32 backward's 64 x 64 tiles and its streams (dq: V's and K's
+    # chunks, then K's again; dk/dv: Q's and dO's, then both again): q and
+    # k tiles that walk one or two tiles, and k tiles no q tile sees
+    # (streams shorter than the ring, or empty), lq > lk and lq < lk with
+    # distinct q and kv segment ids (rows no key may attend inside tiles
+    # that run), windows of 40 and 200, GQA groups of 1, 4 and 8,
+    # non-causal, and the kernel phase's full head_dim 256 shape
+    (torch.float32, 1, 128, 128, 4, 4, 256, True, 0, False),
+    (torch.float32, 1, 128, 512, 8, 1, 256, True, 64, False),
+    (torch.float32, 1, 384, 256, 8, 2, 128, True, 40, True),
+    (torch.float32, 1, 256, 384, 4, 1, 256, True, 200, True),
+    (torch.float32, 2, 256, 256, 8, 8, 64, False, 0, True),
+    (torch.float32, 1, 256, 512, 8, 1, 128, False, 200, False),
+    (torch.float32, 1, 384, 128, 4, 1, 64, True, 0, True),
+    (torch.float32, 8, 2048, 2048, 8, 2, 256, True, 0, False),
 ]
 
 
