@@ -146,8 +146,17 @@
    "preempted", the preempted step on disk and in manifest.json, the
    profile naming the three flash kernels. Run B resumes it to step 6:
    start_step that step, exit 0, a finite eval with smoke 0. Run C
-   trains 6 steps straight in a fresh directory, sharing the card with
-   run A (its times are not read). B's final parameters
+   trains 6 steps straight, sharing the card with run A (its step times
+   are not read), with two jobs of its own: its checkpoint directory
+   is a `file://` URI, so fsspec's path writes its step (committed by
+   its marker) and restores the params B is held to (where fsspec does
+   not import, the refusal is held instead and the URI path is printed
+   as untested); and JAXRT_PROFILER_PORT=0 starts its on-demand capture
+   server, whose port is read from its log: after its first step a
+   `GET /capture?steps=2` must answer a Chrome trace of two consecutive
+   steps holding exactly the flash kernels' launches of those steps (16
+   of each a step, 16 more forwards per eval batch in the window), by
+   kernel event. B's final parameters
    are held to C's per row within 1e-2, the final losses within 1e-3
    relative (the largest difference is printed); every run launches
    each kernel 16 times a step and the forward 16 more per eval batch
@@ -1809,6 +1818,73 @@ NEAR_TIE_RATIO = 0.25
 # what the profile window must show: each flash kernel by its name
 PROFILE_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                    "flash_bwd_dkv_kernel")
+CAPTURE_STEPS = 2     # run C's on-demand capture
+CAPTURE_LINE = re.compile(r"profiler capture server on :(\d+)")
+
+
+class _OnDemandCapture:
+    """Run C's on-demand capture: once its log names the capture port
+    and its first step is done, `GET /capture?steps=CAPTURE_STEPS` on a
+    thread (the request is answered when the window closes)."""
+
+    def __init__(self):
+        self.port = self.thread = self.result = self.error = None
+        self.seconds = None
+
+    def on_line(self, line: str) -> None:
+        m = CAPTURE_LINE.search(line)
+        if m:
+            self.port = int(m.group(1))
+        if (self.thread is None and self.port
+                and "first step (incl. kernel build)" in line):
+            import threading
+
+            self.thread = threading.Thread(target=self._get, daemon=True)
+            self.thread.start()
+
+    def _get(self) -> None:
+        import urllib.error
+        import urllib.request
+
+        url = (f"http://127.0.0.1:{self.port}/capture?steps={CAPTURE_STEPS}"
+               "&timeout=300")
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(url, timeout=600) as r:
+                self.result = (r.status, dict(r.headers), r.read())
+        except urllib.error.HTTPError as e:
+            self.result = (e.code, dict(e.headers), e.read())
+        except OSError as e:
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def held(self, evals_every: int) -> dict:
+        """The capture's kernel events against the launches its steps
+        make; fails the phase otherwise."""
+        from kubeflow_tpu_torch.ops import flash_attention as fa
+
+        if self.thread is None:
+            fail(f"resume run C: no capture was requested (port {self.port})")
+        self.thread.join(60)
+        if self.error is not None or self.result is None:
+            fail(f"resume run C: the capture request failed: {self.error}")
+        status, headers, body = self.result
+        if status != 200:
+            fail(f"resume run C: capture answered {status}: {body[:300]!r}")
+        first, last = map(int, headers["X-Capture-Steps"].split("-"))
+        events = json.loads(body)["traceEvents"]
+        got = {n: sum(1 for e in events if e.get("cat") == "kernel"
+                      and f"{n}_kernel" in e.get("name", ""))
+               for n in fa.SM90}
+        want = _want_launches(first, last + 1,
+                              _evals_in(first, last + 1, evals_every))
+        want = {n: want[n] for n in fa.SM90}
+        if last - first + 1 != CAPTURE_STEPS or got != want:
+            fail(f"resume run C: capture of steps {first}-{last} holds "
+                 f"kernel events {got}, want {want} over {CAPTURE_STEPS} "
+                 "steps")
+        return {"steps": [first, last], "kernel_events": got,
+                "trace_mb": len(body) / 1e6, "request_s": self.seconds}
 
 
 def _write_resume_shards(root) -> tuple[str, str]:
@@ -1841,12 +1917,14 @@ def _write_resume_shards(root) -> tuple[str, str]:
     return str(root / "train-*.kfr"), f"{segments:.3f} of eval positions in a document"
 
 
-def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None
-            ) -> dict:
+def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None,
+            env_extra: dict | None = None, on_line=None) -> dict:
     """The port launcher as a subprocess on `cfg`, under an injected
     TRACEPARENT, with its span dump in KFTPU_TRACE_FILE; SIGTERM after
-    its "step N" line when `sigterm_after` is given. Returns the exit
-    code, the output, the summary and the spans."""
+    its "step N" line when `sigterm_after` is given; `env_extra` on top
+    of the env, and `on_line(line)` called on each line of its output as
+    it comes. Returns the exit code, the output, the summary and the
+    spans."""
     import os
     import re
     import signal
@@ -1859,7 +1937,7 @@ def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None
     env = {**os.environ, "TRACEPARENT": f"00-{TRACE_ROOT[0]}-{TRACE_ROOT[1]}-01",
            "KFTPU_TRACE_FILE": str(trace_path), "JAXRT_METRICS_PORT": "0",
            # deterministic cuBLAS: a resumed run equals an uninterrupted one
-           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8", **(env_extra or {})}
     t0 = time.perf_counter()
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubeflow_tpu_torch.runtime.launcher",
@@ -1873,6 +1951,8 @@ def _launch(cfg: dict, root, tag: str, sigterm_after: int | None = None
     try:
         for line in proc.stdout:
             lines.append(line)
+            if on_line is not None:
+                on_line(line)
             if (sigterm_after is not None and signalled is None
                     and re.search(rf"\bstep {sigterm_after} loss=", line)):
                 proc.send_signal(signal.SIGTERM)
@@ -1979,10 +2059,32 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
           f"{free_gb:.0f} GB free on the checkout's disk; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    cfg_c = {**cfg, "checkpoint_dir": str(root / "ckpt_c"),
+    # run C checkpoints through fsspec to a file:// URI where fsspec
+    # imports; where it does not, the refusal is held
+    uri_c = f"file://{root / 'ckpt_c'}"
+    try:
+        import fsspec  # noqa: F401
+        ckpt_c = uri_c
+    except ImportError:
+        try:
+            ckpt_mod.Checkpointer(uri_c)
+        except ValueError as e:
+            if "fsspec" not in str(e):
+                raise
+            print(f"resume: fsspec does not import here, a URI directory "
+                  f"is refused ({e}): the URI checkpoint path went untested",
+                  flush=True)
+        else:
+            fail("resume: a URI checkpoint directory was taken without "
+                 "fsspec")
+        ckpt_c = str(root / "ckpt_c")
+    cfg_c = {**cfg, "checkpoint_dir": ckpt_c,
              "checkpoint_every": 0, "eval_every": 0, "profile_dir": None}
+    capture = _OnDemandCapture()
     with cf.ThreadPoolExecutor(max_workers=2) as pool:
-        run_c = pool.submit(_launch, cfg_c, root, "run_c")
+        run_c = pool.submit(_launch, cfg_c, root, "run_c",
+                            env_extra={"JAXRT_PROFILER_PORT": "0"},
+                            on_line=capture.on_line)
         a = _launch(cfg, root, "run_a", sigterm_after=RESUME_SIGTERM_AFTER)
         c = run_c.result()
     m = re.search(r"preempted at step (\d+)", a["out"])
@@ -2030,12 +2132,19 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
     want_c = _want_launches(0, RESUME_STEPS, 0)
     if c["launches"] != want_c:
         fail(f"resume run C: launches {c['launches']}, want {want_c}")
+    captured = capture.held(cfg_c["eval_every"])
 
-    # run B's final parameters against run C's, per row
+    # run B's final parameters against run C's, per row; C's restored
+    # from its directory (through fsspec under the URI)
     pb = torch.load(root / "ckpt" / str(RESUME_STEPS) / ckpt_mod.PARAMS_FILE,
                     map_location="cuda", weights_only=True)["params"]
-    pc = torch.load(root / "ckpt_c" / str(RESUME_STEPS) / ckpt_mod.PARAMS_FILE,
-                    map_location="cuda", weights_only=True)["params"]
+    if ckpt_mod.list_steps(ckpt_c) != [RESUME_STEPS]:
+        fail(f"resume run C: steps {ckpt_mod.list_steps(ckpt_c)} in "
+             f"{ckpt_c}, want [{RESUME_STEPS}]")
+    t_restore = time.perf_counter()
+    pc, _ = ckpt_mod.restore_params(ckpt_c)
+    restore_c_s = time.perf_counter() - t_restore
+    pc = {k: v.to("cuda") for k, v in pc.items()}
     if set(pb) != set(pc):
         fail("resume: runs B and C saved different parameters")
     worst = (0.0, 0.0, "")
@@ -2092,12 +2201,24 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
                                  "C": c["launches"]},
         "spans": {"A": tree_a, "B": tree_b},
         "wall_s": {"A": a["wall"], "B": b["wall"], "C": c["wall"]},
+        "run_c": {"checkpoint_dir": ckpt_c.split(":")[0] if "://" in ckpt_c
+                  else "path",
+                  "checkpoint_write_s": logged(c, r"written in ([\d.]+) s"),
+                  "restore_params_s": restore_c_s,
+                  "capture": captured},
         "profile_trace_mb": traces[0].stat().st_size / 1e6,
         "resume_skip": {"batches": RESUME_SKIP_BATCHES,
                         "bytes": RESUME_SKIP_BATCHES * first.size,
                         "s": skip_s},
     }
     print(f"resume ({card}): " + json.dumps(figures), flush=True)
+    print(f"resume: run C's capture of steps {captured['steps']} holds "
+          f"{captured['kernel_events']} flash kernel events "
+          f"({captured['trace_mb']:.1f} MB, answered in "
+          f"{captured['request_s']:.1f} s); its checkpoint through "
+          f"{figures['run_c']['checkpoint_dir']} written in "
+          f"{figures['run_c']['checkpoint_write_s']} s, params restored in "
+          f"{restore_c_s:.2f} s", flush=True)
     print(f"resume: A preempted at step {k} (exit 75), B resumed {k} -> "
           f"{RESUME_STEPS}, B == C per row (max row err {worst[0]:.3g}, "
           f"max abs diff {worst[1]:.3g} in {worst[2]}), final loss "

@@ -9,9 +9,12 @@ head_dim]; grouped-query attention passes fewer kv heads than q heads.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 NEG_FILL = -1e30   # not -inf: a fully masked row averages, never NaN
+ENV_BLOCK_Q, ENV_BLOCK_K = "KFTPU_FLASH_BLOCK_Q", "KFTPU_FLASH_BLOCK_K"
 
 
 def _repeat_kv(k: torch.Tensor, num_q_heads: int) -> torch.Tensor:
@@ -63,7 +66,8 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto",
     the flash kernels on a CUDA device for every input the reference
     sends to its kernel (`_flash_supported`; `KERNEL_DOMAIN` covers all
     of it), the plain reference path elsewhere. block_q / block_k set the
-    plain version's blocks; the CUDA kernels tile at their own sizes."""
+    plain version's blocks (`flash_blocks`); the CUDA kernels tile at
+    their own sizes."""
     if impl == "reference":
         return reference_attention(q, k, v, causal=causal,
                                    segment_ids=segment_ids, window=window)
@@ -72,18 +76,39 @@ def attention(q, k, v, *, causal: bool = True, impl: str = "auto",
                          "(auto|flash|reference)")
     if impl == "flash" or (q.device.type == "cuda"
                            and _flash_supported(q, k)):
-        from kubeflow_tpu_torch.ops.flash_attention import (
-            DEFAULT_BLOCK_K,
-            DEFAULT_BLOCK_Q,
-            flash_attention,
-        )
+        from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 
-        return flash_attention(q, k, v, causal=causal,
-                               block_q=block_q or DEFAULT_BLOCK_Q,
-                               block_k=block_k or DEFAULT_BLOCK_K,
-                               segment_ids=segment_ids, window=window)
+        bq, bk, origin = flash_blocks(block_q, block_k)
+        return flash_attention(q, k, v, causal=causal, block_q=bq,
+                               block_k=bk, segment_ids=segment_ids,
+                               window=window, blocks_from=origin)
     return reference_attention(q, k, v, causal=causal,
                                segment_ids=segment_ids, window=window)
+
+
+def flash_blocks(block_q: int = 0, block_k: int = 0) -> tuple[int, int, str]:
+    """The flash call's block sizes, in the reference's order: the
+    call's, else $KFTPU_FLASH_BLOCK_Q / $KFTPU_FLASH_BLOCK_K (read at
+    each call, as the reference reads them at trace time: autotuning
+    sweeps set them per subprocess), else the default. Returns them and
+    where they came from, for the kernels' warning about sizes they do
+    not tile at."""
+    from kubeflow_tpu_torch.ops.flash_attention import (
+        DEFAULT_BLOCK_K,
+        DEFAULT_BLOCK_Q,
+    )
+
+    bq, q_from = _block(block_q, ENV_BLOCK_Q, DEFAULT_BLOCK_Q)
+    bk, k_from = _block(block_k, ENV_BLOCK_K, DEFAULT_BLOCK_K)
+    return bq, bk, f"block_q {q_from}, block_k {k_from}"
+
+
+def _block(arg: int, var: str, default: int) -> tuple[int, str]:
+    if arg:
+        return arg, "from the call"
+    if var in os.environ:
+        return int(os.environ[var]), f"from ${var}"
+    return default, "by default"
 
 
 def _flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:

@@ -510,11 +510,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     block_k: int = DEFAULT_BLOCK_K,
                     segment_ids: torch.Tensor | None = None,
                     kv_segment_ids: torch.Tensor | None = None,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0,
+                    blocks_from: str = "the call") -> torch.Tensor:
     """Fused attention. [B, L, H, D] in and out; GQA via fewer kv heads.
     block_q / block_k block the plain version; on the card each kernel
     tiles at its KERNEL_TILES entry and other sizes are ignored, with a
-    warning.
+    warning that names `blocks_from` (where the caller took the sizes:
+    attention.flash_blocks).
 
     window > 0 masks keys further than window-1 positions in the past
     (one-sided). segment_ids [B, L] mask attention across packed
@@ -525,9 +527,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if _on_card(q) and (block_q, block_k) not in {
             (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K), *ALL_KERNEL_TILES}:
         warnings.warn(f"flash attention on {q.device}: block sizes "
-                      f"({block_q}, {block_k}) are ignored, the CUDA kernels "
-                      f"tile at (block_q, block_k) {KERNEL_TILES}",
-                      stacklevel=2)
+                      f"({block_q}, {block_k}; {blocks_from}) are ignored, "
+                      "the CUDA kernels tile at (block_q, block_k) "
+                      f"{KERNEL_TILES}", stacklevel=2)
     if h % k.shape[2]:
         raise ValueError(f"{h} q heads not a multiple of {k.shape[2]} kv heads")
     block_q = _fit_block(block_q, lq)

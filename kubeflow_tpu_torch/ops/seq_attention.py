@@ -15,7 +15,10 @@ and gathers explicitly:
   end-aligned causal offset (Lk - Lq = r b) is then exactly the causal
   offset, and the window rule, relative to it, stays right. Non-causal
   attention (BERT) attends the whole gathered K/V under its padding
-  mask.
+  mask; with a window it must also see q at its true positions (the
+  window rule places q end-aligned over the keys it is given, (n-1) b
+  for any block of n b keys), so q is gathered as well and this rank's
+  rows are kept.
 - `auto` decides flash or reference on the full length, as the
   reference does (`attention.flash_rule`): flash on a CUDA tensor
   for the lengths % 128 the reference sends to its kernel, the plain
@@ -33,6 +36,7 @@ import torch
 
 from kubeflow_tpu_torch.ops.attention import (
     attention,
+    flash_blocks,
     flash_rule,
     reference_attention,
 )
@@ -102,19 +106,24 @@ def seq_attention(q, k, v, *, seq=None, causal: bool = True,
     # the reference's dispatch, on the full length
     flash = impl == "flash" or (impl == "auto" and on_card and flash_rule(
         n * b, n * b, q.shape[-1]))
+    # the window needs q's true positions, or this rank's block breaks
+    # the kernels' length rule: attend with every rank's rows and keep
+    # this rank's
+    whole = (not causal and window > 0) or (
+        flash and on_card and b % fa.KERNEL_LENGTH != 0)
+    if whole:
+        q_use, k_use, v_use, qseg, kseg = (gather_seq(q, seq), k_all, v_all,
+                                           seg_all, None)
+    else:
+        q_use, qseg = q, segment_ids
     if not flash:
-        return reference_attention(q, k_use, v_use, causal=causal,
-                                   segment_ids=segment_ids,
-                                   kv_segment_ids=kseg, window=window)
-    blocks = dict(block_q=block_q or fa.DEFAULT_BLOCK_Q,
-                  block_k=block_k or fa.DEFAULT_BLOCK_K)
-    if on_card and b % fa.KERNEL_LENGTH:
-        # this rank's block breaks the kernels' length rule: attend with
-        # every rank's rows and keep this rank's
-        out = fa.flash_attention(gather_seq(q, seq), k_all, v_all,
-                                 causal=causal, segment_ids=seg_all,
-                                 window=window, **blocks)
-        return out[:, r * b:(r + 1) * b]
-    return fa.flash_attention(q, k_use, v_use, causal=causal,
-                              segment_ids=segment_ids, kv_segment_ids=kseg,
-                              window=window, **blocks)
+        out = reference_attention(q_use, k_use, v_use, causal=causal,
+                                  segment_ids=qseg, kv_segment_ids=kseg,
+                                  window=window)
+    else:
+        bq, bk, origin = flash_blocks(block_q, block_k)
+        out = fa.flash_attention(q_use, k_use, v_use, causal=causal,
+                                 segment_ids=qseg, kv_segment_ids=kseg,
+                                 window=window, block_q=bq, block_k=bk,
+                                 blocks_from=origin)
+    return out[:, r * b:(r + 1) * b] if whole else out

@@ -201,6 +201,34 @@ class WorldSpec:
         return spec
 
 
+def free_port(host: str = "127.0.0.1") -> int:
+    """A port free on `host` now for a coordinator that a child process
+    binds later, drawn from below the kernel's ephemeral range: a port
+    from bind(0) is an ephemeral one, which any bind(0) or connect() of
+    another process (gloo's listeners, HTTP servers, clients) may take
+    before the child binds it, and rank 0's store then fails with
+    EADDRINUSE while the other ranks wait on a port nobody listens on."""
+    import random
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            hi = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        hi = 32768
+    draw = random.SystemRandom()     # not the seeded global generator
+    for _ in range(200):
+        port = draw.randrange(max(1024, hi - 12000), hi)
+        with socket.socket() as s:
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+            return port
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
 def wait_for_coordinator(address: str, timeout_s: float = 300.0) -> None:
     """Block until the coordinator's port accepts TCP."""
     host, _, port = address.partition(":")

@@ -19,6 +19,19 @@ Contract, as the reference's:
   temp directory (fsync, then rename): a save killed part-way is never
   visible as a step. One write is in flight at a time. A step that
   exists is skipped unless `force`, which deletes it, then saves.
+- A directory given as a URI (`gs://`, `s3://`, `memory://`,
+  `file://`, ...) goes through fsspec, where fsspec imports and has an
+  implementation for the scheme (gcsfs, s3fs, ...), and is refused with
+  a ValueError naming what is missing where it does not. An object store
+  has no rename, so there a step is written in place, `<dir>/<step>/`,
+  and counts as written only once its commit marker `COMMIT`, written
+  last, is present (orbax's `commit_success` on GCS does the same):
+  `list_steps` and every restore skip a step without it, and a save
+  over it replaces it. "Atomic" means there that each object appears
+  whole (an object store's PUT) and that a step appears only with its
+  marker; the manifest is one object, whole but not fsynced. A step
+  left without its marker is removed once a newer step commits. No PID
+  is probed there: a temp name may come from another host.
 - `keep` newest steps are retained (0 keeps every step); older ones go
   once a save lands.
 - `restore_latest` tries steps newest first, skips one that fails to
@@ -59,6 +72,7 @@ log = logging.getLogger("kubeflow_tpu_torch.checkpoint")
 
 PARAMS_FILE = "params.pt"
 OPT_FILE = "opt_state.pt"
+COMMIT_FILE = "COMMIT"     # a URI directory's step marker, written last
 _TMP_PREFIX = ".tmp-"
 # what came of rank 0's save or wait, broadcast to the world
 _SKIPPED, _SAVED, _FAILED = 0, 1, 2
@@ -69,13 +83,45 @@ class CheckpointError(RuntimeError):
     raise."""
 
 
-def _normalize_dir(directory: str) -> str:
+def _resolve(directory: str) -> str:
+    """Local paths become absolute; a URI passes through untouched
+    (abspath would mangle its scheme into a pod-local path and silently
+    defeat a gang restart's resume)."""
     if "://" in directory:
-        raise ValueError(f"{directory}: the port checkpoints to a local "
-                         "(or mounted) path only")
-    directory = os.path.abspath(directory)
-    os.makedirs(directory, exist_ok=True)
+        return directory.rstrip("/")
+    return os.path.abspath(directory)
+
+
+def _normalize_dir(directory: str) -> str:
+    """_resolve, and the directory created."""
+    directory = _resolve(directory)
+    remote = _remote(directory)
+    if remote is None:
+        os.makedirs(directory, exist_ok=True)
+    else:
+        remote[0].makedirs(remote[1], exist_ok=True)
     return directory
+
+
+def _remote(directory: str):
+    """(fsspec filesystem, its path) of a URI directory; None for a
+    local path. A ValueError names what is missing: fsspec itself, or
+    its implementation of the scheme."""
+    if "://" not in directory:
+        return None
+    try:
+        import fsspec
+    except ImportError as e:
+        raise ValueError(f"{directory}: a URI checkpoint directory goes "
+                         f"through fsspec, which does not import here "
+                         f"({e}); use a local (or mounted) path") from e
+    try:
+        fs, path = fsspec.core.url_to_fs(directory)
+    except (ImportError, ValueError) as e:
+        raise ValueError(f"{directory}: fsspec has no implementation for "
+                         f"this scheme here ({e}); use a local (or "
+                         "mounted) path") from e
+    return fs, path.rstrip("/")
 
 
 def _count_failure(op: str, by: float = 1.0) -> None:
@@ -119,7 +165,11 @@ def _fsync_dir(path: str) -> None:
 
 
 def list_steps(directory: str) -> list[int]:
-    """The finalized steps under `directory`, ascending."""
+    """The finalized steps under `directory`, ascending (under a URI,
+    the steps whose commit marker is present)."""
+    remote = _remote(directory)
+    if remote is not None:
+        return sorted(set(_remote_steps(*remote)[0]))
     try:
         names = os.listdir(directory)
     except FileNotFoundError:
@@ -128,7 +178,35 @@ def list_steps(directory: str) -> list[int]:
                   if n.isdigit() and os.path.isdir(os.path.join(directory, n)))
 
 
+def _remote_steps(fs, root: str) -> tuple[list[int], list[int]]:
+    """(committed steps, steps without their marker) under `root`."""
+    try:
+        names = [p.rstrip("/").rsplit("/", 1)[-1]
+                 for p in fs.ls(root, detail=False)]
+        marked = {p.rstrip("/").split("/")[-2]
+                  for p in fs.glob(f"{root}/*/{COMMIT_FILE}")}
+    except FileNotFoundError:
+        return [], []
+    steps = [int(n) for n in names if n.isdigit()]
+    return ([s for s in steps if str(s) in marked],
+            [s for s in steps if str(s) not in marked])
+
+
 def _load(directory: str, step: int, params_only: bool = False) -> dict:
+    remote = _remote(directory)
+    if remote is not None:
+        fs, root = remote
+        path = f"{root}/{int(step)}"
+        if not fs.exists(f"{path}/{COMMIT_FILE}"):
+            raise FileNotFoundError(f"{directory}: step {step} has no "
+                                    "commit marker")
+        files = [PARAMS_FILE] if params_only else [PARAMS_FILE, OPT_FILE]
+        payload = {}
+        for name in files:
+            with fs.open(f"{path}/{name}", "rb") as f:
+                payload.update(torch.load(f, map_location="cpu",
+                                          weights_only=True))
+        return payload
     path = os.path.join(directory, str(int(step)))
     payload = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
                          weights_only=True)
@@ -136,6 +214,12 @@ def _load(directory: str, step: int, params_only: bool = False) -> dict:
         payload.update(torch.load(os.path.join(path, OPT_FILE),
                                   map_location="cpu", weights_only=True))
     return payload
+
+
+def _parts(host: dict) -> dict:
+    """The step's files: the params part and the optimizer state."""
+    return {PARAMS_FILE: {k: v for k, v in host.items() if k != "opt_state"},
+            OPT_FILE: {"opt_state": host.get("opt_state", {})}}
 
 
 class Checkpointer:
@@ -158,6 +242,7 @@ class Checkpointer:
         rank 0's value on every rank) for a world of several
         processes."""
         self.directory = _normalize_dir(directory)
+        self._fs = _remote(self.directory)   # (fs, path) under a URI
         self.rank = rank
         self._collective = collective
         self.keep = keep
@@ -171,7 +256,7 @@ class Checkpointer:
         self._slice_counts: dict[int, int] = {}
         self._writer: threading.Thread | None = None
         self._write_error: BaseException | None = None
-        if rank == 0:
+        if rank == 0 and self._fs is None:
             self._remove_stale_temps()
 
     def _remove_stale_temps(self) -> None:
@@ -222,7 +307,7 @@ class Checkpointer:
                                 step, self.directory)
                     status = _SKIPPED
                     return False
-                shutil.rmtree(os.path.join(self.directory, str(step)))
+                self._remove_step(step)
             # the window this call blocks the step loop for: the
             # goodput ledger's `checkpoint` bucket reads this span name
             with obs_trace.TRACER.span("train.checkpoint", step=step) as sp:
@@ -258,16 +343,28 @@ class Checkpointer:
                 f"checkpoint: rank 0 failed to save to {self.directory}")
         return got
 
+    def _remove_step(self, step: int, missing_ok: bool = False) -> None:
+        if self._fs is None:
+            shutil.rmtree(os.path.join(self.directory, str(step)),
+                          ignore_errors=missing_ok)
+            return
+        fs, root = self._fs
+        try:
+            fs.rm(f"{root}/{step}", recursive=True)
+        except FileNotFoundError:
+            if not missing_ok:
+                raise
+
     def _write(self, step: int, host: dict) -> None:
+        if self._fs is not None:
+            self._write_remote(step, host)
+            return
         t0 = time.perf_counter()
         tmp = os.path.join(self.directory, f"{_TMP_PREFIX}{step}-{os.getpid()}")
         try:
             shutil.rmtree(tmp, ignore_errors=True)
             os.makedirs(tmp)
-            parts = {PARAMS_FILE: {k: v for k, v in host.items()
-                                   if k != "opt_state"},
-                     OPT_FILE: {"opt_state": host.get("opt_state", {})}}
-            for name, part in parts.items():
+            for name, part in _parts(host).items():
                 with open(os.path.join(tmp, name), "wb") as f:
                     torch.save(part, f)
                     f.flush()
@@ -282,11 +379,41 @@ class Checkpointer:
             shutil.rmtree(tmp, ignore_errors=True)
             self._write_error = e
 
+    def _write_remote(self, step: int, host: dict) -> None:
+        """In place under `<dir>/<step>/`, the commit marker last: the
+        step is a step once the marker is there."""
+        t0 = time.perf_counter()
+        fs, root = self._fs
+        path = f"{root}/{step}"
+        try:
+            self._remove_step(step, missing_ok=True)   # a marker-less step
+            fs.makedirs(path, exist_ok=True)
+            parts = _parts(host)
+            for name, part in parts.items():
+                with fs.open(f"{path}/{name}", "wb") as f:
+                    torch.save(part, f)
+            with fs.open(f"{path}/{COMMIT_FILE}", "w") as f:
+                f.write(json.dumps({"step": step,
+                                    "files": sorted(parts)}) + "\n")
+            self._retain()
+            log.info("checkpoint: step %d written in %.3f s", step,
+                     time.perf_counter() - t0)
+        except BaseException as e:  # surfaces at the next join
+            self._write_error = e
+
     def _retain(self) -> None:
-        steps = self.all_steps()
+        if self._fs is not None:
+            steps, unmarked = _remote_steps(*self._fs)
+            # a step left without its marker (a writer killed part-way)
+            # goes once a newer step has committed
+            for old in unmarked:
+                if steps and old < max(steps):
+                    self._remove_step(old, missing_ok=True)
+            steps.sort()
+        else:
+            steps = self.all_steps()
         for old in steps[:max(0, len(steps) - self.keep)] if self.keep else ():
-            shutil.rmtree(os.path.join(self.directory, str(old)),
-                          ignore_errors=True)
+            self._remove_step(old, missing_ok=True)
 
     def _join_writer(self) -> None:
         if self._writer is not None:
@@ -342,12 +469,16 @@ class Checkpointer:
         atomically AFTER saves finalize, so it never names a step that
         is not on disk. World sizes and slice counts of earlier
         incarnations are merged in, pruned to the steps still present."""
-        path = os.path.join(self.directory, "manifest.json")
+        if self._fs is None:
+            path = os.path.join(self.directory, "manifest.json")
+        else:
+            path = f"{self._fs[1]}/manifest.json"
+        opener = open if self._fs is None else self._fs[0].open
         try:
             steps = self.all_steps()
             prior: dict = {}
             try:
-                with open(path) as f:
+                with opener(path) as f:
                     prior = json.load(f)
                 if not isinstance(prior, dict):
                     prior = {}
@@ -362,15 +493,18 @@ class Checkpointer:
                 out.update({str(s): n for s, n in mine.items() if s in steps})
                 return out
 
-            atomic_write_text(
-                path,
-                json.dumps({"latest_step": steps[-1] if steps else None,
-                            "steps": steps,
-                            "world_sizes": merged("world_sizes",
-                                                  self._world_sizes),
-                            "slice_counts": merged("slice_counts",
-                                                   self._slice_counts)},
-                           sort_keys=True) + "\n")
+            text = json.dumps({"latest_step": steps[-1] if steps else None,
+                               "steps": steps,
+                               "world_sizes": merged("world_sizes",
+                                                     self._world_sizes),
+                               "slice_counts": merged("slice_counts",
+                                                      self._slice_counts)},
+                              sort_keys=True) + "\n"
+            if self._fs is None:
+                atomic_write_text(path, text)
+            else:
+                with opener(path, "w") as f:   # one object, whole
+                    f.write(text)
         except OSError as e:
             log.warning("checkpoint: manifest write failed: %s", e)
 
@@ -401,8 +535,9 @@ def restore_variables(directory: str, step: int | None = None
     """Inference restore: `({"params": state_dict}, step)` from a
     training checkpoint, for serving. Only `params.pt` is read: the
     optimizer state (2x the params for adamw) never costs a serving
-    process its I/O or host memory."""
-    directory = os.path.abspath(directory)
+    process its I/O or host memory. The directory resolves as the
+    Checkpointer's does: a URI passes through."""
+    directory = _resolve(directory)
     steps = list_steps(directory)
     if step is None:
         step = steps[-1] if steps else None

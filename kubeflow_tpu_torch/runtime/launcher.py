@@ -17,6 +17,9 @@
   (runtime/elastic.py): shrink or grow in place, resuming from the
   checkpoint;
 - serves the metrics registry at $JAXRT_METRICS_PORT (default 9100);
+- with $JAXRT_PROFILER_PORT set, serves on-demand profiler captures of
+  the built-in trainer's next steps there (runtime/profiler.py; a user
+  command gets no server, as in the reference);
 - attaches the job's trace context ($TRACEPARENT) and runs the trainer
   inside a `worker` span; $KFTPU_TRACE_FILE receives the span dump at
   exit (tools/trace2perfetto.py reads it);
@@ -51,6 +54,10 @@ import time
 
 from kubeflow_tpu_torch.obs import trace as obs_trace
 from kubeflow_tpu_torch.parallel import dist as D
+from kubeflow_tpu_torch.runtime.profiler import (
+    ENV_PROFILER_PORT,
+    start_server_from_env,
+)
 
 log = logging.getLogger("kubeflow_tpu_torch.launcher")
 
@@ -235,8 +242,16 @@ def main(argv: list[str] | None = None) -> int:
         log.info("process %d/%d (job=%s) on %s", cfg.process_id,
                  cfg.num_processes, cfg.job_name or "-", device)
     try:
+        capture = start_server_from_env()
+    except OSError as e:
+        capture = None
+        log.warning("profiler capture port %s busy (%s); on-demand capture "
+                    "disabled", os.environ.get(ENV_PROFILER_PORT), e)
+    try:
         return run_builtin_trainer(load_config(args.config), device)
     finally:
+        if capture is not None:
+            capture.shutdown()
         D.shutdown()
 
 
@@ -258,11 +273,14 @@ def run_local_workers(argv: list[str], nproc: int,
     for r in range(nproc):
         env = D.expand_local(dict(os.environ if base_env is None
                                   else base_env), nproc, r)
-        # one span dump and one metrics port per worker
+        # one span dump, one metrics port and one capture port per worker
         if env.get(ENV_TRACE_FILE):
             env[ENV_TRACE_FILE] = f"{env[ENV_TRACE_FILE]}.local{r}"
         port = int(env.get(ENV_METRICS_PORT, "9100"))
         env[ENV_METRICS_PORT] = str(port + r if port else 0)
+        if env.get(ENV_PROFILER_PORT):
+            port = int(env[ENV_PROFILER_PORT])
+            env[ENV_PROFILER_PORT] = str(port + r if port else 0)
         procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
                                       env=env))
     log.info("started %d local workers", nproc)

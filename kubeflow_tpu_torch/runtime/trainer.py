@@ -16,7 +16,8 @@ as the reference keeps them beside `params`.
 `fit` is the reference's loop: resume from the latest checkpoint, batches
 from synthetic data or KFR1 token or image shards (packed token shards
 bring segment ids, which reach the flash kernels) through the Prefetcher, periodic
-saves and evals, a profiler window, a `stop` flag polled once a step
+saves and evals, a profiler window and the on-demand capture's windows
+(runtime/profiler.py), a `stop` flag polled once a step
 (preemption), `train.fit` / `train.step` spans and the jaxrt_* gauges.
 The first step (kernel builds, allocator warm-up) stays out of the
 meter. It returns the reference's summary dict.
@@ -999,10 +1000,13 @@ class Trainer:
             log.info("%s @ step %d: %s", what, gstep,
                      " ".join(f"{k}={v:.4f}" for k, v in sorted(last_eval.items())))
 
-        from kubeflow_tpu_torch.runtime.profiler import TraceWindow
+        from kubeflow_tpu_torch.runtime.profiler import CAPTURES, TraceWindow
 
         trace = TraceWindow(cfg.profile_dir, cfg.profile_start_step,
                             cfg.profile_steps)
+        # the on-demand capture server's windows (JAXRT_PROFILER_PORT)
+        # open and close in this loop's step hook
+        CAPTURES.begin(cfg.profile_dir)
         ok = preempted = False
         data = None
         # nest under the caller's span (the launcher's "worker"), else
@@ -1036,7 +1040,7 @@ class Trainer:
                     log.warning("preempted at step %d: checkpoint saved, "
                                 "exiting early", self.step)
                     break
-                trace.step(start_step + i)
+                CAPTURES.before_step(start_step + i, trace)
                 batch = next(data)
                 if i == 0:
                     # the first step builds kernels and warms the
@@ -1078,6 +1082,7 @@ class Trainer:
         finally:
             try:
                 meter.close()  # a step that raised still exports, as ERROR
+                CAPTURES.end()
                 trace.stop()
                 if hasattr(data, "close"):
                     data.close()

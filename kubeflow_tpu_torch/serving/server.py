@@ -1060,15 +1060,11 @@ def _start_world(argv: list[str], n: int, device: str | None) -> int:
     this command, rank r with the JAXJOB_* env of a local world (the
     launcher's local workers), sharing the cards over gloo (the loopback
     backend) when there are fewer GPUs than ranks."""
-    import socket
-
     from kubeflow_tpu_torch.parallel import backends as B
     from kubeflow_tpu_torch.parallel import dist as D
     from kubeflow_tpu_torch.runtime.launcher import run_local_workers
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = D.free_port()
     env = {**os.environ, D.ENV_COORD: f"127.0.0.1:{port}", D.ENV_NPROC: "1",
            D.ENV_PID: "0"}
     if device != "cpu" and torch.cuda.device_count() < n:

@@ -7,7 +7,10 @@ tears down first, a failed teardown raises WorldTeardownError), and a
 
 `run_world` (used by the other multi-process test files) runs a
 function of a test module in n processes, each with its rank's JAXJOB_*
-env, and fails on a non-zero exit or a timeout.
+env, and fails on a non-zero exit or a timeout; the tests at the end
+hold that a failed rank stops its world at once and names every rank's
+output, that a timeout does too, and that a world whose coordinator port
+was taken before rank 0 bound it runs again on another.
 """
 
 import json
@@ -16,6 +19,8 @@ import pathlib
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 
 import pytest
 import torch
@@ -27,15 +32,62 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 TESTS = ROOT / "tests"
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# coordinator ports for the worlds the tests start (below the ephemeral
+# range: a bind(0) port could be taken before rank 0's store binds it)
+free_port = D.free_port
 
 
 # spawned ranks yield the CPU to the test processes beside them: timing
 # tests in other workers share the machine
 NICE = ["nice", "-n", "10"]
+# what rank 0's store raises when its port was taken before it bound it
+_BIND_FAILED = ("EADDRINUSE", "address already in use")
+WORLD_ATTEMPTS = 3
+
+
+def _tails(outs: list[str], codes: list) -> str:
+    return "\n".join(f"--- rank {r}: exit {c}\n{o[-3000:]}"
+                     for r, (o, c) in enumerate(zip(outs, codes)))
+
+
+def _run_world_once(n, code, out_dir, args, env, timeout):
+    """One attempt: (exit codes, outputs); a rank that fails stops the
+    rest of the world at once, and so does the timeout (its codes are
+    then None for the ranks it stopped, and `timed_out` is set)."""
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for rank in range(n):
+            e = {**os.environ, **(env or {}),
+                 D.ENV_COORD: f"127.0.0.1:{port}", D.ENV_NPROC: str(n),
+                 D.ENV_PID: str(rank), "OMP_NUM_THREADS": "1"}
+            logs.append(tempfile.TemporaryFile("w+"))
+            procs.append(subprocess.Popen(
+                [*NICE, sys.executable, "-c", code,
+                 json.dumps([rank, n, str(out_dir), *args])],
+                cwd=ROOT, env=e, stdout=logs[-1], stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + timeout
+        timed_out = False
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c for c in codes):
+                break
+            if time.monotonic() > deadline:
+                timed_out = True
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for f in logs:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
+    return codes, outs, timed_out
 
 
 def run_world(n: int, target: str, out_dir, *args, env: dict | None = None,
@@ -43,37 +95,41 @@ def run_world(n: int, target: str, out_dir, *args, env: dict | None = None,
     """Run `module.function(rank, n, out_dir, *args)` (`target` is
     "module:function", a module under tests/) in n processes with the
     JAXJOB_* env of rank 0..n-1 around one coordinator, one thread each,
-    at a lower priority. Returns each rank's output; raises when one
-    fails or outlives `timeout`."""
+    at a lower priority. Returns each rank's output.
+
+    When a rank exits non-zero the rest of the world is stopped at once
+    and the call raises with every rank's exit code and the tail of its
+    output; so does a world that outlives `timeout`. A world whose rank
+    0 could not bind its coordinator port (taken between the choice and
+    the bind) is run again on another port, up to WORLD_ATTEMPTS times;
+    no other failure is retried."""
     mod, fn = target.split(":")
-    port = free_port()
-    code = (f"import json, sys; sys.path[:0] = [{str(ROOT)!r}, "
-            f"{str(TESTS)!r}]; import {mod}; "
-            f"{mod}.{fn}(*json.loads(sys.argv[1]))")
-    procs = []
-    for rank in range(n):
-        e = {**os.environ, **(env or {}),
-             D.ENV_COORD: f"127.0.0.1:{port}", D.ENV_NPROC: str(n),
-             D.ENV_PID: str(rank), "OMP_NUM_THREADS": "1"}
-        procs.append(subprocess.Popen(
-            [*NICE, sys.executable, "-c", code,
-             json.dumps([rank, n, str(out_dir), *args])],
-            cwd=ROOT, env=e, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            outs.append(out)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [(i, p.returncode) for i, p in enumerate(procs) if p.returncode]
-    assert not bad, f"ranks {bad} failed:\n" + "\n---\n".join(
-        o[-3000:] for o in outs)
-    return outs
+    # each rank dies with the test process that started it (PR_SET_PDEATHSIG):
+    # an xdist worker killed mid-test leaves no rank waiting on its
+    # coordinator
+    code = ("import ctypes, json, signal, sys\n"
+            "try:\n    ctypes.CDLL(None).prctl(1, signal.SIGKILL)\n"
+            "except (OSError, AttributeError):\n    pass\n"
+            "a = json.loads(sys.argv[1])\n"
+            "print(f'run_world: rank {a[0]} of {a[1]} started', flush=True)\n"
+            f"sys.path[:0] = [{str(ROOT)!r}, {str(TESTS)!r}]\n"
+            f"import {mod}\n{mod}.{fn}(*a)\n")
+    for attempt in range(1, WORLD_ATTEMPTS + 1):
+        codes, outs, timed_out = _run_world_once(n, code, out_dir, args, env,
+                                                 timeout)
+        if timed_out:
+            raise AssertionError(
+                f"world of {n} ({target}) outlived {timeout} s, stopped:\n"
+                + _tails(outs, codes))
+        if all(c == 0 for c in codes):
+            return outs
+        if (codes[0] and any(m in outs[0] for m in _BIND_FAILED)
+                and attempt < WORLD_ATTEMPTS):
+            continue
+        bad = [(r, c) for r, c in enumerate(codes) if c]
+        raise AssertionError(f"world of {n} ({target}): ranks {bad} failed, "
+                             "the rest stopped:\n" + _tails(outs, codes))
+    raise AssertionError("unreachable")
 
 
 @pytest.fixture(autouse=True)
@@ -150,6 +206,16 @@ def test_expand_local_gives_global_ranks():
     assert [c.process_id for c in got] == [4, 5, 6, 7]
     assert {c.num_processes for c in got} == {8}
     assert D.expand_local(env, 4, 2)[D.ENV_LOCAL_RANK] == "2"
+
+
+def test_free_port_is_below_the_ephemeral_range_and_free():
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    for _ in range(20):
+        port = D.free_port()
+        assert 1024 <= port < low
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", port))
 
 
 def test_wait_for_coordinator():
@@ -256,6 +322,66 @@ def world_worker(rank, n, out_dir):
 
 def test_two_rank_gloo_world_forms_from_env(tmp_path):
     run_world(2, "test_torch_dist:world_worker", tmp_path, timeout=120)
+    got = [json.loads((tmp_path / f"rank{r}.json").read_text())
+           for r in range(2)]
+    assert got == [{"sum": 3.0, "rank": 0}, {"sum": 3.0, "rank": 1}]
+
+
+# -- run_world itself ----------------------------------------------------------------
+
+
+def idle_or_fail_worker(rank, n, out_dir, fail_rank):
+    """Rank `fail_rank` prints and exits 3 at once; the others print and
+    wait forever, as ranks waiting on a coordinator that never came."""
+    print(f"rank {rank} here", flush=True)
+    if rank == fail_rank:
+        sys.exit(3)
+    time.sleep(3600)
+
+
+@pytest.mark.parametrize("fail_rank", [0, 1])
+def test_a_failed_rank_stops_its_world_and_names_every_rank(tmp_path,
+                                                            fail_rank):
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError) as err:
+        run_world(3, "test_torch_dist:idle_or_fail_worker", tmp_path,
+                  fail_rank, timeout=120)
+    assert time.monotonic() - t0 < 60
+    text = str(err.value)
+    assert f"ranks [({fail_rank}, 3)] failed" in text
+    assert f"rank {fail_rank} here" in text
+    for r in range(3):
+        assert f"--- rank {r}: exit" in text
+        assert f"run_world: rank {r} of 3 started" in text
+
+
+def test_a_world_that_outlives_its_timeout_names_every_rank(tmp_path):
+    with pytest.raises(AssertionError, match="outlived 8") as err:
+        run_world(2, "test_torch_dist:idle_or_fail_worker", tmp_path, -1,
+                  timeout=8)
+    assert all(f"run_world: rank {r} of 2 started" in str(err.value)
+               for r in range(2))
+
+
+def test_a_taken_coordinator_port_is_retried(tmp_path, monkeypatch):
+    """The first port is held (bound, not listening, as another
+    process's socket would be): rank 0's store cannot bind it, and the
+    world runs again on a free one."""
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", 0))
+    ports = [taken.getsockname()[1]]
+    real, calls = free_port, []
+
+    def pick():
+        calls.append(1)
+        return ports.pop(0) if ports else real()
+
+    monkeypatch.setattr(sys.modules[__name__], "free_port", pick)
+    try:
+        run_world(2, "test_torch_dist:world_worker", tmp_path, timeout=120)
+    finally:
+        taken.close()
+    assert len(calls) == 2        # the taken port, then one that bound
     got = [json.loads((tmp_path / f"rank{r}.json").read_text())
            for r in range(2)]
     assert got == [{"sum": 3.0, "rank": 0}, {"sum": 3.0, "rank": 1}]

@@ -5,7 +5,8 @@ same step (the stop flag is all-reduced every step), both save that step
 together and exit 75; a checkpoint saved by a world of 2 resumes in a
 world of 1 and one saved by a world of 1 resumes in a world of 2, each
 ending equal to a straight run (params within 1e-6, loss within 1e-5,
-f32); a save or write that fails on rank 0 fails every rank promptly,
+f32), and so does one saved by a world of 2 to a `file://` URI (the
+fsspec path, a step committed by its marker); a save or write that fails on rank 0 fails every rank promptly,
 with no rank left waiting in another collective.
 """
 
@@ -126,6 +127,36 @@ def test_checkpoint_moves_between_world_sizes(tmp_path, first, second):
                                    err_msg=k)
     manifest = json.loads((moved / "manifest.json").read_text())
     assert manifest["world_sizes"]["6"] == second
+
+
+def test_gang_resumes_through_a_file_uri(tmp_path):
+    """A world of 2 checkpoints to a `file://` URI (the fsspec path: each
+    step committed by its marker), loses its last step, and a world of 1
+    resumes from the URI; it ends equal to a straight run in this
+    process (params within 1e-6, loss within 1e-5)."""
+    from kubeflow_tpu_torch.runtime.checkpoint import COMMIT_FILE, list_steps
+    from kubeflow_tpu_torch.runtime.trainer import TrainConfig, Trainer
+
+    uri = f"file://{tmp_path / 'moved'}"
+    _run(tmp_path, "first", dict(CFG, total_steps=6, checkpoint_every=3,
+                                 checkpoint_dir=uri), 2)
+    assert list_steps(uri) == [3, 6]
+    # step 6 loses its marker (a write cut short): never a step
+    os.remove(tmp_path / "moved" / "6" / COMMIT_FILE)
+    res = _run(tmp_path, "second", dict(CFG, total_steps=6,
+                                        checkpoint_dir=uri), 1)
+    assert res[0][2]["start_step"] == 3
+    assert "resumed from checkpoint at step 3" in res[0][1]
+    straight = Trainer(TrainConfig.from_dict(dict(CFG, total_steps=6)),
+                       device="cpu")
+    want = straight.fit()
+    np.testing.assert_allclose(res[0][2]["final"]["loss"],
+                               want["final"]["loss"], atol=1e-5)
+    got, step = restore_params(uri)
+    assert step == 6
+    for k, v in straight.model.state_dict().items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=1e-6,
+                                   err_msg=k)
 
 
 def test_nproc_per_node_starts_one_worker_per_device(tmp_path):

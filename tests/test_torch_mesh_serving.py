@@ -25,7 +25,6 @@ following, against one port process and against the reference's meshed
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -35,7 +34,7 @@ import urllib.request
 import pytest
 import torch
 
-from test_torch_dist import NICE, ROOT, run_world
+from test_torch_dist import NICE, ROOT, free_port, run_world
 
 P, N, VOCAB = 8, 4, 64
 INSTANCES = [{"tokens": [1, 2, 3]}, {"tokens": list(range(1, 12))},
@@ -277,12 +276,6 @@ def test_a_mesh_of_one_rank_serves_in_this_process(reference):
 # -- the CLI -------------------------------------------------------------------
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _get(url: str, body=None, timeout=60):
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(url, data=data,
@@ -372,7 +365,7 @@ def _want_cli_tokens():
 
 
 def test_cli_starts_its_world_and_stops_it_in_order():
-    port = _free_port()
+    port = free_port()
     proc = subprocess.Popen(
         [*NICE, sys.executable, "-m", "kubeflow_tpu_torch.serving", *CLI,
          "--port", str(port)], cwd=ROOT, env=_env(),
@@ -401,8 +394,8 @@ def test_cli_starts_its_world_and_stops_it_in_order():
 
 
 def test_launcher_ranks_and_a_lost_follower():
-    port = _free_port()
-    coord = _free_port()
+    port = free_port()
+    coord = free_port()
     proc = subprocess.Popen(
         [*NICE, sys.executable, "-m", "kubeflow_tpu_torch.runtime.launcher",
          "--device", "cpu", "--nproc-per-node", "2", "--",

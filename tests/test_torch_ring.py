@@ -80,13 +80,13 @@ def _coords(spec: dict, n: int, rank: int) -> dict:
     return dict(zip(AXIS_NAMES, (int(c[0]) for c in where)))
 
 
-def op_outputs(fn, seq, data: dict) -> dict:
-    """Each case through `fn` (ring or ulysses) on this rank's block:
-    {case: (out, dq, dk, dv)} as numpy."""
-    n, r = seq.size, seq.rank
-    cut = slice(r * L // n, (r + 1) * L // n)
+def op_outputs(fn, seq, data: dict, cases: dict | None = None) -> dict:
+    """Each case (of `cases`, default CASES) through `fn` (ring or
+    ulysses) on this rank's block: {case: (out, dq, dk, dv)} as numpy."""
+    n, r, length = seq.size, seq.rank, data["q"].shape[1]
+    cut = slice(r * length // n, (r + 1) * length // n)
     res = {}
-    for name, c in CASES.items():
+    for name, c in (CASES if cases is None else cases).items():
         hkv = c["hkv"]
         q, k, v = (torch.tensor(data[key][:, cut].copy(), requires_grad=True)
                    for key in ("q", f"k{hkv}", f"v{hkv}"))

@@ -4,11 +4,15 @@ over the K/V gathered from every rank, the causal key prefix) in gloo
 worlds of 2 and 4 CPU processes.
 
 Op level, f32, on tests/test_torch_ring.py's inputs and cases (causal,
-GQA, window, segment ids, bidirectional): each rank's output and its
-dq, dk and dv, concatenated over the ranks, equal the JAX package's
-reference attention over the whole sequence within 2e-5 (the ring
-tests' tolerance), under each impl (flash is the plain blockwise
-version on the CPU; auto there is reference, as the reference's rule).
+GQA, window, segment ids, bidirectional) and a bidirectional window:
+each rank's output and its dq, dk and dv, concatenated over the ranks,
+equal the JAX package's reference attention over the whole sequence
+within 2e-5 (the ring tests' tolerance), under each impl (flash is the
+plain blockwise version on the CPU; auto there is reference, as the
+reference's rule). The bidirectional window also at seq 4, and at the
+smallest input it once diverged on (one position a rank, window 1: q
+was placed end-aligned over the gathered keys, not at its rank's
+positions).
 
 Trainer level, the SPMD witness protocol (tests/test_torch_spmd.py,
 SPMD_PARITY_TOLS: loss 1e-5, logits 1e-4, params 1e-6): transformer-test
@@ -40,6 +44,13 @@ from test_torch_ring import (
 from test_torch_spmd import REF_RTOL, TOLS
 
 IMPLS = ("auto", "flash", "reference")
+# non-causal attention with a window: q must sit at its true positions
+WINDOW_CASES = {"bidirectional_window": dict(hkv=2, causal=False, window=10)}
+SEQ_CASES = {**CASES, **WINDOW_CASES}
+# the smallest input the bidirectional window diverged on (the output's
+# max |d| 1.42 at seq 2): batch 1, one position a rank, 2 q / 2 kv
+# heads, D 8
+TINY_CASES = {"bidirectional_window_1": dict(hkv=2, causal=False, window=1)}
 LAYOUTS = {
     2: {"sp_auto": _lm("auto", {"data": 1, "seq": 2}),
         "sp_flash": _lm("flash", {"data": 1, "seq": 2}),
@@ -49,6 +60,12 @@ LAYOUTS = {
         "sp_flash_packed": _lm("flash", {"data": 1, "seq": 2})},
     4: {"dp_sp_flash": _lm("flash", {"data": 2, "seq": 2})},
 }
+
+
+def tiny_inputs(n: int, seed: int = 1) -> dict:
+    rng = np.random.default_rng(seed)
+    return {key: rng.standard_normal((1, n, 2, 8)).astype(np.float32)
+            for key in ("q", "ct", "k2", "v2")}
 
 
 def _witness(name: str, cfg: dict, init: dict) -> dict:
@@ -76,13 +93,15 @@ def seq_local_worker(rank, n, out_dir):
     DI.initialize_from_env(device="cpu")
     data = dict(np.load(os.path.join(out_dir, "inputs.npz")))
     init = torch.load(os.path.join(out_dir, "init.pt"), weights_only=True)
-    out = {}
-    if n == 2:
-        mesh = BK.get_backend().mesh({"data": 1, "seq": n}, "cpu")
-        seq = axis_group(mesh, ("seq",))
-        out["ops"] = {impl: op_outputs(functools.partial(seq_attention,
-                                                         impl=impl), seq,
-                                       data) for impl in IMPLS}
+    mesh = BK.get_backend().mesh({"data": 1, "seq": n}, "cpu")
+    seq = axis_group(mesh, ("seq",))
+    tiny = tiny_inputs(n)
+    out = {"ops": {}, "tiny": {}}
+    for impl in IMPLS:
+        fn = functools.partial(seq_attention, impl=impl)
+        out["ops"][impl] = op_outputs(fn, seq, data,
+                                      SEQ_CASES if n == 2 else WINDOW_CASES)
+        out["tiny"][impl] = op_outputs(fn, seq, tiny, TINY_CASES)
     for name, cfg in LAYOUTS[n].items():
         res = _witness(name, cfg, init)
         res["coords"] = _coords(cfg["mesh"], n, rank)
@@ -91,7 +110,7 @@ def seq_local_worker(rank, n, out_dir):
     DI.shutdown()
 
 
-def jax_full_reference(data: dict) -> dict:
+def jax_full_reference(data: dict, cases: dict = SEQ_CASES) -> dict:
     """{case: (out, dq, dk, dv)} of the reference's attention over the
     whole sequence, one process."""
     import jax
@@ -100,7 +119,7 @@ def jax_full_reference(data: dict) -> dict:
     from kubeflow_tpu.ops.attention import reference_attention
 
     res = {}
-    for name, c in CASES.items():
+    for name, c in cases.items():
         hkv = c["hkv"]
         seg = jnp.asarray(data["seg"]) if c.get("segments") else None
 
@@ -154,6 +173,21 @@ def test_seq_ops_equal_the_reference_over_the_whole_sequence(impl, setup,
                                                              world2):
     assert_ops([{"ops": r["ops"][impl]} for r in world2],
                jax_full_reference(setup[1]))
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_seq_window_without_causality_at_seq_4(impl, setup, world4):
+    assert_ops([{"ops": r["ops"][impl]} for r in world4],
+               jax_full_reference(setup[1], WINDOW_CASES))
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("impl", IMPLS)
+def test_seq_window_without_causality_at_one_position_a_rank(impl, sp,
+                                                             world2, world4):
+    outs = world2 if sp == 2 else world4
+    assert_ops([{"ops": r["tiny"][impl]} for r in outs],
+               jax_full_reference(tiny_inputs(sp), TINY_CASES))
 
 
 @pytest.mark.parametrize("name", [*LAYOUTS[2], *LAYOUTS[4]])
