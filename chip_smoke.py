@@ -280,16 +280,20 @@
    planted control (the all-to-all returning its input) beyond it, the
    final loss within 1e-3 relative. Its three worlds and phase 28's
    probe start at once (their step times are printed, not held).
-30. The LM over a serving mesh: llama-1b at full width and depth served
-   by two ranks of `python -m kubeflow_tpu_torch.serving --mesh model=2`
+30. The LM over a serving mesh: llama-1b at full width served by two
+   ranks of `python -m kubeflow_tpu_torch.serving --mesh model=2`
    sharing the card over gloo (continuous batching, 4 slots, prompt_len
-   128, 16 new tokens, 8 ragged requests over HTTP to rank 0): in f32
-   (TF32 off) the tokens equal one process's slot decoder on the same
-   seeded weights, and a planted control (rank 1 seeded 1) differs; each
+   128, 8 new tokens, 8 ragged requests over HTTP to rank 0, so the
+   second four reuse the slots): in f32 (TF32 off), at 4 of its 16
+   layers (for the script's time, when the job path was added, the f32
+   worlds were cut from 16 layers to 4 and every request from 16 new
+   tokens to 8: the tick is gloo's all-gathers, whatever the depth), the
+   tokens equal one process's slot decoder on the same seeded weights
+   and depth, and a planted control (rank 1 seeded 1) differs; each
    rank's device memory placing and serving, tokens/s, rank 0's host ms
    per tick and the share of it blocked in collectives (gloo: the
    collectives' own time); both ranks launch no flash kernel while
-   serving; then bf16, the share of equal tokens printed.
+   serving; then bf16 at full depth, the share of equal tokens printed.
 31. The classifiers on meshes: ViT-B/16 served at model=2 by two CLI
    ranks, 8 images' softmax rows within 1e-5 of one process (f32),
    beside the training runs; ViT-B/16 trained 3 steps at model=2 and at fsdp=2 (batch 16, 224 px)
@@ -319,6 +323,23 @@
    parameters within 1e-2 per row of no remat's, its eval-mode logits
    and BatchNorm statistics within 1e-3 relative; step ms, images/s and
    peak GB of each; no flash launch.
+34. The control plane's job path: one GPU node on the port's
+   FakeCluster (its product label the card's name in GKE's spelling,
+   nvidia.com/gpu: 2, two ranks sharing the card over the loopback
+   backend), the port's JAXJob controller, gang scheduler and
+   LocalPodExecutor running a JAXJob of 2 one-GPU workers whose default
+   command is the port's launcher, on phase 21's config (gpt-125m at
+   full width and depth, bf16, flash, full remat), 5 steps, a checkpoint
+   directory: the pods claim nvidia.com/gpu: 1 with the product and
+   node-pool selectors before the gang gate lifts; a third 1-GPU gang
+   stays gated and unbound while the first runs; the sidecar gate is
+   True on the card and False on an empty root; both ranks log equal
+   losses and launch each flash kernel 12 times a step (the forward 24);
+   a SIGTERM to rank 1 after its step 2 stops both ranks at one step
+   with exit 75, the job counts preemptions 1 and restarts 0, and the
+   recreated gang resumes at that step and ends Succeeded; prints the
+   condition sequence, each incarnation's launch-to-first-step seconds
+   and step time.
 Each phase prints its wall seconds, and the script its own at the end.
 Any kernel that ptxas reports spilling registers fails the build phase.
 
@@ -343,8 +364,9 @@ bert-base), which must run none of them, `world_rank1`, phase 21 (a)'s ranks, `m
 (the two serving ranks of phase 30's f32 run and of phase 31's ViT run,
 each counted from its reset after registration to its stop: none;
 phase 31's training worlds are held at none too), `seq_f32_rank0/1`,
-`uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks) and
-`classifier_remat` (none); the bf16 flash forward's row also holds its
+`uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks),
+`classifier_remat` (none) and `job_rank0/1` (phase 34's ranks, both
+incarnations); the bf16 flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -3700,7 +3722,13 @@ def expert_world_phase(root) -> dict:
 # and depth, f32 with TF32 off (tokens held equal), then bf16 (the share
 # of equal tokens printed); two ranks of the CLI share the card over gloo
 MESH_LM = "llama-1b"
-MESH_P, MESH_N, MESH_SLOTS, MESH_REQUESTS = 128, 16, 4, 8
+MESH_P, MESH_N, MESH_SLOTS, MESH_REQUESTS = 128, 8, 4, 8
+# the f32 worlds (the held one and its control) and their one process
+# serve llama-1b cut to 4 of its 16 layers (the script's time); bf16
+# keeps the full depth. A meshed tick is gloo's all-gathers of the
+# vocab-sharded embedding and head, which the depth does not change: the
+# decode's time follows MESH_N
+MESH_F32_LAYERS = 4
 
 
 def _mesh_prompts() -> list[list[int]]:
@@ -3709,11 +3737,24 @@ def _mesh_prompts() -> list[list[int]]:
             for k in (MESH_P, 97, 12, 128, 64, 33, 120, 5)[:MESH_REQUESTS]]
 
 
-def _start_mesh(root, tag: str, cli: list[str], seeds=(0, 0)) -> dict:
+def mesh_worker(argv: list[str]) -> int:
+    """`chip_smoke.py --mesh-worker LAYERS CLI...`: the serving CLI
+    (`python -m kubeflow_tpu_torch.serving CLI...`) in this process,
+    with MESH_LM cut to LAYERS layers."""
+    from kubeflow_tpu_torch.models import transformer as TM
+    from kubeflow_tpu_torch.serving.server import main as serve
+
+    TM.CONFIGS[MESH_LM]["n_layers"] = int(argv[0])
+    return serve(argv[1:])
+
+
+def _start_mesh(root, tag: str, cli: list[str], seeds=(0, 0),
+                layers: int | None = None) -> dict:
     """Two ranks of `python -m kubeflow_tpu_torch.serving --mesh model=2
     CLI...` sharing the card over gloo (the loopback backend), rank r
-    with seed seeds[r]; returns their processes, logs and rank 0's URL
-    once it answers /readyz."""
+    with seed seeds[r], MESH_LM cut to `layers` layers when given
+    (`mesh_worker`); returns their processes, logs and rank 0's URL once
+    it answers /readyz."""
     import os
     import socket
     import urllib.request
@@ -3730,10 +3771,13 @@ def _start_mesh(root, tag: str, cli: list[str], seeds=(0, 0)) -> dict:
                "JAXJOB_PROCESS_ID": str(rank),
                "JAXJOB_COLLECTIVES_BACKEND": "loopback",
                "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2) // 2))}
+        entry = (["-m", "kubeflow_tpu_torch.serving"] if layers is None
+                 else [str(Path(__file__).resolve()), "--mesh-worker",
+                       str(layers)])
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "kubeflow_tpu_torch.serving", "--mesh",
-             "model=2", *cli, "--port", str(http), "--seed",
-             str(seeds[rank])], cwd=str(Path(__file__).resolve().parent),
+            [sys.executable, *entry, "--mesh", "model=2", *cli, "--port",
+             str(http), "--seed", str(seeds[rank])],
+            cwd=str(Path(__file__).resolve().parent),
             env=env, stdout=open(logs[-1], "w"), stderr=subprocess.STDOUT))
         _MESH_PROCS.append(procs[-1])
     url = f"http://127.0.0.1:{http}"
@@ -3825,9 +3869,10 @@ def _metric(url: str, name: str) -> float:
     return float(m.group(1))
 
 
-def _one_process_lm(dtype: str, prompts: list) -> tuple[list, float, int]:
-    """The same model, seed and decoder in this process: (tokens, wall s,
-    peak bytes)."""
+def _one_process_lm(dtype: str, prompts: list, layers: int | None = None
+                    ) -> tuple[list, float, int]:
+    """The same model (cut to `layers` layers when given), seed and
+    decoder in this process: (tokens, wall s, peak bytes)."""
     import torch
 
     from kubeflow_tpu_torch.serving.server import serve_lm_generator
@@ -3836,7 +3881,8 @@ def _one_process_lm(dtype: str, prompts: list) -> tuple[list, float, int]:
     served = serve_lm_generator(
         "one", MESH_LM, prompt_len=MESH_P, max_new_tokens=MESH_N,
         device="cuda", dtype=dtype, continuous_batching=True,
-        decode_slots=MESH_SLOTS, seed=0)
+        decode_slots=MESH_SLOTS, seed=0,
+        **({"n_layers": layers} if layers else {}))
     try:
         import concurrent.futures as cf
 
@@ -3856,18 +3902,19 @@ def _one_process_lm(dtype: str, prompts: list) -> tuple[list, float, int]:
 
 
 def mesh_serving_phase(root) -> None:
-    """Phase 30: llama-1b at full width and depth (d 2048, 16 layers, 32
-    q / 8 kv heads) served over `--mesh model=2` by two ranks of the CLI
-    sharing the card over gloo: continuous batching, 4 slots, prompt_len
-    128, 16 new tokens, 8 ragged requests over HTTP to rank 0. In f32
-    (TF32 off) the tokens must equal one process's slot decoder on the
-    same seeded weights, and a planted control (rank 1 drawing its
-    weights from another seed) must differ; prints each rank's device
-    memory (the peak while the weights were placed, then while serving),
-    tokens/s of both, rank 0's host ms per tick and the share of the
-    tick blocked in collectives. Then bf16: the share of equal tokens,
-    printed, not held. Returns the f32 run's flash launches on both
-    ranks while serving (none)."""
+    """Phase 30: llama-1b at full width (d 2048, 32 q / 8 kv heads)
+    served over `--mesh model=2` by two ranks of the CLI sharing the
+    card over gloo: continuous batching, 4 slots, prompt_len 128,
+    MESH_N (8) new tokens, 8 ragged requests over HTTP to rank 0. In f32
+    (TF32 off), at MESH_F32_LAYERS (4) of its 16 layers, the tokens must
+    equal one process's slot decoder on the same seeded weights and
+    depth, and a
+    planted control (rank 1 drawing its weights from another seed) must
+    differ; prints each rank's device memory (the peak while the weights
+    were placed, then while serving), tokens/s of both, rank 0's host ms
+    per tick and the share of the tick blocked in collectives. Then bf16
+    at full depth: the share of equal tokens, printed, not held. Returns
+    the f32 run's flash launches on both ranks while serving (none)."""
     import concurrent.futures as cf
 
     prompts = _mesh_prompts()
@@ -3875,14 +3922,17 @@ def mesh_serving_phase(root) -> None:
     cli = ["--lm", f"llama={MESH_LM}", "--continuous-batching",
            "--decode-slots", str(MESH_SLOTS), "--prompt-len", str(MESH_P),
            "--max-new-tokens", str(MESH_N)]
-    want, one_wall, one_peak = _one_process_lm("float32", prompts)
+    want, one_wall, one_peak = _one_process_lm("float32", prompts,
+                                               MESH_F32_LAYERS)
     # the three worlds start at once; the control and the bf16 pair stay
     # idle (a heartbeat a second) while the f32 world is timed
     with cf.ThreadPoolExecutor(max_workers=3) as pool:
         run = pool.submit(_start_mesh, root, "mesh_f32",
-                          [*cli, "--dtype", "float32"])
+                          [*cli, "--dtype", "float32"],
+                          layers=MESH_F32_LAYERS)
         control = pool.submit(_start_mesh, root, "mesh_control",
-                              [*cli, "--dtype", "float32"], (0, 1))
+                              [*cli, "--dtype", "float32"], (0, 1),
+                              layers=MESH_F32_LAYERS)
         bf16 = pool.submit(_start_mesh, root, "mesh_bf16", cli)
         run, control, bf16 = run.result(), control.result(), bf16.result()
     _post_all(run["url"], "llama", insts[:1])                 # warm
@@ -3913,8 +3963,9 @@ def mesh_serving_phase(root) -> None:
     same16 = sum(a == b for r, w in zip(got16, want16) for a, b in zip(r, w))
     tokens = MESH_REQUESTS * MESH_N
     gb = [(m["placed_peak_bytes"] / 1e9, m["peak_bytes"] / 1e9) for m in mem]
-    print(f"mesh serving: {MESH_LM} f32 over model=2 (two ranks, gloo, one "
-          f"card), {MESH_SLOTS} slots, {MESH_REQUESTS} requests x {MESH_N} "
+    print(f"mesh serving: {MESH_LM} f32 at {MESH_F32_LAYERS} of its 16 "
+          f"layers over model=2 (two ranks, gloo, one card), {MESH_SLOTS} "
+          f"slots, {MESH_REQUESTS} requests x {MESH_N} "
           f"tokens: tokens equal one process (held); control (rank 1 "
           f"seeded 1) {sum(a == b for r, w in zip(planted, want) for a, b in zip(r, w))}"
           f" of {tokens} equal (must differ); peak GB placing / serving: "
@@ -3924,7 +3975,8 @@ def mesh_serving_phase(root) -> None:
           f"rank 0 host ms per tick {1e3 * tick_s / max(ticks, 1):.1f} over "
           f"{ticks:.0f} ticks, blocked in collectives "
           f"{100 * coll_s / tick_s:.1f}%; "
-          f"bf16 {same16} of {tokens} tokens equal one process (not held)",
+          f"bf16 (16 layers) {same16} of {tokens} tokens equal one process "
+          f"(not held)",
           flush=True)
     return _served_launches("mesh_f32", mem)
 
@@ -4299,6 +4351,272 @@ def classifier_remat_phase() -> dict:
     return figures
 
 
+# phase 34: the control plane's job path on the card
+JOB_STEPS = 5                   # the job's total steps
+JOB_SIGTERM_AFTER = 2           # rank 1's "step 2" line
+JOB_TIMEOUT = 300
+# torch.cuda.get_device_name -> GKE's accelerator label value
+GKE_PRODUCTS = {"NVIDIA H100 80GB HBM3": "nvidia-h100-80gb",
+                "NVIDIA H100 PCIe": "nvidia-h100-80gb",
+                "NVIDIA H200": "nvidia-h200-141gb",
+                "NVIDIA A100-SXM4-80GB": "nvidia-a100-80gb",
+                "NVIDIA A100-SXM4-40GB": "nvidia-tesla-a100",
+                "NVIDIA L4": "nvidia-l4"}
+
+
+def gke_product(device_name: str) -> str:
+    """GKE's spelling of a card (its cloud.google.com/gke-accelerator
+    value): the table's, else the name lower-cased with dashes."""
+    for prefix, label in sorted(GKE_PRODUCTS.items(), key=lambda kv:
+                                -len(kv[0])):
+        if device_name.startswith(prefix):
+            return label
+    return re.sub(r"[^a-z0-9]+", "-", device_name.lower()).strip("-")
+
+
+def _conditions(job: dict) -> dict[str, str]:
+    return {c["type"]: f"{c['status']}({c.get('reason', '')})"
+            for c in (job.get("status") or {}).get("conditions") or []}
+
+
+def job_path_phase(root, card: str) -> dict:
+    """Phase 34: the port's control plane runs a JAXJob on the card.
+    One GPU node on the port's FakeCluster, its product label the card's
+    own name in GKE's spelling, advertising nvidia.com/gpu: 2 (two ranks
+    share the one card over the loopback backend, as phase 21's); the
+    port's JAXJob controller and gang scheduler, and its LocalPodExecutor
+    as the kubelet, whose env hook points the headless-service
+    coordinator at 127.0.0.1 (one port pair per gang incarnation) and
+    sets JAXJOB_COLLECTIVES_BACKEND=loopback. The job: 2 replicas of 1
+    GPU, gang-scheduled, the default command (the port's launcher) with
+    a --config of phase 21's (examples/gpt-125m.yaml's model at full
+    width and depth, bf16, flash, full remat, global batch 64 on mesh
+    data 2), JOB_STEPS steps, a checkpoint directory. Holds: before the
+    scheduler lifts the gang gate, every pod claims nvidia.com/gpu: 1,
+    names the product and node-pool selectors and runs the launcher; a
+    third 1-GPU gang submitted beside it stays gated and unbound while
+    the first runs (then is deleted); the sidecar's gpu_devices_present
+    is True here and False against an empty root (the control); both
+    ranks of each incarnation log equal losses and launch each flash
+    kernel as phase 21's config implies (_world_launches); rank 1 is
+    SIGTERMed after its step 2 through kill_pod: both ranks exit 75 at
+    one step, the job shows preemptions 1 and restarts 0, and the new
+    gang resumes at that step and ends Succeeded. Prints the job's
+    condition sequence, each incarnation's seconds from launch to its
+    first step, the seconds from the SIGTERM to the new gang's first
+    step, and each rank's step time. Returns each rank's launches over
+    both incarnations."""
+    import datetime
+    import os
+    import signal
+
+    import torch
+
+    from kubeflow_tpu_torch.control.jaxjob import types as JT
+    from kubeflow_tpu_torch.control.jaxjob.controller import build_controller
+    from kubeflow_tpu_torch.control.k8s import objects as ob
+    from kubeflow_tpu_torch.control.k8s.fake import FakeCluster
+    from kubeflow_tpu_torch.control.k8s.kubelet import LocalPodExecutor
+    from kubeflow_tpu_torch.control.runtime import seed_controller
+    from kubeflow_tpu_torch.control.scheduler import GATE_GANG
+    from kubeflow_tpu_torch.control.scheduler.nodes import new_gpu_node
+    from kubeflow_tpu_torch.control.scheduler.scheduler import build_scheduler
+    from kubeflow_tpu_torch.sidecar.controller import gpu_devices_present
+
+    empty = root / "empty_root"
+    empty.mkdir()
+    gate = (gpu_devices_present(), gpu_devices_present(str(empty)))
+    if gate != (True, False):
+        fail(f"job path: gpu_devices_present on the card / an empty root "
+             f"gave {gate}, want (True, False)")
+
+    product = gke_product(torch.cuda.get_device_name(0))
+    cluster = FakeCluster()
+    ctl = seed_controller(build_controller(cluster))
+    sched = seed_controller(build_scheduler(cluster, record_events=False))
+    cluster.create(new_gpu_node("gpu-node-0", product=product,
+                                node_pool="card", gpus=2))
+    print(f"job path: node gpu-node-0 ({product}, pool card) advertises "
+          "nvidia.com/gpu: 2 for the one card: the gang's two ranks share "
+          "it over the loopback backend, as phase 21's", flush=True)
+    cfg_path = root / "job.json"
+    cfg_path.write_text(json.dumps(world_config(root, "job", 2, JOB_STEPS)))
+    here = Path(__file__).resolve().parent
+    # `python` in the pods' command is this interpreter
+    shim = root / "bin"
+    shim.mkdir()
+    (shim / "python").write_text(f'#!/bin/sh\nexec {sys.executable} "$@"\n')
+    (shim / "python").chmod(0o755)
+    ports: dict[str, int] = {}
+
+    def env_hook(pod, env):
+        epoch = pod["metadata"]["annotations"][JT.ANNOTATION_EPOCH]
+        port = ports.setdefault(epoch, _free_port_pair())
+        env.update({JT.ENV_COORD: f"127.0.0.1:{port}",
+                    "JAXJOB_COLLECTIVES_BACKEND": "loopback",
+                    "PATH": f"{shim}{os.pathsep}{env.get('PATH', '')}",
+                    "JAXRT_METRICS_PORT": "0",
+                    "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+                    "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 2)
+                                               // 2))})
+        return env
+
+    # the kubelet runs the job's pods only: the third gang is never run
+    executor = LocalPodExecutor(
+        cluster, label_selector={"matchLabels": {JT.LABEL_JOB_NAME: "gpt"}},
+        env_hook=env_hook, cwd=str(here), log_dir=str(root))
+    job = JT.new_jaxjob("gpt", replicas=2, product=product,
+                        node_pool="card", gpus_per_worker=1,
+                        gang_schedule=True)
+    job["spec"]["template"]["spec"]["containers"][0]["args"] = [
+        "--config", str(cfg_path)]
+    submitted = time.perf_counter()
+    cluster.create(job)
+    cluster.create(JT.new_jaxjob("third", replicas=1, product=product,
+                                 node_pool="card", gpus_per_worker=1,
+                                 gang_schedule=True))
+    ctl.run_until_idle(advance_delayed=True)
+    pods = cluster.list("v1", "Pod", namespace="default")
+    if len(pods) != 3:
+        fail(f"job path: {len(pods)} pods, want 3")
+    for p in pods:
+        spec, c = p["spec"], p["spec"]["containers"][0]
+        held = (spec.get("schedulingGates") == [{"name": GATE_GANG}]
+                and not spec.get("nodeName")
+                and c["resources"]["limits"] == {JT.RESOURCE_GPU: 1}
+                and spec["nodeSelector"] == {JT.NODESELECTOR_ACCEL: product,
+                                             JT.NODESELECTOR_POOL: "card"}
+                and c["command"] == list(JT.DEFAULT_COMMAND))
+        if not held:
+            fail(f"job path: pod {p['metadata']['name']} before admission: "
+                 f"{json.dumps(spec)[:1500]}")
+
+    seq: list[str] = []         # the job's condition transitions, in order
+    state: dict[str, str] = {}
+    third_held = 0
+    sent = sent_at = None
+    deadline = time.monotonic() + JOB_TIMEOUT
+    try:
+        while True:
+            ctl.run_until_idle(advance_delayed=True)
+            sched.run_until_idle(advance_delayed=True)
+            executor.poll_once()
+            gang = cluster.list("v1", "Pod", namespace="default",
+                                label_selector={"matchLabels": {
+                                    JT.LABEL_JOB_NAME: "gpt"}})
+            if any((q.get("status") or {}).get("phase") == "Failed"
+                   for q in gang) and not executor.settle(120):
+                fail("job path: a rank outlived its peer's exit by 120 s")
+            job = cluster.get(JT.API_VERSION, JT.KIND, "gpt", "default")
+            for kind, now in _conditions(job).items():
+                if state.get(kind) != now:
+                    state[kind] = now
+                    seq.append(f"{kind}={now}")
+            third = cluster.get_or_none("v1", "Pod", "third-worker-0",
+                                        "default")
+            if third is not None and sent is None and \
+                    ob.cond_is_true(job, JT.COND_RUNNING):
+                if third["spec"].get("nodeName") or \
+                        not third["spec"].get("schedulingGates"):
+                    fail("job path: the third gang was admitted while the "
+                         "first ran: all-or-nothing broken")
+                third_held += 1
+            log1 = next((e for e in reversed(executor.logs)
+                         if e["name"] == "gpt-worker-1"), None)
+            if sent is None and log1 is not None and re.search(
+                    rf"\bstep {JOB_SIGTERM_AFTER} loss=",
+                    Path(log1["path"]).read_text(errors="replace")):
+                if not third_held:
+                    fail("job path: the third gang was never seen pending "
+                         "beside the running gang")
+                cluster.delete(JT.API_VERSION, JT.KIND, "third", "default")
+                if not executor.kill_pod("gpt-worker-1", sig=signal.SIGTERM):
+                    fail("job path: no live process behind gpt-worker-1")
+                sent, sent_at = log1["uid"], time.time()
+            if ob.cond_is_true(job, JT.COND_SUCCEEDED):
+                break
+            if ob.cond_is_true(job, JT.COND_FAILED) or time.monotonic() > deadline:
+                for e in executor.logs:
+                    print(f"--- {e['name']} rc {e.get('rc')}\n"
+                          + Path(e["path"]).read_text(errors="replace")[-4000:],
+                          flush=True)
+                fail(f"job path: the job did not succeed: {_conditions(job)}")
+            time.sleep(0.2)
+    finally:
+        executor.shutdown()
+    total_s = time.perf_counter() - submitted
+    status = job["status"]
+    if (status.get("preemptions"), status.get("restarts", 0)) != (1, 0):
+        fail(f"job path: preemptions {status.get('preemptions')}, restarts "
+             f"{status.get('restarts', 0)}; want 1 and 0")
+    # the two incarnations, each a pair of ranks
+    runs = []
+    for e in executor.logs:
+        out = Path(e["path"]).read_text(errors="replace")
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"summary"')]
+        if not lines:
+            print(out[-6000:], flush=True)
+            fail(f"job path: {e['name']} exit {e.get('rc')} with no summary")
+        launches, _ = _logged_launches(out)
+        # the launcher's log line closing its first step, by its stamp
+        first = re.search(r"^(\S+ \S+) .*first step \(incl\. kernel "
+                          r"build\)", out, re.M)
+        if first is None:
+            fail(f"job path: {e['name']} logged no first step")
+        runs.append({**e, "out": out, "launches": launches,
+                     "summary": json.loads(lines[-1])["summary"],
+                     "first_step_at": datetime.datetime.strptime(
+                         first.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp(),
+                     "losses": re.findall(r"\bstep \d+ loss=(\S+)", out)})
+    if len(runs) != 4 or [r["name"] for r in runs] != [
+            "gpt-worker-0", "gpt-worker-1"] * 2:
+        fail(f"job path: incarnations {[r['name'] for r in runs]}")
+    for r in runs:
+        r["to_first_step"] = r["first_step_at"] - r["started"]
+    stopped, resumed = runs[:2], runs[2:]
+    # the restart: the SIGTERM to the new gang's first step done
+    restart_s = max(r["first_step_at"] for r in resumed) - sent_at
+    steps = set()
+    for r in stopped:
+        m = re.search(r"preempted at step (\d+)", r["out"])
+        if r.get("rc") != 75 or not r["summary"].get("preempted") or not m:
+            print(r["out"][-6000:], flush=True)
+            fail(f"job path: {r['name']} of the first gang exit "
+                 f"{r.get('rc')}, not a preemption at one step")
+        steps.add(int(m.group(1)))
+    if len(steps) != 1:
+        fail(f"job path: the ranks stopped at steps {sorted(steps)}")
+    at = steps.pop()
+    for r in resumed:
+        if r.get("rc") != 0 or r["summary"]["start_step"] != at:
+            print(r["out"][-6000:], flush=True)
+            fail(f"job path: {r['name']} of the new gang exit {r.get('rc')}, "
+                 f"resumed at {r['summary']['start_step']}, stopped at {at}")
+    launches = {"job_rank0": {}, "job_rank1": {}}
+    for pair, n in ((stopped, at), (resumed, JOB_STEPS - at)):
+        if pair[0]["losses"] != pair[1]["losses"]:
+            fail(f"job path: rank losses differ {pair[0]['losses']} / "
+                 f"{pair[1]['losses']}")
+        for rank, r in enumerate(pair):
+            got = _world_launches(r, n, f"job path rank {rank}")
+            acc = launches[f"job_rank{rank}"]
+            for k, v in got.items():
+                acc[k] = acc.get(k, 0) + v
+    print(f"job path ({card}): conditions {' -> '.join(seq)}; preempted "
+          f"at step {at} by a SIGTERM to gpt-worker-1 after its step "
+          f"{JOB_SIGTERM_AFTER}: both ranks exit 75, preemptions 1, "
+          f"restarts 0, the new gang resumed at step {at} and ended "
+          f"Succeeded; seconds from launch to the first step "
+          f"{[round(r['to_first_step'], 2) for r in stopped]} (first gang) "
+          f"/ {[round(r['to_first_step'], 2) for r in resumed]} (resumed); "
+          f"the SIGTERM to the new gang's first step {restart_s:.1f} s; "
+          f"step ms {[round(1e3 * r['summary']['step_time_s'], 1) for r in runs]}"
+          f"; losses {stopped[0]['losses']} / {resumed[0]['losses']}; the "
+          f"third gang held pending over {third_held} polls; submit to "
+          f"Succeeded {total_s:.1f} s", flush=True)
+    return launches
+
+
 def earlier_phases_worker(argv: list[str]) -> int:
     """`--earlier-phases TREE`: the pinned training step, the pinned
     serving point and MoE serving as the checkout at TREE (this one or
@@ -4549,6 +4867,16 @@ def main() -> int:
     fa.reset_launches()
     timed_phase("classifier remat", classifier_remat_phase)
     launches["classifier_remat"] = dict(fa.LAUNCHES)
+    # the control plane's job path: the port's controller, scheduler and
+    # kubelet run the gang (their counts from each rank's log)
+    job_root = _build.build_dir() / "chip_smoke_job"
+    shutil.rmtree(job_root, ignore_errors=True)
+    job_root.mkdir(parents=True)
+    try:
+        launches.update(timed_phase("job path", job_path_phase, job_root,
+                                    card))
+    finally:
+        shutil.rmtree(job_root, ignore_errors=True)
     # the launches of each instantiation that a path runs, counted by
     # instantiation: the bf16 head_dim 64 ones on the pinned main path, the
     # f32 head_dim 64 SIMT ones on phase 32's f32 rank 0, the bf16 head_dim
@@ -4583,6 +4911,8 @@ if __name__ == "__main__":
         sys.exit(world_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--gloo-probe"]:
         sys.exit(gloo_probe_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2:]))
     if sys.argv[1:2] == ["--earlier-phases"]:
         sys.exit(earlier_phases_worker(sys.argv[2:]))
     sys.exit(main())

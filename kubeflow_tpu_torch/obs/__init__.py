@@ -1,1 +1,2 @@
-"""Observability pieces the port needs: spans and the exposition parser."""
+"""Observability pieces the port needs: spans, the exposition parser and
+the control plane's event recorder."""

@@ -167,6 +167,14 @@ class MetricsRegistry:
     def gauge(self, name: str, value: float, help_: str = "", **labels) -> None:
         self._set("gauge", name, help_, value, labels)
 
+    def gauge_add(self, name: str, by: float, help_: str = "", **labels) -> None:
+        """Move a gauge by ``by`` (prometheus_client's Gauge.inc/dec):
+        an up-down count such as the JAXJobs currently Running."""
+        key = tuple(sorted(labels.items()))
+        with self._lock:
+            _, _, series = self._metrics.setdefault(name, ("gauge", help_, {}))
+            series[key] = series.get(key, 0.0) + by
+
     def counter_inc(self, name: str, help_: str = "", by: float = 1.0, **labels) -> None:
         key = tuple(sorted(labels.items()))
         with self._lock:

@@ -1689,7 +1689,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.apiserver:
         raise NotImplementedError(
             "the endpoints watch needs the control plane, which is not "
-            "ported yet (ROADMAP Queue 1, item 20)")
+            "ported yet (ROADMAP Queue 1, item 20b)")
     router = TokenRouter(service=args.service, namespace=args.namespace,
                          max_queue=args.max_queue,
                          resilience=(None if args.no_resilience

@@ -13,7 +13,10 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "kubeflow_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
+# prometheus_client is absent on the card's machine: the port renders
+# its metrics from its own registry (runtime/metrics.py)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu",
+             "prometheus_client")
 
 
 def _modules():
@@ -198,3 +201,41 @@ def test_classification_modules_are_scanned_and_build_without_jax():
     assert 25.5e6 < sizes["resnet50"] < 25.6e6
     assert 85e6 < sizes["vit-b16"] < 88e6
     assert 100e6 < sizes["bert-base"] < 112e6
+
+
+def test_control_plane_imports_without_torch_jax_or_prometheus():
+    """The job path's control plane (the JAXJob controller, the gang
+    scheduler, the sidecar and what they import) imports with jax,
+    triton, prometheus_client and the JAX package unimportable, and
+    pulls in no torch at all, so no CUDA; the sidecar's gate on a root
+    without the NVIDIA files answers without torch too."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")}
+    for path in ("control/k8s/objects.py", "control/k8s/fake.py",
+                 "control/k8s/kubelet.py", "control/runtime.py",
+                 "control/reconcilehelper.py", "control/scheduler/__init__.py",
+                 "control/scheduler/topology.py", "control/scheduler/nodes.py",
+                 "control/scheduler/capacity.py", "control/scheduler/queue.py",
+                 "control/cache.py", "control/jaxjob/types.py",
+                 "control/jaxjob/controller.py",
+                 "control/scheduler/scheduler.py", "sidecar/controller.py"):
+        assert f"kubeflow_tpu_torch/{path}" in scanned, path
+    code = (
+        "import importlib.abc, json, sys, tempfile\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton',\n"
+        "                                  'prometheus_client',\n"
+        "                                  'kubeflow_tpu'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from kubeflow_tpu_torch.control.jaxjob import controller\n"
+        "from kubeflow_tpu_torch.control.scheduler import scheduler\n"
+        "from kubeflow_tpu_torch.sidecar import controller as sidecar\n"
+        "gate = sidecar.gpu_devices_present(tempfile.mkdtemp())\n"
+        "print(json.dumps({'gate': gate, 'torch': sorted(\n"
+        "    m for m in sys.modules if m.split('.')[0] == 'torch')}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"gate": False, "torch": []}
