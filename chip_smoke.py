@@ -63,11 +63,12 @@
    grad_accum_steps 2, 2 steps: every kernel launches 2 x 4 times a
    step, and the loss is finite.
 8. Profile: the pinned config, then the adamw one: two warm-up steps,
-   then three under torch.profiler; prints the device time by kind of
-   kernel, the device's busy share of the step and the peak device
-   memory, then the optimizer update's own kernel time (three updates
-   profiled by themselves), so the breakdowns and the main paths'
-   numbers come from one run.
+   then two under torch.profiler (three before PR 19, which cut one to
+   keep the script in its time: about 5 s of trace processing); prints
+   the device time by kind of kernel, the device's busy share of the
+   step and the peak device memory, then the optimizer update's own
+   kernel time (two updates profiled by themselves), so the breakdowns
+   and the main paths' numbers come from one run.
 9. Serving, (a) correctness: gpt-350m width, 4 layers, f32, TF32 off,
    8 ragged prompts (a shared-prefix pair among them): the slot
    decoder's greedy tokens, dense and paged (page size 16), equal
@@ -110,8 +111,12 @@
    and its tensors are W-sized; (b) phase 10's point with window 256
    and the rolling cache (prompts up to 511 tokens wrap it at
    prefill), 16 requests (phase 10's 32 halved to keep the script in
-   its time): the cache must hold exactly 402,653,184 bytes; the same
-   figures and tick profile as phase 10.
+   its time) after a warm-up of one two-instance predict, as phase
+   13b's (PR 19 dropped phase 10's warm-up of 31 requests here for the
+   script's time: 33.7 of the phase's 70.7 s were set-up and that
+   warm-up in PR 19's first whole run, against 12.5 s for phase 13b's):
+   the cache must hold exactly 402,653,184 bytes; the same figures and
+   tick profile as phase 10.
 13. Speculative decoding: (a) 4 layers, f32: speculative_generate and
    the lockstep slot decoder, dense and paged target, equal greedy
    generate(), with the target's own weights as the draft (accepted ==
@@ -167,8 +172,10 @@
    the loop and writes in the background, the restore's seconds, the
    step time on shards against
    phase 6's synthetic one, and the seconds a restart spends skipping
-   10,000 consumed batches before its first step (token_batches over the
-   looped shards, and the record reader alone).
+   2,500 consumed batches before its first step (token_batches over the
+   looped shards, and the record reader alone; 10,000 before PR 19,
+   which cut them for the script's time: the two loops took 9.86 and
+   9.01 s of the phase in PR 19's first whole run).
 16. Serve from checkpoint: `serve_lm_generator(checkpoint_dir=` run B's
    `)` on llama-1b, continuous batching, 4 slots, 4 greedy requests of
    32 new tokens, against generate() on the params `restore_params`
@@ -340,7 +347,31 @@
    recreated gang resumes at that step and ends Succeeded; prints the
    condition sequence, each incarnation's launch-to-first-step seconds
    and step time.
+35. The control plane's services path: one GPU node on the port's
+   FakeCluster (nvidia.com/gpu: 2) behind the port's ApiServer on
+   127.0.0.1; the gang scheduler as its own process (`python -m
+   kubeflow_tpu_torch.control.scheduler --enable-leader-election`); the
+   JAXService controller in-process on the port's RestClient, its drain
+   gated by RegistrySignals over the router's registry; the
+   LocalPodExecutor running `examples/jaxservice.yaml`'s service (its
+   `tpu:` as `gpu:`, gpt-125m at full width and depth with seeded
+   weights, bf16, 16 slots, prompt 512, 64 new tokens, replicas 2) as
+   two `python -m kubeflow_tpu_torch.serving` processes sharing the
+   card; the router in-process, its members only from `watch_endpoints`.
+   Holds each replica's GPU claim, selectors and command before its gang
+   gate lifts, the scheduler's Lease, Ready with two endpoints, 16
+   concurrent requests answered with 64 tokens by both replicas, a
+   scale-down to 1 with 8 requests in flight (cordoned, no new dispatch,
+   every request answered, deleted only after its in-flight tokens read
+   0, its process gone), the service's deletion (the last process gone)
+   and the scheduler's exit 0 on SIGTERM with its Lease released
+   (`services_phase`).
 Each phase prints its wall seconds, and the script its own at the end.
+No process the script starts outlives it: `main()` makes it the child
+subreaper of its descendants, and after every phase, and once more
+before the last line, `check_no_stragglers` fails on any descendant
+still alive (naming its pid, command line and the phase, and killing
+its group); `check_no_threads` fails on a non-daemon thread left.
 Any kernel that ptxas reports spilling registers fails the build phase.
 
 Any failure exits non-zero. The lines before the last hold the
@@ -365,8 +396,9 @@ bert-base), which must run none of them, `world_rank1`, phase 21 (a)'s ranks, `m
 each counted from its reset after registration to its stop: none;
 phase 31's training worlds are held at none too), `seq_f32_rank0/1`,
 `uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks),
-`classifier_remat` (none) and `job_rank0/1` (phase 34's ranks, both
-incarnations); the bf16 flash forward's row also holds its
+`classifier_remat` (none), `job_rank0/1` (phase 34's ranks, both
+incarnations) and `services` (phase 35, this process: none; the
+replicas decode by bmm in processes of their own); the bf16 flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -447,6 +479,104 @@ def fail(msg: str) -> None:
         if proc.poll() is None:
             proc.kill()
     sys.exit(1)
+
+
+# -- the process guard ---------------------------------------------------------
+
+PR_SET_CHILD_SUBREAPER = 36     # <linux/prctl.h>
+# Helpers that by design live until this interpreter exits, by a pattern
+# of their command line, each with the reason the check lets it be. The
+# check reads only this table; it is empty: no phase starts one.
+LONG_LIVED: dict[str, str] = {}
+
+
+def become_subreaper() -> None:
+    """Make this process the child subreaper of its descendants
+    (prctl(PR_SET_CHILD_SUBREAPER), on this process only): a process
+    whose parent exits is re-parented here rather than to init, so
+    `live_descendants` still sees it."""
+    import ctypes
+    import os
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.prctl.argtypes = [ctypes.c_int, ctypes.c_ulong, ctypes.c_ulong,
+                           ctypes.c_ulong, ctypes.c_ulong]
+    libc.prctl.restype = ctypes.c_int
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        fail(f"prctl(PR_SET_CHILD_SUBREAPER): "
+             f"{os.strerror(ctypes.get_errno())}")
+
+
+def _proc_field(pid: int, name: str) -> str:
+    try:
+        return Path(f"/proc/{pid}/{name}").read_bytes().decode(
+            errors="replace")
+    except OSError:
+        return ""
+
+
+def live_descendants(root: int | None = None) -> list[tuple[int, str]]:
+    """(pid, command line) of every live descendant of `root` (this
+    process), read from /proc/<pid>/task/*/children, recursively;
+    zombies, which have ended and only wait to be reaped, are skipped."""
+    import os
+
+    out, todo = [], [root or os.getpid()]
+    while todo:
+        pid = todo.pop()
+        kids = set()
+        for f in Path(f"/proc/{pid}/task").glob("*/children"):
+            with contextlib.suppress(OSError):
+                kids.update(int(k) for k in f.read_text().split())
+        for kid in sorted(kids):
+            todo.append(kid)
+            stat = _proc_field(kid, "stat")
+            if not stat or stat.rsplit(")", 1)[-1].split()[0] == "Z":
+                continue
+            cmdline = _proc_field(kid, "cmdline").replace("\0", " ").strip()
+            if not any(re.search(p, cmdline) for p in LONG_LIVED):
+                out.append((kid, cmdline))
+    return out
+
+
+STRAGGLER_GRACE_S = 5.0   # for a process already on its way out
+
+
+def check_no_stragglers(phase: str) -> None:
+    """After a phase: no descendant of this script may be alive (one
+    still exiting gets STRAGGLER_GRACE_S). Each straggler is named with
+    its pid, command line and the phase, its process group is killed
+    (the process alone when it shares this script's group), and the
+    script fails."""
+    import os
+    import signal
+
+    deadline = time.monotonic() + STRAGGLER_GRACE_S
+    while (left := live_descendants()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    if not left:
+        return
+    for pid, cmdline in left:
+        print(f"chip_smoke: straggler after phase {phase!r}: pid {pid}: "
+              f"{cmdline[:300]}", file=sys.stderr, flush=True)
+        with contextlib.suppress(ProcessLookupError):
+            pgid = os.getpgid(pid)
+            if pgid == os.getpgrp():
+                os.kill(pid, signal.SIGKILL)
+            else:
+                os.killpg(pgid, signal.SIGKILL)
+    fail(f"{len(left)} process(es) outlived phase {phase!r}")
+
+
+def check_no_threads() -> None:
+    """Before the last line: no non-daemon thread but the main one."""
+    import threading
+
+    left = [t.name for t in threading.enumerate()
+            if t is not threading.main_thread() and not t.daemon
+            and t.is_alive()]
+    if left:
+        fail(f"non-daemon threads still alive: {left}")
 
 
 def _launch_counts(fwd: int, dq: int, dkv: int, family=None) -> dict:
@@ -1830,7 +1960,7 @@ RESUME_STEPS, RESUME_EVAL_STEPS, RESUME_EVAL_EVERY = 6, 2, 3
 RESUME_SIGTERM_AFTER = 3          # "step 3" log line
 RESUME_LOSS_RTOL = 1e-3
 RESUME_DOC_TOKENS = (64, 3000)    # document lengths drawn for the shards
-RESUME_SKIP_BATCHES = 10_000      # batches a restart skips, timed alone
+RESUME_SKIP_BATCHES = 2_500       # batches a restart skips, timed alone
 TRACE_ROOT = ("0af7651916cd43dd8448eb211c80319c", "b7ad6b7169203331")
 SERVE_CKPT_SLOTS, SERVE_CKPT_P, SERVE_CKPT_N = 4, 64, 32
 # a bf16 row of phase 16 may differ from generate() only at a near tie:
@@ -4617,6 +4747,490 @@ def job_path_phase(root, card: str) -> dict:
     return launches
 
 
+# -- phase 35: the control plane's services path ------------------------------
+
+SERVICE_YAML = "examples/jaxservice.yaml"
+SERVICE_REF = "gpt-125m"        # full width and depth, seeded weights
+SERVICE_VOCAB = 32000           # the zoo LM's vocabulary
+SERVICE_REQUESTS = 16           # concurrent requests once Ready
+SERVICE_DRAIN_REQUESTS = 8      # in flight across the scale-down
+SERVICE_TIMEOUT = 240           # seconds any one wait of the phase may take
+SCHEDULER_EXIT_S = 10.0         # SIGTERM to exit 0, the bound held
+PROCESS_GRACE_S = 10.0          # a spawned group's SIGTERM to its SIGKILL
+
+
+class Spawned:
+    """The one way the services phase starts a process: each in a session
+    (and process group) of its own, recorded, so that one `killpg`
+    reaches whatever it starts. `reap` — called on leaving the `with`
+    block, whatever happened — sends SIGTERM to every recorded group,
+    waits up to PROCESS_GRACE_S in all, then SIGKILLs the groups and
+    waits for every process."""
+
+    def __init__(self):
+        self.procs: list[subprocess.Popen] = []
+
+    def start(self, cmd: list[str], **kw) -> subprocess.Popen:
+        proc = subprocess.Popen(cmd, start_new_session=True, **kw)
+        self.procs.append(proc)
+        return proc
+
+    @staticmethod
+    def _signal_group(proc: subprocess.Popen, sig) -> None:
+        import os
+
+        try:
+            os.killpg(proc.pid, sig)   # the session leader's pgid is its pid
+        except ProcessLookupError:
+            pass                       # the group is empty: nothing left
+
+    def reap(self) -> None:
+        import signal
+
+        for proc in self.procs:
+            self._signal_group(proc, signal.SIGTERM)
+        deadline = time.monotonic() + PROCESS_GRACE_S
+        for proc in self.procs:
+            with contextlib.suppress(subprocess.TimeoutExpired):
+                proc.wait(max(0.0, deadline - time.monotonic()))
+        for proc in self.procs:
+            self._signal_group(proc, signal.SIGKILL)
+            proc.wait(PROCESS_GRACE_S)
+
+    def __enter__(self) -> "Spawned":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.reap()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def service_manifest(product: str) -> dict:
+    """examples/jaxservice.yaml's service on this card: `tpu:` becomes
+    `gpu: {product, nodePool, gpusPerWorker: 1}`, the model the zoo's
+    SERVICE_REF with seeded weights (no checkpoint to read), replicas
+    min 2, max 2; promptLen 512, maxNewTokens 64, 16 decode slots,
+    continuous batching, bfloat16 and the gang scheduler as written."""
+    from kubeflow_tpu_torch.utils import yaml_lite
+
+    here = Path(__file__).resolve().parent
+    svc = yaml_lite.loads((here / SERVICE_YAML).read_text())
+    spec = svc["spec"]
+    spec.pop("tpu")
+    spec["gpu"] = {"product": product, "nodePool": "card",
+                   "gpusPerWorker": 1}
+    spec["model"]["ref"] = SERVICE_REF
+    spec["replicas"] = {"min": 2, "max": 2}
+    return svc
+
+
+def _replica_args(cmd: list[str]) -> list[str]:
+    """A replica's command as the kubelet runs it (a seam: a rehearsal
+    off the card adds its own flags here)."""
+    return cmd
+
+
+def _services_kubelet(cluster, spawned: Spawned, root):
+    """The port's LocalPodExecutor as the node's kubelet, its processes
+    started through `spawned`. Both replicas share this host, so each
+    replica's `--port` is rewritten to a free port of its own (`ports`,
+    by pod name), and `python` is this interpreter. `launched` holds
+    each launch's pod as the kubelet saw it, its process, port and
+    start time."""
+    from kubeflow_tpu_torch.control.k8s.kubelet import LocalPodExecutor
+
+    class ServiceKubelet(LocalPodExecutor):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.ports: dict[str, int] = {}
+            self.launched: dict[str, dict] = {}
+
+        def _spawn(self, pod, cmd, env, stdout):
+            name = pod["metadata"]["name"]
+            cmd = list(cmd)
+            if cmd[0] == "python":
+                cmd[0] = sys.executable
+            port = self.ports[name] = _free_port()
+            cmd[cmd.index("--port") + 1] = str(port)
+            proc = spawned.start(_replica_args(cmd), env=env, cwd=self.cwd,
+                                 stdout=stdout, stderr=subprocess.STDOUT)
+            self.launched[name] = {"pod": pod, "proc": proc,
+                                   "at": time.perf_counter(), "port": port}
+            return proc
+
+    return ServiceKubelet(cluster, cwd=str(Path(__file__).resolve().parent),
+                          log_dir=str(root))
+
+
+def _readyz(port: int) -> bool:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz",
+                                    timeout=2) as resp:
+            return resp.status == 200
+    except OSError:
+        return False
+
+
+def services_phase(root, card: str) -> None:
+    """Phase 35: the control plane's services path. The port's
+    FakeCluster with one GPU node (the card's product in GKE's spelling,
+    nvidia.com/gpu: 2) behind the port's ApiServer on 127.0.0.1; the gang
+    scheduler as its own process (`python -m
+    kubeflow_tpu_torch.control.scheduler --apiserver ... --metrics-port 0
+    --enable-leader-election`, a session of its own); the JAXService
+    controller in-process on the port's RestClient, its drain gated by
+    RegistrySignals over the in-process router's registry; the
+    LocalPodExecutor as the kubelet (`_services_kubelet`); the router
+    (TokenRouter + RouterFrontend) in-process, its membership only from
+    `watch_endpoints` against the apiserver, its transport mapping a
+    published address (`http://<pod>.<svc>.<ns>.svc:<port>`) to that
+    replica's 127.0.0.1 port. The service: `service_manifest`.
+    Holds: before the scheduler lifts each replica's gang gate, the pod
+    claims nvidia.com/gpu: 1, names the product and node-pool selectors
+    and runs `python -m kubeflow_tpu_torch.serving`; the scheduler
+    process holds the Lease and binds each replica to the node; Ready
+    with both replicas `active` in the endpoints annotation and the
+    router's members the same two; SERVICE_REQUESTS concurrent requests
+    (prompts of 4-512 tokens) answer 200 with 64 tokens each and both
+    replicas serve some; spec.replicas lowered to 1 while
+    SERVICE_DRAIN_REQUESTS more are in flight: one replica is cordoned,
+    the router dispatches nothing to it after it sees the cordon, every
+    in-flight request completes, the pod is deleted only after the
+    controller read its router_tokens_inflight as 0 (having read it
+    above 0 first), and its process is gone; deleting the JAXService
+    takes the last replica's process; SIGTERM to the scheduler: exit 0
+    within SCHEDULER_EXIT_S and the Lease's renewTime null. Every
+    process is started through `Spawned` and reaped before return.
+    Prints the condition sequence and the phase's seconds: submit to
+    Ready, each replica's launch to serving, tokens/s over the
+    requests (not held), the scale-down to the deletion, the
+    scheduler's exit."""
+    import concurrent.futures as cf
+    import os
+    import signal
+    import threading
+    import urllib.request
+    from urllib.parse import urlsplit
+
+    import torch
+
+    from kubeflow_tpu_torch.control import leases
+    from kubeflow_tpu_torch.control.jaxjob import types as JT
+    from kubeflow_tpu_torch.control.jaxservice import types as T
+    from kubeflow_tpu_torch.control.jaxservice import watch_endpoints
+    from kubeflow_tpu_torch.control.jaxservice.controller import (
+        build_controller)
+    from kubeflow_tpu_torch.control.k8s import objects as ob
+    from kubeflow_tpu_torch.control.k8s.apiserver import ApiServer
+    from kubeflow_tpu_torch.control.k8s.fake import FakeCluster
+    from kubeflow_tpu_torch.control.k8s.rest import RestClient
+    from kubeflow_tpu_torch.control.scheduler import GATE_GANG
+    from kubeflow_tpu_torch.control.scheduler.nodes import new_gpu_node
+    from kubeflow_tpu_torch.runtime.metrics import MetricsRegistry
+    from kubeflow_tpu_torch.serving import router as R
+
+    t_phase = time.perf_counter()
+    product = gke_product(torch.cuda.get_device_name(0))
+    svc_obj = service_manifest(product)
+    name, ns = svc_obj["metadata"]["name"], svc_obj["metadata"]["namespace"]
+    replica = [T.replica_name(name, i) for i in range(2)]
+    cluster = FakeCluster()
+    cluster.create(new_gpu_node("gpu-node-0", product=product,
+                                node_pool="card", gpus=2))
+    apiserver = ApiServer(cluster).serve_background()
+    client = RestClient(base_url=apiserver.url)
+    registry = MetricsRegistry()      # the router's, read by the controller
+    drain_reads: list = []            # (t, replica, inflight, drained)
+
+    class RecordingSignals(R.RegistrySignals):
+        def replica_drained(self, namespace, service, replica_name):
+            inflight = self.inflight_tokens(namespace, service,
+                                            replica_name)
+            drained = super().replica_drained(namespace, service,
+                                              replica_name)
+            drain_reads.append((time.perf_counter(), replica_name,
+                                inflight, drained))
+            return drained
+
+    router = R.TokenRouter(service=name, namespace=ns, registry=registry)
+    front = R.RouterFrontend(router, max_new_tokens=64)
+    dispatches: list = []             # (t, replica)
+
+    class Counting:
+        def __init__(self, inner, replica_name):
+            self.inner, self.name = inner, replica_name
+
+        def predict(self, model, body, headers=None):
+            dispatches.append((time.perf_counter(), self.name))
+            return self.inner.predict(model, body, headers)
+
+    # filled once the kubelet exists; the router's transport reads it
+    kubelet_ports: dict[str, int] = {}
+
+    def transport(ep: dict):
+        pod = urlsplit(ep["addr"]).hostname.split(".")[0]
+        return Counting(R.HttpTransport(
+            f"http://127.0.0.1:{kubelet_ports[pod]}"), ep["name"])
+
+    added: dict[str, dict] = {}       # each replica pod as first created
+    pod_watch = cluster.watch("v1", "Pod")
+    stop = threading.Event()
+    seq: list[str] = []
+    state: dict[str, str] = {}
+    ctl = fsvc = None
+    with Spawned() as spawned:
+        kubelet = _services_kubelet(cluster, spawned, root)
+        kubelet_ports = kubelet.ports
+        sched_log = open(root / "scheduler.log", "wb")
+        try:
+            sched = spawned.start(
+                [sys.executable, "-m", "kubeflow_tpu_torch.control.scheduler",
+                 "--apiserver", apiserver.url, "--metrics-port", "0",
+                 "--enable-leader-election"],
+                cwd=str(Path(__file__).resolve().parent),
+                env={**os.environ, "POD_NAME": "gang-scheduler-0",
+                     "POD_NAMESPACE": "kubeflow"},
+                stdout=sched_log, stderr=subprocess.STDOUT)
+            ctl = build_controller(
+                client, signals=RecordingSignals(registry)).run(workers=2)
+            threading.Thread(
+                target=watch_endpoints,
+                args=(apiserver.url, ns, name, router),
+                kwargs={"frontend": front, "stop": stop,
+                        "transport_factory": transport},
+                daemon=True, name="router-endpoints-watch").start()
+            fsvc = front.serve(host="127.0.0.1", port=0).serve_background()
+
+            def poll():
+                """One turn of the node and the watchers: the kubelet's
+                pass, the pods' first versions, the conditions."""
+                kubelet.poll_once()
+                while (ev := pod_watch.poll()) is not None:
+                    pod_name = ev.object["metadata"]["name"]
+                    added.setdefault(pod_name, ev.object)
+                got = cluster.get_or_none(T.API_VERSION, T.KIND, name, ns)
+                for c in ((got or {}).get("status") or {}).get(
+                        "conditions") or []:
+                    now = f"{c['status']}({c.get('reason', '')})"
+                    if state.get(c["type"]) != now:
+                        state[c["type"]] = now
+                        seq.append(f"{c['type']}={now}")
+                if sched.poll() is not None and not stopping:
+                    fail(f"services path: the scheduler exited "
+                         f"{sched.returncode}: " + (root / "scheduler.log")
+                         .read_text(errors="replace")[-3000:])
+                return got
+
+            def wait(what: str, cond):
+                deadline = time.monotonic() + SERVICE_TIMEOUT
+                while True:
+                    got = poll()
+                    out = cond(got)
+                    if out:
+                        return out
+                    if time.monotonic() > deadline:
+                        for e in kubelet.logs:
+                            print(f"--- {e['name']} rc {e.get('rc')}\n"
+                                  + Path(e["path"]).read_text(
+                                      errors="replace")[-3000:], flush=True)
+                        fail(f"services path: no {what} within "
+                             f"{SERVICE_TIMEOUT} s; conditions {seq}")
+                    time.sleep(0.05)
+
+            stopping = False
+            submitted = time.perf_counter()
+            client.create(svc_obj)
+            wait("replica pods", lambda s: all(r in added for r in replica))
+            for r in replica:
+                pod = added[r]
+                spec, c = pod["spec"], pod["spec"]["containers"][0]
+                held = (spec.get("schedulingGates") == [{"name": GATE_GANG}]
+                        and not spec.get("nodeName")
+                        and c["resources"]["limits"] == {JT.RESOURCE_GPU: 1}
+                        and spec["nodeSelector"] == {
+                            JT.NODESELECTOR_ACCEL: product,
+                            JT.NODESELECTOR_POOL: "card"}
+                        and c["command"][:3] == [
+                            "python", "-m", "kubeflow_tpu_torch.serving"])
+                if not held:
+                    fail(f"services path: pod {r} before admission: "
+                         f"{json.dumps(spec)[:1500]}")
+            lease = wait("scheduler Lease", lambda s: cluster.get_or_none(
+                leases.API_VERSION, leases.KIND, "gang-scheduler-controller",
+                "kubeflow"))
+            holder = lease["spec"]["holderIdentity"]
+            if not holder.startswith("gang-scheduler-0_"):
+                fail(f"services path: the Lease is held by {holder!r}, not "
+                     "the scheduler process")
+            wait("launches", lambda s: all(r in kubelet.launched
+                                          for r in replica))
+            for r in replica:
+                spec = kubelet.launched[r]["pod"]["spec"]
+                if spec.get("nodeName") != "gpu-node-0" or \
+                        spec.get("schedulingGates"):
+                    fail(f"services path: {r} launched unbound or gated: "
+                         f"{json.dumps(spec)[:800]}")
+            ready_s = {}
+
+            def serving(_):
+                for r in replica:
+                    if r not in ready_s and _readyz(kubelet.launched[r]
+                                                    ["port"]):
+                        ready_s[r] = (time.perf_counter()
+                                      - kubelet.launched[r]["at"])
+                return len(ready_s) == 2
+
+            t_ready = None
+
+            def ready(s):
+                nonlocal t_ready
+                if s is None or not ob.cond_is_true(s, T.COND_READY):
+                    return False
+                if t_ready is None:
+                    t_ready = time.perf_counter() - submitted
+                eps = {e["name"]: e["state"]
+                       for e in R.parse_endpoints(s)}
+                return (eps == {r: R.STATE_ACTIVE for r in replica}
+                        and router.members() == eps)
+
+            wait("Ready with both endpoints", ready)
+            wait("both replicas serving", serving)
+            serving_s = time.perf_counter() - submitted
+            rng = random.Random(35)
+            lengths = [4, 512] + [rng.randint(4, 512)
+                                  for _ in range(SERVICE_REQUESTS
+                                                 + SERVICE_DRAIN_REQUESTS - 2)]
+            prompts = [[rng.randrange(1, SERVICE_VOCAB) for _ in range(n)]
+                       for n in lengths]
+
+            def post(prompt: list[int]) -> tuple[int, list[int]]:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{fsvc.port}/v1/models/"
+                    f"{svc_obj['spec']['model']['name']}:predict",
+                    data=json.dumps({"instances": [{"tokens": prompt}]})
+                    .encode(),
+                    headers={"Content-Type": "application/json"},
+                    method="POST")
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    return resp.status, json.loads(resp.read())[
+                        "predictions"][0]
+
+            def held_answers(outs, what):
+                bad = [(code, len(toks)) for code, toks in outs
+                       if code != 200 or len(toks) != 64
+                       or not all(0 <= t < SERVICE_VOCAB for t in toks)]
+                if bad:
+                    fail(f"services path: {what}: answers (status, tokens) "
+                         f"{bad[:4]}, want 200 and 64 ids in range")
+
+            t1 = time.perf_counter()
+            with cf.ThreadPoolExecutor(SERVICE_REQUESTS) as pool:
+                outs = list(pool.map(post, prompts[:SERVICE_REQUESTS]))
+            req_s = time.perf_counter() - t1
+            held_answers(outs, f"{SERVICE_REQUESTS} requests")
+            served = {r: sum(1 for _, n in dispatches if n == r)
+                      for r in replica}
+            if min(served.values()) == 0:
+                fail(f"services path: dispatches by replica {served}: "
+                     "both must serve")
+            tokens_s = SERVICE_REQUESTS * 64 / req_s
+            # the scale-down, with SERVICE_DRAIN_REQUESTS in flight
+            gone, kept = replica[1], replica[0]
+            gone_proc = kubelet.launched[gone]["proc"]
+            with cf.ThreadPoolExecutor(SERVICE_DRAIN_REQUESTS) as pool:
+                futs = [pool.submit(post, p)
+                        for p in prompts[SERVICE_REQUESTS:]]
+                wait(f"requests in flight on {gone}",
+                     lambda s: router.inflight_tokens(gone) > 0)
+                t_down = time.perf_counter()
+                client.patch(T.API_VERSION, T.KIND, name,
+                             {"spec": {"replicas": {"min": 1, "max": 1}}},
+                             ns)
+                t_cordon = wait("the router to see the cordon", lambda s:
+                                router.members().get(gone)
+                                == R.STATE_CORDONED
+                                and time.perf_counter())
+                wait("the drained pod's deletion", lambda s:
+                     cluster.get_or_none("v1", "Pod", gone, ns) is None)
+                t_deleted = time.perf_counter()
+                drain_outs = [f.result() for f in futs]
+            held_answers(drain_outs, "requests across the scale-down")
+            late = [t - t_cordon for t, n in dispatches
+                    if n == gone and t > t_cordon]
+            if late:
+                fail(f"services path: {len(late)} dispatches to the "
+                     f"cordoned {gone} after the router saw the cordon")
+            reads = [(t, v, d) for t, n, v, d in drain_reads if n == gone]
+            first_yes = next((t for t, _, d in reads if d), None)
+            if first_yes is None or first_yes > t_deleted or \
+                    not any(v > 0 and not d for _, v, d in reads):
+                fail(f"services path: the controller's drain reads of "
+                     f"{gone} {[(round(v), d) for _, v, d in reads]}: want "
+                     "in-flight tokens above 0, then 0, before deletion")
+            wait(f"{gone}'s process reaped", lambda s: gone_proc.returncode
+                 is not None)
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(gone_proc.pid, 0)
+                fail(f"services path: {gone}'s process {gone_proc.pid} "
+                     "is still there after its pod was deleted")
+            if router.members() != {kept: R.STATE_ACTIVE}:
+                wait("the router's one member", lambda s:
+                     router.members() == {kept: R.STATE_ACTIVE})
+            # the service goes: its last replica's process with it
+            kept_proc = kubelet.launched[kept]["proc"]
+            client.delete(T.API_VERSION, T.KIND, name, ns)
+            wait(f"{kept}'s process reaped", lambda s: kept_proc.returncode
+                 is not None and cluster.get_or_none("v1", "Pod", kept, ns)
+                 is None)
+            stopping = True
+            t2 = time.perf_counter()
+            sched.send_signal(signal.SIGTERM)
+            try:
+                rc = sched.wait(SCHEDULER_EXIT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"services path: the scheduler did not exit within "
+                     f"{SCHEDULER_EXIT_S} s of SIGTERM")
+            sched_exit_s = time.perf_counter() - t2
+            lease = cluster.get(leases.API_VERSION, leases.KIND,
+                                "gang-scheduler-controller", "kubeflow")
+            if rc != 0 or lease["spec"].get("renewTime") is not None:
+                fail(f"services path: the scheduler exit {rc}, Lease "
+                     f"renewTime {lease['spec'].get('renewTime')}; want 0 "
+                     "and null: " + (root / "scheduler.log").read_text(
+                         errors="replace")[-3000:])
+        finally:
+            stop.set()
+            if ctl is not None:
+                ctl.stop()
+            kubelet.shutdown()
+            if fsvc is not None:
+                fsvc.shutdown()
+            pod_watch.stop()
+            apiserver.shutdown()
+            sched_log.close()
+    print(f"services path ({card}): conditions {' -> '.join(seq)}; submit "
+          f"to Ready {t_ready:.2f} s, to both replicas serving "
+          f"{serving_s:.2f} s; launch to serving "
+          f"{ {r: round(s, 2) for r, s in sorted(ready_s.items())} } s; "
+          f"{SERVICE_REQUESTS} requests (prompts 4-512, 64 new) in "
+          f"{req_s:.2f} s, {tokens_s:.1f} tokens/s (not held), dispatches "
+          f"{served}; scale-down to {gone}'s deletion "
+          f"{t_deleted - t_down:.2f} s (cordon seen by the router "
+          f"{t_cordon - t_down:.2f} s) with {SERVICE_DRAIN_REQUESTS} in "
+          f"flight, all 200; the scheduler's exit {sched_exit_s:.2f} s, "
+          f"Lease released; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def earlier_phases_worker(argv: list[str]) -> int:
     """`--earlier-phases TREE`: the pinned training step, the pinned
     serving point and MoE serving as the checkout at TREE (this one or
@@ -4656,6 +5270,7 @@ def earlier_phases_worker(argv: list[str]) -> int:
 
 def main() -> int:
     t_start = time.perf_counter()
+    become_subreaper()
     try:
         import torch
     except ImportError as e:
@@ -4707,6 +5322,7 @@ def main() -> int:
         out = fn(*args, **kwargs)
         phase_s[name] = round(time.perf_counter() - t, 1)
         print(f"phase {name}: {phase_s[name]} s", flush=True)
+        check_no_stragglers(name)
         gc.collect()
         torch.cuda.empty_cache()
         return out
@@ -4723,7 +5339,7 @@ def main() -> int:
             f"main path {tag}", main_path, fa, _build, cfg, tag)
     timed_phase("grad accumulation", grad_accum_check, fa)
     for tag, cfg in (("pinned", MAIN_PATH), ("adamw", ADAMW_PATH)):
-        timed_phase(f"profile {tag}", profile_phase, cfg, tag)
+        timed_phase(f"profile {tag}", profile_phase, cfg, tag, steps=2)
     # the training runtime: subprocess launches (their counts come from
     # each launcher's log), then serving from the resumed checkpoint
     resume_root = _build.build_dir() / "chip_smoke_resume"
@@ -4748,9 +5364,11 @@ def main() -> int:
     launches["serving"] = dict(fa.LAUNCHES)
     timed_phase("rolling check", rolling_check)
     fa.reset_launches()
-    # 16 requests (the pinned point's 32 halved): the script's time
+    # 16 requests (the pinned point's 32 halved) after a two-instance
+    # warm-up (not the pinned point's 31 requests): the script's time
     timed_phase("rolling pinned", serving_pinned, card, tag="rolling pinned",
-                requests=ROLLING_REQUESTS, cache_bytes=ROLLING_CACHE_BYTES,
+                requests=ROLLING_REQUESTS, warm=False,
+                cache_bytes=ROLLING_CACHE_BYTES,
                 attention_window=ROLLING_WINDOW, rolling_kv_cache=True)
     launches["rolling"] = dict(fa.LAUNCHES)
     timed_phase("speculative check", speculative_check)
@@ -4877,6 +5495,21 @@ def main() -> int:
                                     card))
     finally:
         shutil.rmtree(job_root, ignore_errors=True)
+    # the control plane's services path: the scheduler process, the
+    # JAXService controller, two replica servers and the router
+    svc_root = _build.build_dir() / "chip_smoke_services"
+    shutil.rmtree(svc_root, ignore_errors=True)
+    svc_root.mkdir(parents=True)
+    fa.reset_launches()
+    try:
+        timed_phase("services path", services_phase, svc_root, card)
+    finally:
+        shutil.rmtree(svc_root, ignore_errors=True)
+    # this process's count (the replicas' processes keep their own)
+    launches["services"] = dict(fa.LAUNCHES)
+    if any(launches["services"].values()):
+        fail(f"the services path launched flash kernels in the script "
+             f"{launches['services']}: decode attends by bmm")
     # the launches of each instantiation that a path runs, counted by
     # instantiation: the bf16 head_dim 64 ones on the pinned main path, the
     # f32 head_dim 64 SIMT ones on phase 32's f32 rank 0, the bf16 head_dim
@@ -4897,6 +5530,8 @@ def main() -> int:
         if k == "flash_fwd" and inst == ("bfloat16", 64):
             row["at_entry_shape"] = at_entry
     print("phase seconds: " + json.dumps(phase_s), flush=True)
+    check_no_stragglers("the end of the script")
+    check_no_threads()
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -1,10 +1,15 @@
-"""`python -m kubeflow_tpu_torch.control.jaxjob`: the controller manager.
+"""`python -m kubeflow_tpu_torch.control.jaxjob`: the JAXJob controller
+manager, on the shared controller main (`control/mains.py`) against the
+apiserver of its in-cluster config or of `--apiserver`."""
 
-It runs against a live apiserver through the REST client and the
-shared controller main, which come in a later slice."""
+from kubeflow_tpu_torch.control.jaxjob.controller import build_controller
+from kubeflow_tpu_torch.control.mains import run_controller
+
+
+def main(argv: list[str] | None = None) -> None:
+    run_controller("jaxjob-controller",
+                   lambda client, args: build_controller(client), argv=argv)
+
 
 if __name__ == "__main__":
-    raise NotImplementedError(
-        "the JAXJob controller's main needs the REST client and "
-        "control/mains.py, which are not ported yet (ROADMAP Queue 1, item "
-        "20b); drive build_controller on a FakeCluster meanwhile")
+    main()

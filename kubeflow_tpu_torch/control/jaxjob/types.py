@@ -117,6 +117,9 @@ NODESELECTOR_POOL = "cloud.google.com/gke-nodepool"
 # The port's worker image and command (README.md, "The control plane")
 DEFAULT_IMAGE = "kubeflow-tpu-torch/torchrt:latest"
 DEFAULT_COMMAND = ("python", "-m", "kubeflow_tpu_torch.runtime.launcher")
+# The JAXService replicas' default image (the JAX package's
+# kubeflow-tpu/platform:latest); their command is the port's server
+SERVING_IMAGE = "kubeflow-tpu-torch/platform:latest"
 
 DEFAULT_COORDINATOR_PORT = 8476
 RESTART_GANG = "GangOnFailure"
@@ -304,7 +307,7 @@ def validate(job: dict) -> list[str]:
     if not isinstance(prio, int) or isinstance(prio, bool):
         errs.append(f"spec.priority must be an int, got {prio!r}")
     errs += _validate_elastic(spec)
-    errs += _validate_gpu(spec)
+    errs += validate_gpu(spec)
     return errs
 
 
@@ -396,7 +399,7 @@ def _worker_argv(spec: dict) -> list:
     return list(c.get("command") or []) + list(c.get("args") or [])
 
 
-def _validate_gpu(spec: dict) -> list[str]:
+def validate_gpu(spec: dict) -> list[str]:
     """The GPU request: gpusPerWorker must be a positive int. This is
     where the JAX package checks that replicas x chipsPerWorker tile the
     slice topology; a GPU node pool has no shape to tile (its nodes

@@ -7,9 +7,13 @@
   deletionTimestamps, ownerReference garbage collection and watch
   streams.
 - ``kubelet`` — ``FakeKubelet`` and ``LocalPodExecutor``.
-
-The REST client for a live apiserver (``rest``) is not ported yet
-(ROADMAP Queue 1, item 20b).
+- ``rest``    — ``RestClient``: the same Client interface over HTTP(S)
+  to a real apiserver (in-cluster config: serviceaccount token + CA),
+  on the standard library.
+- ``apiserver`` — ``ApiServer``: a FakeCluster served over the
+  Kubernetes REST wire format, for hermetic runs of the REST path.
+- ``chaos``   — ``ChaosClient``: seeded fault injection around any
+  Client.
 """
 
 from kubeflow_tpu_torch.control.k8s.objects import (  # noqa: F401

@@ -26,6 +26,9 @@ from kubeflow_tpu_torch.control.k8s.fake import FakeCluster
 
 log = logging.getLogger("kubeflow_tpu_torch.kubelet")
 
+# seconds shutdown() waits, in all, for the processes it has killed
+SHUTDOWN_WAIT_S = 10.0
+
 
 def _set_phase(cluster: FakeCluster, pod: dict, phase: str, **status_extra) -> dict | None:
     m = ob.meta(pod)
@@ -258,13 +261,8 @@ class LocalPodExecutor:
                         self.logs.append(entry)
                         stdout = open(path, "wb")
                     try:
-                        proc = subprocess.Popen(
-                            cmd,
-                            env=self._pod_env(pod),
-                            cwd=self.cwd,
-                            stdout=stdout,
-                            stderr=subprocess.STDOUT,
-                        )
+                        proc = self._spawn(pod, cmd, self._pod_env(pod),
+                                           stdout)
                     finally:
                         if stdout is not subprocess.PIPE:
                             stdout.close()  # the child holds its own
@@ -272,6 +270,13 @@ class LocalPodExecutor:
                     if self.log_dir:
                         self._log_of[proc.pid] = entry
                     _set_phase(self.cluster, pod, "Running", startTime=ob.now_iso())
+
+    def _spawn(self, pod: dict, cmd: list[str], env: dict[str, str],
+               stdout) -> subprocess.Popen:
+        """Start one pod's process (a subclass may rewrite ``cmd`` or
+        start it otherwise, e.g. in a session of its own)."""
+        return subprocess.Popen(cmd, env=env, cwd=self.cwd, stdout=stdout,
+                                stderr=subprocess.STDOUT)
 
     def _ended(self, proc: subprocess.Popen, rc: int) -> dict | None:
         """Record a process's exit code in its logs entry (if any)."""
@@ -346,9 +351,22 @@ class LocalPodExecutor:
         raise TimeoutError("pods did not settle in time")
 
     def shutdown(self) -> None:
+        """Kill every tracked process and wait for each (up to
+        SHUTDOWN_WAIT_S in all), so none outlives the executor."""
         self._stop.set()
         with self._lock:
-            for _uid, proc in self._procs.values():
-                if proc.poll() is None:
-                    proc.kill()
+            procs = [proc for _uid, proc in self._procs.values()]
             self._procs.clear()
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+        deadline = time.monotonic() + SHUTDOWN_WAIT_S
+        for proc in procs:
+            try:
+                self._ended(proc, proc.wait(
+                    max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                log.warning("pod process %d did not exit after SIGKILL",
+                            proc.pid)
+            if proc.stdout:
+                proc.stdout.close()

@@ -15,7 +15,9 @@ that machinery once:
   events deterministically without sleeping, the fast path envtest never
   gave the reference).
 
-Port of `kubeflow_tpu/control/runtime.py`: the same code over the port's own modules.
+Port of `kubeflow_tpu/control/runtime.py`: the same code over the port's own modules,
+except that ``Controller.stop`` also waits (bounded) for the threads
+``run`` started, so a controller main can release its lease after it.
 """
 
 from __future__ import annotations
@@ -102,6 +104,7 @@ class Controller:
         self._cv = threading.Condition()
         self._stop = threading.Event()
         self._streams: list = []
+        self._threads: list[threading.Thread] = []  # run()'s, joined by stop()
         self._resources: list = []  # lifecycle-coupled (see uses())
         self._elector = None  # set by with_leader_election
         # Pre-register the outcome counter at 0 for every result label:
@@ -272,14 +275,17 @@ class Controller:
                 name=f"{self.name}-watch-{src.kind}",
             )
             t.start()
+            self._threads.append(t)
         # seed with existing objects (informer initial list)
         for src in self._sources:
             for obj in self.client.list(src.api_version, src.kind):
                 self._dispatch(src, obj)
         for i in range(workers):
-            threading.Thread(
+            t = threading.Thread(
                 target=self._worker, daemon=True, name=f"{self.name}-worker-{i}"
-            ).start()
+            )
+            t.start()
+            self._threads.append(t)
         return self
 
     def _watch_loop(self, src: _Source, stream) -> None:
@@ -358,7 +364,15 @@ class Controller:
                 continue
             self._process_one(req)
 
+    # seconds stop() waits, in all, for run()'s threads
+    STOP_WAIT_S = 10.0
+
     def stop(self) -> None:
+        """Stop the watches and workers, then wait up to STOP_WAIT_S
+        for run()'s threads to end (a worker mid-reconcile
+        finishes it first), so that nothing reconciles, or renews a
+        lease, once stop has returned. A watch whose stream's stop()
+        cannot wake its reader is left behind after the timeout."""
         self._stop.set()
         for s in self._streams:
             s.stop()
@@ -366,6 +380,11 @@ class Controller:
             resource.stop()
         with self._cv:
             self._cv.notify_all()
+        deadline = time.monotonic() + self.STOP_WAIT_S
+        for t in self._threads:
+            if t is not threading.current_thread():
+                t.join(max(0.0, deadline - time.monotonic()))
+        self._threads = [t for t in self._threads if t.is_alive()]
 
     # -- hermetic test mode -------------------------------------------------
 

@@ -29,8 +29,8 @@ Metrics (`router_queue_depth`, `router_tokens_inflight{replica}`,
 `router_request_seconds`, `router_tokens_total`, ...) go to the port's
 MetricsRegistry, rendered at `/metrics`; `RegistrySignals` reads them
 back. The reference also mirrors them into prometheus_client, which
-the port does not use. The Kubernetes endpoints watch of `main()`
-belongs to the control plane and is not ported yet.
+the port does not use. `main(--apiserver)` takes its membership from
+the JAXService endpoints annotation (`control/jaxservice`).
 """
 
 from __future__ import annotations
@@ -1655,10 +1655,15 @@ class RouterFrontend:
         return httpd.HttpService(self.build(), host, port)
 
 
-def main(argv: list[str] | None = None) -> int:
+def main(argv: list[str] | None = None,
+         stop: threading.Event | None = None) -> int:
     """The router process: `--endpoints name=url[,name=url...]` over
-    replica servers. `--apiserver` (the Kubernetes endpoints watch)
-    needs the control plane and raises NotImplementedError."""
+    replica servers, or `--apiserver URL`, which watches the JAXService
+    `--service` in `--namespace` and takes its membership from the
+    endpoints annotation the controller publishes (a daemon thread
+    running `control.jaxservice.watch_endpoints`). Serves until
+    ``stop`` is set (a seam for callers in-process), else forever; the
+    watch ends with the server."""
     import argparse
     import os
 
@@ -1674,8 +1679,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="static bootstrap: name=url[,name=url...] "
                         "(the controller watch takes over in-cluster)")
     p.add_argument("--apiserver", default="",
-                   help="watch the JAXService endpoints annotation "
-                        "(not ported yet)")
+                   help="watch the JAXService endpoints annotation")
     p.add_argument("--no-resilience", action="store_true",
                    help="disable deadlines/hedging/breakers/band "
                         "shedding (legacy dispatch)")
@@ -1686,10 +1690,6 @@ def main(argv: list[str] | None = None) -> int:
                    choices=BANDS,
                    help="criticality band for unlabeled requests")
     args = p.parse_args(argv)
-    if args.apiserver:
-        raise NotImplementedError(
-            "the endpoints watch needs the control plane, which is not "
-            "ported yet (ROADMAP Queue 1, item 20b)")
     router = TokenRouter(service=args.service, namespace=args.namespace,
                          max_queue=args.max_queue,
                          resilience=(None if args.no_resilience
@@ -1704,10 +1704,29 @@ def main(argv: list[str] | None = None) -> int:
         router, max_new_tokens=args.max_new_tokens,
         default_deadline_s=args.default_deadline_s or None,
         default_band=args.default_band)
+    stop = stop if stop is not None else threading.Event()
+    if args.apiserver:
+        from kubeflow_tpu_torch.control.jaxservice import watch_endpoints
+
+        threading.Thread(
+            target=watch_endpoints,
+            args=(args.apiserver, args.namespace, args.service, router),
+            kwargs={"frontend": frontend, "stop": stop},
+            daemon=True, name="router-endpoints-watch").start()
     svc = frontend.serve(port=args.port)
     log.info("jaxservice router %s/%s on :%d", args.namespace,
              args.service, svc.port)
-    svc.serve_forever()
+
+    def stopper() -> None:
+        stop.wait()
+        svc.shutdown()
+
+    threading.Thread(target=stopper, daemon=True,
+                     name="router-stop").start()
+    try:
+        svc.serve_forever()
+    finally:
+        stop.set()
     return 0
 
 

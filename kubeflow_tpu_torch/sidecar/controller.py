@@ -16,8 +16,8 @@ where openmpi-controller/controller/controller.py began:
   via gsutil, s3:// via awscli, file:// for tests);
 - master-phase watch (:92-102): poll the master pod's phase through the
   K8s API until Succeeded/Failed (workers use this to exit when rank 0
-  is done). ``main``, the container entry, needs the REST client of a
-  later slice and raises NotImplementedError until then.
+  is done). ``main``, the container entry, reads the pod through the
+  port's REST client (in-cluster config, or ``--apiserver``).
 """
 
 from __future__ import annotations
@@ -180,12 +180,19 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--download", nargs=2, metavar=("SRC", "DST"))
     p.add_argument("--upload", nargs=2, metavar=("SRC", "DST"))
     p.add_argument("--timeout-secs", type=float, default=600.0)
-    p.parse_args(argv)
-    # the --master-pod watch reads the pod through the apiserver
-    raise NotImplementedError(
-        "the sidecar's --master-pod watch needs the REST client "
-        "(control/k8s/rest.py), which is not ported yet (ROADMAP Queue 1, "
-        "item 20b)")
+    p.add_argument("--apiserver", default="", help="override in-cluster config")
+    args = p.parse_args(argv)
+    from kubeflow_tpu_torch.control.k8s.rest import RestClient
+
+    ctl = SidecarController(
+        args.shared_dir, master_pod=args.master_pod, namespace=args.namespace,
+        client=RestClient(base_url=args.apiserver or None),
+        download=tuple(args.download) if args.download else None,
+        upload=tuple(args.upload) if args.upload else None,
+        timeout_s=args.timeout_secs,
+    )
+    phase = ctl.run()
+    return 0 if phase == PHASE_SUCCEEDED else 1
 
 
 if __name__ == "__main__":  # pragma: no cover

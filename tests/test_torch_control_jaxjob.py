@@ -339,14 +339,29 @@ def test_the_topology_rule_is_the_one_difference():
     assert RT.validate(ok[0]) == PT.validate(ok[1]) == []
 
 
-def test_mains_raise_until_the_rest_client_is_ported():
-    import subprocess
-    import sys
+def test_mains_raise_until_the_rest_client_is_ported(capsys, monkeypatch):
+    """The mains no longer raise: each runs the shared controller main
+    on the port's REST client (tests/test_torch_control_mains.py runs
+    one against an apiserver); here, in-process, their flags and the
+    scheduler's production jitter."""
+    import importlib
 
-    for mod in ("kubeflow_tpu_torch.control.jaxjob",
-                "kubeflow_tpu_torch.control.scheduler"):
-        out = subprocess.run([sys.executable, "-m", mod], cwd=ROOT,
-                             capture_output=True, text=True, timeout=60)
-        assert out.returncode != 0
-        assert "NotImplementedError" in out.stderr
-        assert "item 20b" in out.stderr
+    for mod in ("kubeflow_tpu_torch.control.jaxjob.__main__",
+                "kubeflow_tpu_torch.control.scheduler.__main__"):
+        main = importlib.import_module(mod).main
+        with pytest.raises(SystemExit) as e:
+            main(["--help"])
+        assert e.value.code == 0
+        out = capsys.readouterr().out
+        for flag in ("--apiserver", "--metrics-port",
+                     "--enable-leader-election"):
+            assert flag in out, (mod, flag)
+    sched = importlib.import_module(
+        "kubeflow_tpu_torch.control.scheduler.__main__")
+    built = {}
+    monkeypatch.setattr(sched, "run_controller",
+                        lambda name, build, argv=None: built.update(
+                            name=name, ctl=build(PCluster(), None)))
+    sched.main([])
+    assert built["name"] == "gang-scheduler"
+    assert built["ctl"].reconciler.queue.jitter == 0.1

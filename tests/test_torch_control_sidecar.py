@@ -5,8 +5,6 @@ device files, and the SIGCONT/SIGTERM handshake, whose files (names,
 directory, order) must equal the JAX sidecar's through a whole
 lifecycle."""
 
-import subprocess
-import sys
 import threading
 import time
 
@@ -16,8 +14,6 @@ from kubeflow_tpu.control.k8s.fake import FakeCluster as RCluster
 from kubeflow_tpu.sidecar import controller as RS
 from kubeflow_tpu_torch.control.k8s.fake import FakeCluster as PCluster
 from kubeflow_tpu_torch.sidecar import controller as PS
-
-from test_torch_control_jaxjob import ROOT
 
 
 def test_gate_reads_the_nvidia_version_file(tmp_path):
@@ -124,11 +120,14 @@ def test_gate_timeout_still_signals_termination(tmp_path, mod):
     assert not ctl.is_ready() and ctl.should_terminate()
 
 
-def test_the_gate_is_the_default_and_main_waits_for_the_rest_client():
+def test_the_gate_is_the_default_and_main_waits_for_the_rest_client(capsys):
+    """main no longer waits for the REST client: it watches the master
+    pod through it (tests/test_torch_control_mains.py drives it against
+    an apiserver); here, its flags."""
     ctl = PS.SidecarController("/tmp", master_pod="m")
     assert ctl.device_check is PS.gpu_devices_present
-    out = subprocess.run(
-        [sys.executable, "-m", "kubeflow_tpu_torch.sidecar.controller",
-         "--master-pod", "job-worker-0"], cwd=ROOT, capture_output=True,
-        text=True, timeout=60)
-    assert out.returncode != 0 and "item 20b" in out.stderr
+    with pytest.raises(SystemExit) as e:
+        PS.main(["--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "--master-pod" in out and "--apiserver" in out

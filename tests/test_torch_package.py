@@ -4,6 +4,7 @@ unasked."""
 
 import ast
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -13,10 +14,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "kubeflow_tpu_torch"
-# prometheus_client is absent on the card's machine: the port renders
-# its metrics from its own registry (runtime/metrics.py)
+# prometheus_client and requests are absent on the card's machine: the
+# port renders its metrics from its own registry (runtime/metrics.py) and
+# speaks HTTP through the standard library (control/k8s/rest.py)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu",
-             "prometheus_client")
+             "prometheus_client", "requests")
 
 
 def _modules():
@@ -42,6 +44,29 @@ def test_import_pulls_in_no_jax_or_triton():
                 "parallel.shardings", "runtime.elastic", "ops.moe",
                 "ops.ring_attention", "ops.ulysses", "parallel.pipeline"):
         assert f"kubeflow_tpu_torch.{mod}" in new, mod
+
+
+def test_the_services_path_imports_without_cuda_or_the_jax_package():
+    """The control plane's services path imports with no CUDA device
+    visible and pulls in no torch, no JAX-package module, no
+    prometheus_client and no requests."""
+    mods = ["kubeflow_tpu_torch.control.mains",
+            "kubeflow_tpu_torch.control.k8s.rest",
+            "kubeflow_tpu_torch.control.jaxservice.controller",
+            "kubeflow_tpu_torch.obs.goodput"]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True, env={**os.environ,
+                                          "CUDA_VISIBLE_DEVICES": ""})
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(mods) <= set(loaded)
+    bad = [m for m in loaded
+           if m.split(".")[0] in (*FORBIDDEN, "torch", "triton")]
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("path", sorted(
