@@ -86,8 +86,9 @@
 10. Serving, (b) the pinned point (`tools/serve_best.json` with
    prompt_len 512): gpt-350m at full depth, bf16, int8 weights, the
    continuous decoder with 16 slots, vocab 32000, random weights from
-   seed 0, behind the port's ModelServer on 127.0.0.1: a warm-up, then
-   32 requests at concurrency 16 over HTTP; every response must hold 64
+   seed 0, behind the port's ModelServer on 127.0.0.1: a warm-up of one
+   two-instance predict (not the reference's 31 requests: the script's
+   time), then 32 requests at concurrency 16 over HTTP; every response must hold 64
    ids in range. Prints tokens/s, requests/s, p50/p95/p99, peak memory
    and the cache's bytes; then 16 ticks of the same decoder with every
    slot busy, timed on the host clock, and 8 more under torch.profiler:
@@ -128,10 +129,12 @@
    first differing token, the bf16 target's top-1 minus top-2 logit
    margin on that row's prefix, against the margins of the steps
    before it, and whether the two runs' tokens are that forward's top
-   two; (c) the same point computed in f32 (TF32 off), 16 requests
-   through the speculative server and a plain one: tokens equal token
-   for token (16 busy slots, prompts of up to 511 tokens left-padded
-   to 512, int8 target and draft).
+   two; (c) the same point computed in f32 (TF32 off) with the target
+   cut to 6 of its 24 layers (the script's time; the hold is the same
+   at any depth), 16
+   requests through the speculative server and a plain one: tokens
+   equal token for token (16 busy slots, prompts of up to 511 tokens
+   left-padded to 512, int8 target and draft).
 14. Router: two ModelServer replicas on the card (gpt-350m width, 4
    layers, f32, continuous batching, paged cache) behind the port's
    RouterFrontend over HttpTransport, 16 concurrent predicts: both
@@ -168,7 +171,8 @@
    (read from each launcher's log line); each trace dump is one tree
    (worker under the injected parent, train.fit under worker,
    train.step and train.checkpoint inside). Prints the checkpoint's
-   bytes, and from run B, which runs alone, the seconds each save blocks
+   bytes, and from run B, the phase's only run then (phases 30 and 35
+   may still share the card and the host), the seconds each save blocks
    the loop and writes in the background, the restore's seconds, the
    step time on shards against
    phase 6's synthetic one, and the seconds a restart spends skipping
@@ -217,8 +221,10 @@
    tests/test_torch_bert.py).
 21. The world on one card (`examples/gpt-125m.yaml`'s model and data
    shape at full width and depth: gpt-125m, seq 1024, vocab 32000,
-   global batch 64, adamw, remat; mesh data 2, since the yaml's fsdp 4 x
-   model 2 needs 8 GPUs): (a) two port launchers
+   global batch 64, adamw, remat, the loss in 8 chunks (the pinned main
+   path's `xent_chunks`; it takes a rank's peak from 19.1 to 6.6 GB
+   reserved); mesh data 2, since the yaml's fsdp 4 x model 2 needs 8
+   GPUs): (a) two port launchers
    (`JAXJOB_NUM_PROCESSES=2`, `JAXJOB_PROCESS_ID` 0 and 1, a local
    coordinator, `--nproc-per-node 1`) share the card over gloo (NCCL
    refuses two ranks on one device) for 3 steps at local batch 32: both
@@ -230,9 +236,10 @@
    the same world to a total of 5 steps, rank 1 SIGTERMed after step 2:
    both ranks stop at one step and exit 75; one process resumes that
    world-2 checkpoint at world 1 to step 5 and is held like (a) against
-   5 straight one-process steps. The one-process and two-rank runs of
-   (a) run alone; (a)'s control and (b)'s world, whose times nothing
-   reads, share the card, as do (b)'s two resumes.
+   5 straight one-process steps. Three waves share the card, none of
+   whose times a check holds: the one-process run with (a)'s world,
+   (a)'s control with (b)'s world, (b)'s two resumes; phases 34 and 36
+   run beside them.
 22. NCCL at one rank: a one-rank NCCL world through the port's `gpu`
    backend, a DeviceMesh on cuda, an all-reduce, a reduce-scatter /
    all-gather round trip and the backend's hierarchical_reduce on card
@@ -321,9 +328,10 @@
    control `no-ulysses-exchange` (the all-to-alls return their input):
    each rank's parameter change per row within 1e-2 of one process's,
    each control beyond it, equal rank losses, the final loss within 1e-3
-   relative; then the same seq world in bf16 alone, its step ms and its
-   wgmma kernel launches. Prints each world's start-up breakdown
-   (`_startup`).
+   relative; the same seq world in bf16 beside the Ulysses worlds (alone
+   after them until phase 36 was added: the script's time), its step ms
+   (not held) and its wgmma kernel launches. Prints each world's
+   start-up breakdown (`_startup`).
 33. Classifier remat: ResNet-50 at examples/resnet50.yaml's point
    without remat and with whole-forward remat `full` and `dots`, from
    the same weights and batch: after two steps each remat run's
@@ -346,7 +354,7 @@
    with exit 75, the job counts preemptions 1 and restarts 0, and the
    recreated gang resumes at that step and ends Succeeded; prints the
    condition sequence, each incarnation's launch-to-first-step seconds
-   and step time.
+   and step time (not held: it runs beside phase 21 and phase 36).
 35. The control plane's services path: one GPU node on the port's
    FakeCluster (nvidia.com/gpu: 2) behind the port's ApiServer on
    127.0.0.1; the gang scheduler as its own process (`python -m
@@ -366,10 +374,49 @@
    0, its process gone), the service's deletion (the last process gone)
    and the scheduler's exit 0 on SIGTERM with its Lease released
    (`services_phase`).
-Each phase prints its wall seconds, and the script its own at the end.
+36. The platform's user path: the port's FakeCluster with one GPU
+   node (the card's product, nvidia.com/gpu: 2: two trials share the
+   card) behind the port's ApiServer; the Profile, Notebook, JAXJob and
+   StudyJob controllers and the gang scheduler in-process on the port's
+   RestClient; the Jupyter web app over HTTP; the LocalPodExecutor as
+   the kubelet, through `Spawned`. A Profile `team-ml` with a quota of
+   requests.nvidia.com/gpu: 2 (namespace, owner binding, the quota
+   naming no TPU); a notebook POSTed to the JWA as a user with the form
+   `gpu: {count: 1, product}` (the CR's limit and selector, the
+   StatefulSet's pod template claiming nvidia.com/gpu: 1, the JWA's
+   list; no pod runs: the JAX package has no StatefulSet controller);
+   examples/studyjob-sweep.yaml cut to a grid over `opt` (adamw,
+   adafactor) at one `lr`, two one-GPU trials at once, each the port's
+   launcher with a `--config` written for its ${opt}: gpt-125m at full
+   width and depth, seq 1024, global batch 16, bf16, flash, full remat,
+   3 steps. Holds each trial pod's GPU claim, selectors and command
+   before its gang gate lifts, each trial's flash launches (phase 34's
+   count) and finite final.loss, the collector's objective annotation
+   read from the pod's summary line, Running -> Succeeded, bestTrial the
+   lower loss, and the deletion taking the trials (`user_path_phase`).
+   It runs on a thread beside phase 34, whose times no check holds
+   (`beside`: the script's time); its own seconds, and phase 34's,
+   are printed.
+The order, for the script's time (a `Lane` runs phases on a thread
+beside the script's own; no check holds the times of a phase that
+shares the card, and each pair fits the card's 80 GB at its measured
+peaks): phases 1-8 and 11 alone; phase 15 on a lane beside phases 30
+and 35, then 24-27 and 14 (checks whose times nothing reads), then
+phase 16 alone; the serving points (10, 12b, 13b and its witness)
+alone; phase 17 alone; phase 31 on a lane beside the checks 9, 12a,
+13a, 13c, 18 and 19; the ResNet-50 profile and phase 20
+alone; phase 21 beside a lane of phase 34 with phase 36 beside it; then
+phases 22, 23, 28, 29, 32 and 33 alone, in that order (phase 29's and
+32's worlds each fill the card).
+In-process serving loops next to launchers lose half their speed or
+more (the launchers take the host's cores, in-process controllers this
+process's lock), so nothing runs beside a measured in-process phase.
+Each phase prints its wall seconds (and whether it ran beside a lane),
+and the script its own at the end.
 No process the script starts outlives it: `main()` makes it the child
-subreaper of its descendants, and after every phase, and once more
-before the last line, `check_no_stragglers` fails on any descendant
+subreaper of its descendants, and after every phase (after a lane's
+block, for its phases and those beside it), and once more before the
+last line, `check_no_stragglers` fails on any descendant
 still alive (naming its pid, command line and the phase, and killing
 its group); `check_no_threads` fails on a non-daemon thread left.
 Any kernel that ptxas reports spilling registers fails the build phase.
@@ -397,8 +444,9 @@ each counted from its reset after registration to its stop: none;
 phase 31's training worlds are held at none too), `seq_f32_rank0/1`,
 `uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks),
 `classifier_remat` (none), `job_rank0/1` (phase 34's ranks, both
-incarnations) and `services` (phase 35, this process: none; the
-replicas decode by bmm in processes of their own); the bf16 flash forward's row also holds its
+incarnations), `services` (phase 35, this process: none; the
+replicas decode by bmm in processes of their own) and
+`study_trial0/1` (phase 36's trials); the bf16 flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -416,6 +464,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -461,6 +510,10 @@ ROLLING_CACHE_BYTES = 24 * 2 * 16 * ROLLING_WINDOW * 16 * 64 * 2  # 402,653,184
 ROLL_W, ROLL_P, ROLL_N = 16, 24, 24   # the rolling check wraps W twice
 ROLLING_REQUESTS = 16
 SPEC_K, SPEC_REQUESTS = 4, 16
+# the f32 speculative point's target depth (of gpt-350m's 24 layers): the
+# script's time; its hold (speculative tokens equal plain greedy ones) is
+# the same at any depth
+SPEC_F32_LAYERS = 6
 SPEC_DRAFT = "gpt-125m"
 ROUTER_P, ROUTER_N, ROUTER_REQUESTS = 64, 16, 16
 PREFILL_ROW_TOL = 1e-4     # f32 chunked prefill vs the per-token oracle
@@ -1816,7 +1869,9 @@ def near_tie_witness(spec_outs: list, plain_outs: list) -> str:
 
 def speculative_pinned_f32() -> str:
     """Phase 13b's point computed in f32 (TF32 off): SERVE's model at
-    full depth with int8 weights, SPEC_REQUESTS prompts of up to 511
+    SPEC_F32_LAYERS of its 24 layers (the script's time) with int8
+    weights, SPEC_REQUESTS prompts of
+    up to 511
     tokens on as many busy slots, the SPEC_DRAFT int8 draft with k
     SPEC_K. The speculative server's tokens must equal a plain greedy
     server's on the same weights, token for token."""
@@ -1836,7 +1891,7 @@ def speculative_pinned_f32() -> str:
             max_new_tokens=sv["max_new"], continuous_batching=True,
             decode_slots=sv["slots"], param_dtype=sv["param_dtype"],
             vocab_size=sv["vocab"], seed=0, device="cuda", dtype="float32",
-            **extra)
+            n_layers=SPEC_F32_LAYERS, **extra)
         try:
             _, outs[arm], _ = closed_loop(
                 lambda q: served.predict([{"tokens": q}])[0], prompts,
@@ -1853,7 +1908,7 @@ def speculative_pinned_f32() -> str:
         fail(f"speculative pinned f32: rows {bad} differ from plain greedy "
              "serving")
     return (f"{len(prompts)} requests x {sv['max_new']} tokens equal plain "
-            f"greedy (f32, TF32 off); acceptance "
+            f"greedy (f32, TF32 off, {SPEC_F32_LAYERS} layers); acceptance "
             f"{st['spec_tokens_accepted']}/{st['spec_drafted']} in "
             f"{st['spec_rounds']} slot-rounds")
 
@@ -2178,8 +2233,10 @@ def resume_phase(card: str, synthetic_step_s: float, root) -> dict:
     checkpoints, evals, a profiler window and a SIGTERM: run A is
     preempted after its "step 3" line, run B resumes it to step 6, run C
     runs 6 steps straight; B is held to C. C shares the card with A (its
-    results are held, its times not read); B runs alone, so the step
-    time on shards and the checkpoint's seconds are B's. Returns run B's
+    results are held, its times not read); B is the phase's only run
+    then, so the step time on shards and the checkpoint's seconds are
+    B's (the script runs phases 30 and 35 beside this phase, whose
+    launchers may still share the card and the host). Returns run B's
     launches and its checkpoint directory."""
     import concurrent.futures as cf
     import re
@@ -2826,6 +2883,10 @@ WORLD_RESUME_STEPS = 5          # (b): the schedule's total and the resumed end
 WORLD_SIGTERM_AFTER = 2         # (b): rank 1's "step 2" line
 WORLD_ROW_TOL = 1e-2            # final params per row, as kernel_check's
 WORLD_LOSS_RTOL = 1e-3
+# the pinned main path's chunked loss: a rank at local batch 32 peaks at
+# 6.6 GB reserved instead of 19.1, so three runs and phase 34's gang fit
+# the card at once
+WORLD_XENT_CHUNKS = 8
 # The parameter change (final minus initial) of a world against one
 # process's, per row relative to that row of one process's change
 # (kernel_check.errors). The schedule's first learning rates are 0, 3e-6,
@@ -2844,12 +2905,14 @@ def world_config(root, tag: str, data: int, total_steps: int,
     """examples/gpt-125m.yaml's model and data shape at full width and
     depth (gpt-125m, seq 1024, vocab 32000, global batch 64, adamw,
     remat), on a data-parallel mesh of `data` ranks (the yaml's fsdp 4 x
-    model 2 needs 8 GPUs), a checkpoint directory per run."""
+    model 2 needs 8 GPUs), the loss in WORLD_XENT_CHUNKS chunks, a
+    checkpoint directory per run."""
     from kubeflow_tpu_torch.utils import yaml_lite
 
     here = Path(__file__).resolve().parent
     cfg = yaml_lite.loads((here / WORLD_YAML).read_text())
     cfg.update(mesh={"data": data}, total_steps=total_steps, log_every=1,
+               xent_chunks=WORLD_XENT_CHUNKS,
                checkpoint_every=checkpoint_every,
                checkpoint_dir=str(root / f"{tag}_ckpt"))
     return cfg
@@ -2938,18 +3001,22 @@ def world_worker(argv: list[str]) -> int:
 
 def _free_port_pair() -> int:
     """A port p with p + 1 free too (the loopback backend's barrier binds
-    p, its gloo store p + 1)."""
+    p, its gloo store p + 1), drawn below the kernel's ephemeral range
+    (`parallel.dist.free_port`): a port of bind(0) is an ephemeral one,
+    which any connect() on the host (a phase beside this one opens many)
+    may take before rank 0 binds it."""
     import socket
 
+    from kubeflow_tpu_torch.parallel.dist import free_port
+
     for _ in range(100):
-        with socket.socket() as a, socket.socket() as b:
-            a.bind(("127.0.0.1", 0))
-            p = a.getsockname()[1]
+        p = free_port()
+        with socket.socket() as b:
             try:
                 b.bind(("127.0.0.1", p + 1))
             except OSError:
                 continue
-            return p
+        return p
     fail("no two adjacent free ports")
 
 
@@ -3189,8 +3256,9 @@ def world_phase(root) -> dict:
     WORLD_DELTA_TOL while the control's (the same world with the reduce
     skipped) does not, the final params per row within 1e-2 and the
     final loss within 1e-3 relative; prints each rank's step time and
-    the gradient reduce's share of it. (b) the same world with
-    total_steps 5, rank 1 SIGTERMed after step 2: both ranks stop at the
+    the gradient reduce's share of it (the one process runs beside it).
+    (b) the same world with total_steps 5, rank 1 SIGTERMed after step
+    2: both ranks stop at the
     same step with exit 75; one process resumes that world-2 checkpoint
     at world 1 (Preserve: the same global batch) to step 5, held like
     (a) against the straight steps, and so is the control's checkpoint
@@ -3198,14 +3266,19 @@ def world_phase(root) -> dict:
     import concurrent.futures as cf
 
     launches = {}
-    # the timed runs alone; the control and (b)'s stopped world, whose
-    # times nothing reads, share the card, as do (b)'s two resumes
-    straight = _launch_world(
-        world_config(root, "straight", 1, WORLD_RESUME_STEPS,
-                     checkpoint_every=WORLD_STEPS), root, "straight", 1,
-        dump_steps=(WORLD_STEPS, WORLD_RESUME_STEPS))[0]
-    two = _launch_world(world_config(root, "two", 2, WORLD_STEPS), root,
-                        "two", 2, dump_steps=(WORLD_STEPS,))
+    # three waves, each sharing the card (no check holds their times):
+    # one process with (a)'s world, (a)'s control with (b)'s stopped
+    # world, (b)'s two resumes
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        straight = pool.submit(
+            _launch_world, world_config(root, "straight", 1,
+                                        WORLD_RESUME_STEPS,
+                                        checkpoint_every=WORLD_STEPS),
+            root, "straight", 1, dump_steps=(WORLD_STEPS, WORLD_RESUME_STEPS))
+        two = pool.submit(_launch_world,
+                          world_config(root, "two", 2, WORLD_STEPS), root,
+                          "two", 2, dump_steps=(WORLD_STEPS,))
+        straight, two = straight.result()[0], two.result()
     with cf.ThreadPoolExecutor(max_workers=2) as pool:
         control = pool.submit(
             _launch_world, world_config(root, "control", 2, WORLD_STEPS),
@@ -3247,7 +3320,9 @@ def world_phase(root) -> dict:
     print(f"world (a) data 2 over gloo on one card (the yaml's fsdp 4 x "
           f"model 2 needs 8 GPUs): losses {losses[0]}; final loss {lo:.6f} "
           f"vs one process {lw:.4f}; rank 0 {held[0]}; rank 1 {held[1]}; "
-          f"params max row err {worst:.3g}; one process step "
+          f"params max row err {worst:.3g}; step times (the one process "
+          f"and the two ranks sharing the card and the host with each "
+          f"other and phases 34 and 36, not held): one process "
           f"{straight['summary']['step_time_s'] * 1e3:.1f} ms; "
           + "; ".join(shares), flush=True)
     shutil.rmtree(root / "two_ckpt", ignore_errors=True)
@@ -4323,12 +4398,12 @@ def seq_world_phase(root) -> dict:
     the gathered key prefix, through the f32 SIMT kernels) and the
     planted control `no-kv-gather` (each rank attends its own block
     only); then two Ulysses ranks at seq 2 and their control
-    `no-ulysses-exchange`. Each
+    `no-ulysses-exchange`, beside the same seq world in bf16. Each
     rank's parameter change after 3 steps per row within SEQ_DELTA_TOL of
     one process's, each control beyond it, the rank losses equal and the
     final loss within 1e-3 relative; each rank launches every SIMT kernel
-    once per layer a step. Then the same seq world in bf16, alone: its
-    step ms and its wgmma kernel launches. Returns each rank's launches."""
+    once per layer a step. The bf16 world: its step ms (printed, not
+    held) and its wgmma kernel launches. Returns each rank's launches."""
     import concurrent.futures as cf
 
     seq2 = {"data": 1, "seq": 2}
@@ -4339,14 +4414,21 @@ def seq_world_phase(root) -> dict:
             "uly_control": (_seq_config("ulysses", seq2), 2,
                             "no-ulysses-exchange")}
     runs = {}
+    # the bf16 seq world, whose step times no check holds, shares the
+    # second wave (it ran alone after both until the user path was added:
+    # the script's time)
+    plan["seq_bf16"] = (_seq_config("auto", seq2, "bfloat16"), 2, "none")
     for wave in (("seq_one", "seq_two", "seq_control"),
-                 ("uly_two", "uly_control")):
+                 ("uly_two", "uly_control", "seq_bf16")):
         with cf.ThreadPoolExecutor(max_workers=len(wave)) as pool:
             futs = {tag: pool.submit(_launch_world, plan[tag][0], root, tag,
-                                     plan[tag][1], dump_steps=(SEQ_STEPS,),
+                                     plan[tag][1], dump_steps=(
+                                         () if tag == "seq_bf16"
+                                         else (SEQ_STEPS,)),
                                      fault=plan[tag][2])
                     for tag in wave}
             runs.update({tag: f.result() for tag, f in futs.items()})
+    bf16 = runs.pop("seq_bf16")
     _ok([r for ws in runs.values() for r in ws], "seq")
     one = runs["seq_one"][0]
     out = {}
@@ -4378,15 +4460,13 @@ def seq_world_phase(root) -> dict:
               f"{losses[0]}; final loss {lo:.6f} vs one process {lw:.6f}; "
               f"rank 0 {held[0]}; rank 1 {held[1]}", flush=True)
     _seq_launches(one, "one process", "float32")
-    print(f"seq start-up (s), in waves of three and two worlds: "
+    print(f"seq start-up (s), in waves of three worlds each: "
           f"{_startup_note(runs)}", flush=True)
-    bf16 = _launch_world(_seq_config("auto", seq2, "bfloat16"), root,
-                         "seq_bf16", 2)
     _ok(bf16, "seq bf16")
     for r, run in enumerate(bf16):
         out[f"seq_bf16_rank{r}"] = _seq_launches(run, f"bf16 rank {r}",
                                                  "bfloat16")
-    print(f"seq bf16 (alone on the card): step ms "
+    print(f"seq bf16 (beside the Ulysses worlds, not held): step ms "
           + ", ".join(f"{r['summary']['step_time_s'] * 1e3:.1f}"
                       for r in bf16)
           + f", launches a rank {out['seq_bf16_rank0']} over {SEQ_STEPS} "
@@ -4837,13 +4917,14 @@ def _replica_args(cmd: list[str]) -> list[str]:
     return cmd
 
 
-def _services_kubelet(cluster, spawned: Spawned, root):
+def _services_kubelet(cluster, spawned: Spawned, root, env_hook=None):
     """The port's LocalPodExecutor as the node's kubelet, its processes
-    started through `spawned`. Both replicas share this host, so each
-    replica's `--port` is rewritten to a free port of its own (`ports`,
-    by pod name), and `python` is this interpreter. `launched` holds
-    each launch's pod as the kubelet saw it, its process, port and
-    start time."""
+    started through `spawned`. Replicas share this host, so each
+    replica's `--port` (where its command has one) is rewritten to a
+    free port of its own (`ports`, by pod name), and `python` is this
+    interpreter. `launched` holds each launch's pod as the kubelet saw
+    it, its process, port and start time. `env_hook` is the executor's
+    (the pod, its env -> the env the process gets)."""
     from kubeflow_tpu_torch.control.k8s.kubelet import LocalPodExecutor
 
     class ServiceKubelet(LocalPodExecutor):
@@ -4857,8 +4938,10 @@ def _services_kubelet(cluster, spawned: Spawned, root):
             cmd = list(cmd)
             if cmd[0] == "python":
                 cmd[0] = sys.executable
-            port = self.ports[name] = _free_port()
-            cmd[cmd.index("--port") + 1] = str(port)
+            port = None
+            if "--port" in cmd:
+                port = self.ports[name] = _free_port()
+                cmd[cmd.index("--port") + 1] = str(port)
             proc = spawned.start(_replica_args(cmd), env=env, cwd=self.cwd,
                                  stdout=stdout, stderr=subprocess.STDOUT)
             self.launched[name] = {"pod": pod, "proc": proc,
@@ -4866,7 +4949,7 @@ def _services_kubelet(cluster, spawned: Spawned, root):
             return proc
 
     return ServiceKubelet(cluster, cwd=str(Path(__file__).resolve().parent),
-                          log_dir=str(root))
+                          log_dir=str(root), env_hook=env_hook)
 
 
 def _readyz(port: int) -> bool:
@@ -5231,6 +5314,465 @@ def services_phase(root, card: str) -> None:
           flush=True)
 
 
+# -- phase 36: the platform's user path ---------------------------------------
+
+STUDY_YAML = "examples/studyjob-sweep.yaml"
+USER_NS = "team-ml"                # the sweep's namespace, the Profile's name
+USER = "alice@example.com"         # the Profile's owner, the JWA's caller
+USER_GPU_QUOTA = 2
+STUDY_LR = 3.0e-4                  # examples/gpt-125m.yaml's learning rate
+STUDY_STEPS = 3
+STUDY_BATCH = 16
+STUDY_TIMEOUT = 300                # seconds any one wait of the phase may take
+
+
+def study_config(opt: str) -> dict:
+    """A trial's launcher config: examples/gpt-125m.yaml's model and data
+    shape at full width and depth (gpt-125m, seq 1024, vocab 32000, remat
+    full, bf16 and flash by default) at global batch 16 on one process
+    (the yaml's fsdp 4 x model 2 needs 8 GPUs), `opt` as the optimizer,
+    STUDY_STEPS steps, no checkpoint."""
+    from kubeflow_tpu_torch.utils import yaml_lite
+
+    here = Path(__file__).resolve().parent
+    cfg = yaml_lite.loads((here / WORLD_YAML).read_text())
+    for key in ("mesh", "checkpoint_dir", "checkpoint_every"):
+        cfg.pop(key, None)
+    cfg.update(optimizer=opt, learning_rate=STUDY_LR,
+               global_batch=STUDY_BATCH, total_steps=STUDY_STEPS,
+               log_every=1)
+    return cfg
+
+
+def study_manifest(product: str, root) -> dict:
+    """examples/studyjob-sweep.yaml in USER_NS, cut for one card: grid
+    over `opt` (adamw, adafactor) with `lr` fixed at STUDY_LR, two trials
+    at once, each one replica of one GPU (`gpu: {product, card, 1}` for
+    the yaml's `tpu:` of 4 replicas of 4 chips), gang-scheduled; the
+    trial runs the port's launcher with `--config` of the config written
+    for its ${lr} and ${opt} (the launcher takes no hyperparameter flag)
+    on the port's image."""
+    from kubeflow_tpu_torch.control.jaxjob import types as JT
+    from kubeflow_tpu_torch.control.scheduler import SCHEDULER_NAME
+    from kubeflow_tpu_torch.utils import yaml_lite
+
+    here = Path(__file__).resolve().parent
+    study = yaml_lite.loads((here / STUDY_YAML).read_text())
+    study["metadata"]["namespace"] = USER_NS
+    spec = study["spec"]
+    spec["algorithm"] = {"algorithmName": "grid", "seed": 0}
+    params = {p["name"]: p for p in spec["parameters"]}
+    params["lr"]["feasible"] = {"min": STUDY_LR, "max": STUDY_LR,
+                                "steps": 1}
+    spec["maxTrialCount"] = spec["parallelTrialCount"] = 2
+    trial = spec["trialTemplate"]["spec"]
+    trial.pop("tpu")
+    trial.update(replicas=1, schedulerName=SCHEDULER_NAME,
+                 gpu={"product": product, "nodePool": "card",
+                      "gpusPerWorker": 1})
+    c = trial["template"]["spec"]["containers"][0]
+    c["image"] = JT.DEFAULT_IMAGE
+    c["command"] = list(JT.DEFAULT_COMMAND) + [
+        "--config", str(root / "lr${lr}-${opt}.json")]
+    return study
+
+
+def user_path_phase(root, card: str) -> dict:
+    """Phase 36: the platform's user path. The port's FakeCluster with
+    one GPU node (the card's product in GKE's spelling, nvidia.com/gpu:
+    2: the two trials share the one card, as phase 34's ranks) behind the
+    port's ApiServer on 127.0.0.1; the Profile, Notebook, JAXJob and
+    StudyJob controllers and the gang scheduler in-process on the port's
+    RestClient; the Jupyter web app served on 127.0.0.1 on that client;
+    the LocalPodExecutor as the kubelet (`_services_kubelet`, every
+    process through `Spawned`). (1) A Profile USER_NS with a quota of
+    requests.nvidia.com/gpu: USER_GPU_QUOTA: its namespace, owner role
+    binding and ResourceQuota appear, the quota naming nvidia.com/gpu and
+    no TPU. (2) A notebook POSTed to the JWA over HTTP as USER with the
+    form `gpu: {count: 1, product}`: the Notebook CR has that limit and
+    selector, the StatefulSet the notebook controller makes claims
+    nvidia.com/gpu: 1 with the product selector in its pod template, the
+    JWA's GET lists it (no pod runs: the JAX package has no StatefulSet
+    controller); the Profile and Notebook controllers then stop (each
+    writes its status on every reconcile, and the write queues the
+    next). (3) `study_manifest`'s StudyJob: both trial pods claim
+    nvidia.com/gpu: 1 with the product and node-pool selectors and run
+    the launcher before the scheduler lifts their gang gates; each
+    trial's launcher launches each flash kernel as its config implies
+    (phase 34's count: gpt-125m's 12 layers, the forward twice under full
+    remat) on the card and prints a finite final.loss; the collector, the
+    reconciler's injectable one, reads that line from the trial pod's
+    output and writes the objective annotation; the StudyJob goes Running
+    -> Succeeded with the lower loss its bestTrial; its deletion takes
+    its trials and their pods. Prints each step's seconds: submit to the
+    trials bound, launch to first step, launch to the study's Succeeded,
+    and the phase. Returns each trial's launches."""
+    import datetime
+    import math
+    import os
+    import threading
+    import urllib.request
+
+    import torch
+
+    from kubeflow_tpu_torch.control.jaxjob import types as JT
+    from kubeflow_tpu_torch.control.jaxjob.controller import (
+        build_controller as build_jobs, worker_name)
+    from kubeflow_tpu_torch.control.k8s import objects as ob
+    from kubeflow_tpu_torch.control.k8s.apiserver import ApiServer
+    from kubeflow_tpu_torch.control.k8s.fake import FakeCluster
+    from kubeflow_tpu_torch.control.k8s.rest import RestClient
+    from kubeflow_tpu_torch.control.notebook import types as NT
+    from kubeflow_tpu_torch.control.notebook.controller import (
+        build_controller as build_notebooks)
+    from kubeflow_tpu_torch.control.profile import types as PT
+    from kubeflow_tpu_torch.control.profile.controller import (
+        build_controller as build_profiles)
+    from kubeflow_tpu_torch.control.scheduler import GATE_GANG
+    from kubeflow_tpu_torch.control.scheduler.nodes import new_gpu_node
+    from kubeflow_tpu_torch.control.scheduler.scheduler import build_scheduler
+    from kubeflow_tpu_torch.tune import studyjob as S
+    from kubeflow_tpu_torch.webapps.jwa import JupyterWebApp
+
+    t_phase = time.perf_counter()
+    product = gke_product(torch.cuda.get_device_name(0))
+    study = study_manifest(product, root)
+    name = study["metadata"]["name"]
+    for opt in study["spec"]["parameters"][1]["feasible"]["list"]:
+        (root / f"lr{STUDY_LR}-{opt}.json").write_text(
+            json.dumps(study_config(opt)))
+    cluster = FakeCluster()
+    cluster.create(new_gpu_node("gpu-node-0", product=product,
+                                node_pool="card", gpus=USER_GPU_QUOTA))
+    apiserver = ApiServer(cluster).serve_background()
+    client = RestClient(base_url=apiserver.url)
+    added: dict[str, dict] = {}       # each pod as first created
+    bound: dict[str, float] = {}      # each trial pod's first bound version
+    pod_watch = cluster.watch("v1", "Pod")
+    seq: list[str] = []
+    state: dict[str, str] = {}
+
+    def env_hook(pod, env):
+        env.update(JAXRT_METRICS_PORT="0",
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
+        return env
+
+    def trial_log(trial: str) -> str | None:
+        entry = next((e for e in reversed(kubelet.logs)
+                      if e["name"] == worker_name(trial, 0)), None)
+        return None if entry is None else Path(entry["path"]).read_text(
+            errors="replace")
+
+    def summary_of(out: str) -> dict | None:
+        lines = [ln for ln in out.splitlines() if ln.startswith('{"summary"')]
+        return json.loads(lines[-1])["summary"] if lines else None
+
+    def collector(job: dict) -> float | None:
+        """The trial's objective: final.loss from its pod's summary line,
+        written as the objective annotation (the JAX design's injectable
+        collector, studyjob.py:16-19, 280)."""
+        trial = job["metadata"]["name"]
+        out = trial_log(trial)
+        summary = summary_of(out) if out else None
+        loss = (summary or {}).get("final", {}).get("loss")
+        if loss is None:
+            return None
+        if ob.annotations_of(job).get(S.ANNO_OBJECTIVE) != str(loss):
+            client.patch(JT.API_VERSION, JT.KIND, trial,
+                         {"metadata": {"annotations": {
+                             S.ANNO_OBJECTIVE: str(loss)}}}, USER_NS)
+        return loss
+
+    ctls: dict[str, object] = {}
+    jwa = None
+    with Spawned() as spawned:
+        kubelet = _services_kubelet(cluster, spawned, root, env_hook=env_hook)
+        try:
+            ctls = {"profile": build_profiles(client),
+                    "notebook": build_notebooks(client),
+                    "jaxjob": build_jobs(client),
+                    "studyjob": S.build_controller(client,
+                                                   collector=collector),
+                    "scheduler": build_scheduler(client,
+                                                 record_events=False)}
+            for ctl in ctls.values():
+                ctl.run(workers=2)
+            jwa = JupyterWebApp(client).serve(
+                host="127.0.0.1", port=0).serve_background()
+
+            def poll():
+                kubelet.poll_once()
+                while (ev := pod_watch.poll()) is not None:
+                    pod = ev.object
+                    pod_name = pod["metadata"]["name"]
+                    added.setdefault(pod_name, pod)
+                    if pod["spec"].get("nodeName") and not pod["spec"].get(
+                            "schedulingGates"):
+                        bound.setdefault(pod_name, time.perf_counter())
+                got = cluster.get_or_none(S.API_VERSION, S.KIND, name,
+                                          USER_NS)
+                for c in ((got or {}).get("status") or {}).get(
+                        "conditions") or []:
+                    now = f"{c['status']}({c.get('reason', '')})"
+                    if state.get(c["type"]) != now:
+                        state[c["type"]] = now
+                        seq.append(f"{c['type']}={now}")
+                return got
+
+            def wait(what: str, cond):
+                deadline = time.monotonic() + STUDY_TIMEOUT
+                while True:
+                    out = cond(poll())
+                    if out:
+                        return out
+                    if time.monotonic() > deadline:
+                        for e in kubelet.logs:
+                            print(f"--- {e['name']} rc {e.get('rc')}\n"
+                                  + Path(e["path"]).read_text(
+                                      errors="replace")[-3000:], flush=True)
+                        fail(f"user path: no {what} within {STUDY_TIMEOUT} "
+                             f"s; study conditions {seq}")
+                    time.sleep(0.05)
+
+            # (1) the Profile: namespace, owner binding, the GPU quota
+            t1 = time.perf_counter()
+            client.create(PT.new_profile(USER_NS, USER,
+                                         gpu_quota=USER_GPU_QUOTA))
+            quota = wait("Profile quota", lambda s: cluster.get_or_none(
+                "v1", "ResourceQuota", PT.QUOTA_NAME, USER_NS))
+            wait("Profile Ready", lambda s: ob.cond_is_true(
+                cluster.get(PT.API_VERSION, PT.KIND, USER_NS), "Ready"))
+            ns = cluster.get_or_none("v1", "Namespace", USER_NS)
+            admin = cluster.get_or_none("rbac.authorization.k8s.io/v1",
+                                        "RoleBinding", "namespaceAdmin",
+                                        USER_NS)
+            if ns is None or ob.annotations_of(ns).get("owner") != USER or \
+                    admin is None or admin["subjects"][0]["name"] != USER:
+                fail(f"user path: profile namespace {ns} / owner binding "
+                     f"{admin}")
+            if quota["spec"]["hard"] != {PT.QUOTA_GPU: USER_GPU_QUOTA} or \
+                    "tpu" in json.dumps(quota):
+                fail(f"user path: the quota {quota['spec']}, want "
+                     f"{{{PT.QUOTA_GPU!r}: {USER_GPU_QUOTA}}} and no TPU")
+            profile_s = time.perf_counter() - t1
+
+            # (2) a notebook through the JWA over HTTP
+            t2 = time.perf_counter()
+            base = f"http://127.0.0.1:{jwa.port}/api/namespaces/{USER_NS}" \
+                "/notebooks"
+            req = urllib.request.Request(
+                base, method="POST", headers={
+                    "kubeflow-userid": USER,
+                    "Content-Type": "application/json"},
+                data=json.dumps({"name": "gpu-nb", "gpu": {
+                    "count": 1, "product": product}}).encode())
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                posted = json.loads(resp.read())
+            if posted != {"status": "ok", "name": "gpu-nb"}:
+                fail(f"user path: the JWA answered {posted}")
+            nb = cluster.get(NT.API_VERSION, NT.KIND, "gpu-nb", USER_NS)
+            want = ({JT.RESOURCE_GPU: 1}, {JT.NODESELECTOR_ACCEL: product})
+            nb_spec = nb["spec"]["template"]["spec"]
+            if (nb_spec["containers"][0]["resources"].get("limits"),
+                    nb_spec.get("nodeSelector")) != want:
+                fail(f"user path: the Notebook's pod spec {nb_spec}")
+            sts = wait("the notebook's StatefulSet", lambda s:
+                       cluster.get_or_none("apps/v1", "StatefulSet",
+                                           "gpu-nb", USER_NS))
+            tmpl = sts["spec"]["template"]["spec"]
+            if (tmpl["containers"][0]["resources"].get("limits"),
+                    tmpl.get("nodeSelector")) != want or \
+                    sts["spec"]["replicas"] != 1:
+                fail(f"user path: the StatefulSet's pod template {tmpl}")
+            with urllib.request.urlopen(urllib.request.Request(
+                    base, headers={"kubeflow-userid": USER}),
+                    timeout=60) as resp:
+                rows = json.loads(resp.read())["notebooks"]
+            if [r["name"] for r in rows] != ["gpu-nb"]:
+                fail(f"user path: the JWA lists {rows}")
+            notebook_s = time.perf_counter() - t2
+            for key in ("profile", "notebook"):
+                ctls.pop(key).stop()
+
+            # (3) the StudyJob: two trials on the card
+            submitted = time.perf_counter()
+            client.create(study)
+            trials = [f"{name}-trial-{i}" for i in range(2)]
+            pods = [worker_name(t, 0) for t in trials]
+            wait("trial pods", lambda s: all(p in added for p in pods))
+            for p in pods:
+                spec, c = added[p]["spec"], added[p]["spec"]["containers"][0]
+                held = (spec.get("schedulingGates") == [{"name": GATE_GANG}]
+                        and not spec.get("nodeName")
+                        and c["resources"]["limits"] == {JT.RESOURCE_GPU: 1}
+                        and spec["nodeSelector"] == {
+                            JT.NODESELECTOR_ACCEL: product,
+                            JT.NODESELECTOR_POOL: "card"}
+                        and c["command"][:3] == list(JT.DEFAULT_COMMAND))
+                if not held:
+                    fail(f"user path: trial pod {p} before admission: "
+                         f"{json.dumps(spec)[:1500]}")
+            wait("both trials bound", lambda s: all(p in bound for p in pods))
+            bound_s = max(bound[p] for p in pods) - submitted
+            wait("both trials launched", lambda s: all(
+                p in kubelet.launched for p in pods))
+            for p in pods:
+                spec = kubelet.launched[p]["pod"]["spec"]
+                if spec.get("nodeName") != "gpu-node-0" or \
+                        spec.get("schedulingGates"):
+                    fail(f"user path: {p} launched unbound or gated")
+            got = wait("the study's end", lambda s: s is not None and (
+                ob.cond_is_true(s, S.COND_SUCCEEDED)
+                or ob.cond_is_true(s, S.COND_FAILED)) and s)
+            t_done = time.time()
+            if not ob.cond_is_true(got, S.COND_SUCCEEDED):
+                for e in kubelet.logs:
+                    print(f"--- {e['name']} rc {e.get('rc')}\n"
+                          + Path(e["path"]).read_text(
+                              errors="replace")[-3000:], flush=True)
+                fail(f"user path: the study did not succeed: {seq}")
+            if [x.split("=")[0] for x in seq[:1]] != ["Running"] or \
+                    "Running=True(TrialsRunning)" not in seq:
+                fail(f"user path: the study's conditions {seq}: want "
+                     "Running before Succeeded")
+            runs, launches = {}, {}
+            for t, p in zip(trials, pods):
+                entry = [e for e in kubelet.logs if e["name"] == p]
+                out = trial_log(t)
+                summary = summary_of(out) if out else None
+                loss = (summary or {}).get("final", {}).get("loss")
+                first = re.search(r"^(\S+ \S+) .*first step \(incl\. "
+                                  r"kernel build\)", out or "", re.M)
+                if len(entry) != 1 or entry[0].get("rc") != 0 or \
+                        loss is None or not math.isfinite(loss) or \
+                        first is None:
+                    print((out or "")[-6000:], flush=True)
+                    fail(f"user path: trial {t} exit "
+                         f"{[e.get('rc') for e in entry]}, final loss "
+                         f"{loss}: want one run, exit 0 on the card and a "
+                         "finite loss")
+                # the flash kernels launch on the card alone: a trial on
+                # the CPU launches none and fails this count
+                run = {"launches": _logged_launches(out)[0]}
+                launches[f"study_trial{t.rsplit('-', 1)[1]}"] = \
+                    _world_launches(run, STUDY_STEPS, f"user path trial {t}")
+                runs[t] = {"loss": loss, "started": entry[0]["started"],
+                           "first": datetime.datetime.strptime(
+                               first.group(1),
+                               "%Y-%m-%d %H:%M:%S,%f").timestamp(),
+                           "step_ms": 1e3 * summary["step_time_s"]}
+                job = cluster.get(JT.API_VERSION, JT.KIND, t, USER_NS)
+                if ob.annotations_of(job).get(S.ANNO_OBJECTIVE) != str(loss):
+                    fail(f"user path: {t}'s objective annotation "
+                         f"{ob.annotations_of(job).get(S.ANNO_OBJECTIVE)}, "
+                         f"its summary's loss {loss}")
+            best = got["status"].get("bestTrial") or {}
+            low = min(r["loss"] for r in runs.values())
+            if best.get("objective") != low or \
+                    runs.get(best.get("trial"), {}).get("loss") != low:
+                fail(f"user path: bestTrial {best}, trial losses "
+                     f"{ {t: r['loss'] for t, r in runs.items()} }")
+            # the deletion cascades to the trials and their pods
+            client.delete(S.API_VERSION, S.KIND, name, USER_NS)
+            wait("the trials' deletion", lambda s: not cluster.list(
+                JT.API_VERSION, JT.KIND, namespace=USER_NS) and not
+                cluster.list("v1", "Pod", namespace=USER_NS))
+        finally:
+            for ctl in ctls.values():
+                ctl.stop()
+            kubelet.shutdown()
+            if jwa is not None:
+                jwa.shutdown()
+            pod_watch.stop()
+            apiserver.shutdown()
+    launch0 = min(r["started"] for r in runs.values())
+    print(f"user path ({card}): profile {USER_NS} with "
+          f"{PT.QUOTA_GPU}: {USER_GPU_QUOTA} in {profile_s:.2f} s; notebook "
+          f"gpu-nb (nvidia.com/gpu: 1, {product}) through the JWA over HTTP "
+          f"to its StatefulSet in {notebook_s:.2f} s; study {name} "
+          f"conditions {' -> '.join(seq)}; submit to the trials bound "
+          f"{bound_s:.2f} s; launch to first step "
+          f"{ {t: round(r['first'] - r['started'], 2) for t, r in runs.items()} }"
+          f" s; launch to the study's Succeeded {t_done - launch0:.1f} s; "
+          f"step ms { {t: round(r['step_ms'], 1) for t, r in runs.items()} }; "
+          f"final losses { {t: r['loss'] for t, r in runs.items()} }, best "
+          f"{best['trial']}, each objective annotated from its summary "
+          f"line; the deletion took the trials; "
+          f"{time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def beside(main: tuple, other: tuple) -> dict:
+    """Run `other` (a function and its arguments) on a thread while
+    `main` runs here; print each one's seconds and return both results
+    merged. A failure of either fails the script, `other`'s only after it
+    ended (so no process of it outlives the check that follows)."""
+    import concurrent.futures as cf
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"{fn.__name__}: {time.perf_counter() - t:.1f} s (beside "
+              "another phase)", flush=True)
+        return out
+
+    with cf.ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(timed, *other)
+        try:
+            out = timed(*main)
+        finally:
+            got = fut.result()
+    return {**out, **got}
+
+
+class Lane:
+    """One phase on a thread beside the phases the script runs meanwhile
+    (`with Lane(phase_s, name, fn, *args) as lane:`); its seconds go into
+    `phase_s`, its result into `lane.result`. While a lane is open it is
+    `Lane.current`, and the script's phases skip the straggler check
+    (the lane's processes are alive); the block's end waits for the
+    lane's phase (whose own `finally`s reap its processes), raises its
+    failure and checks for stragglers. A failure of the lane fails the
+    script before the script's next phase starts (`raise_if_failed`)."""
+
+    current: "Lane | None" = None
+
+    def __init__(self, phase_s: dict, name: str, fn, *args):
+        self.phase_s, self.name, self.call = phase_s, name, (fn, *args)
+        self.result = None
+        self.failure: BaseException | None = None
+        self.thread = threading.Thread(target=self._run, name="lane")
+
+    def _run(self) -> None:
+        fn, *args = self.call
+        t = time.perf_counter()
+        try:
+            self.result = fn(*args)
+        except BaseException as e:      # fail() raises SystemExit
+            self.failure = e
+            return
+        self.phase_s[self.name] = round(time.perf_counter() - t, 1)
+        print(f"phase {self.name}: {self.phase_s[self.name]} s (on a lane "
+              "beside the script's phases)", flush=True)
+
+    def raise_if_failed(self) -> None:
+        if self.failure is not None:
+            raise self.failure
+
+    def __enter__(self) -> "Lane":
+        Lane.current = self
+        self.thread.start()
+        return self
+
+    def __exit__(self, kind, err, tb) -> None:
+        self.thread.join()
+        Lane.current = None
+        if err is None:
+            self.raise_if_failed()
+            check_no_stragglers(f"{self.name} and the phases beside it")
+
+
 def earlier_phases_worker(argv: list[str]) -> int:
     """`--earlier-phases TREE`: the pinned training step, the pinned
     serving point and MoE serving as the checkout at TREE (this one or
@@ -5318,14 +5860,26 @@ def main() -> int:
     phase_s = {}
 
     def timed_phase(name, fn, *args, **kwargs):
+        lane = Lane.current
+        if lane is not None:
+            lane.raise_if_failed()
         t = time.perf_counter()
         out = fn(*args, **kwargs)
         phase_s[name] = round(time.perf_counter() - t, 1)
-        print(f"phase {name}: {phase_s[name]} s", flush=True)
-        check_no_stragglers(name)
+        print(f"phase {name}: {phase_s[name]} s"
+              + (f" (beside {lane.name}, on a lane)" if lane else ""),
+              flush=True)
+        if lane is None:
+            check_no_stragglers(name)
         gc.collect()
         torch.cuda.empty_cache()
         return out
+
+    def fresh(name: str) -> Path:
+        root = _build.build_dir() / name
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        return root
 
     rows = timed_phase("kernels", kernel_phase, fa, ptxas)
     timed_phase("head", head_check)
@@ -5340,38 +5894,61 @@ def main() -> int:
     timed_phase("grad accumulation", grad_accum_check, fa)
     for tag, cfg in (("pinned", MAIN_PATH), ("adamw", ADAMW_PATH)):
         timed_phase(f"profile {tag}", profile_phase, cfg, tag, steps=2)
-    # the training runtime: subprocess launches (their counts come from
-    # each launcher's log), then serving from the resumed checkpoint
-    resume_root = _build.build_dir() / "chip_smoke_resume"
-    shutil.rmtree(resume_root, ignore_errors=True)
-    resume_root.mkdir(parents=True)
+    # The training runtime's subprocess launches (their counts come from
+    # each launcher's log) on a lane, beside the LM over a serving mesh,
+    # the control plane's services path (the scheduler process, the
+    # JAXService controller, two replica servers and the router), then
+    # the MoE checks, long-context dispatch and the router; the lane's
+    # in-process part reaches no flash kernel, so this process's counts
+    # over each of these are that path's. Then
+    # serving from the resumed checkpoint, alone: its bf16 witness reads
+    # the admission order of four concurrent requests.
+    roots = [fresh(n) for n in ("chip_smoke_resume", "chip_smoke_mesh",
+                                "chip_smoke_services")]
+    resume_root, mesh_root, svc_root = roots
     try:
-        resumed = timed_phase("resume", resume_phase, card,
-                              step_s["pinned"], resume_root)
+        with Lane(phase_s, "resume", resume_phase, card, step_s["pinned"],
+                  resume_root) as lane:
+            lm = timed_phase("mesh serving", mesh_serving_phase, mesh_root)
+            fa.reset_launches()
+            timed_phase("services path", services_phase, svc_root, card)
+            launches["services"] = dict(fa.LAUNCHES)
+            # checks whose times nothing reads, while phase 15 runs on
+            timed_phase("moe block", moe_block_phase)
+            timed_phase("moe card vs cpu", moe_card_vs_cpu_phase)
+            fa.reset_launches()
+            timed_phase("moe serving", moe_serving_phase)
+            launches["moe_serving"] = dict(fa.LAUNCHES)
+            launches.update(timed_phase("long context", longctx_phase, fa,
+                                        _build))
+            fa.reset_launches()
+            timed_phase("router", router_phase)
+            launches["router"] = dict(fa.LAUNCHES)
+        resumed = lane.result
         launches["resume"] = resumed["launches"]
         fa.reset_launches()
         timed_phase("serve from checkpoint", serve_checkpoint_phase,
                     resumed["checkpoint_dir"], resume_root)
         launches["serve_checkpoint"] = dict(fa.LAUNCHES)
     finally:
-        shutil.rmtree(resume_root, ignore_errors=True)
-    timed_phase("serving check", serving_check)
-    # the serving paths run no flash kernel (decode attends by bmm over
-    # the cache); their counts are read like every path's
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    # The serving points, alone: their tokens/s and tick profiles are
+    # measurements. The serving paths run no flash kernel (decode attends
+    # by bmm over the cache); their counts are read like every path's.
     fa.reset_launches()
+    # after a two-instance warm-up (not the reference's 31 requests: the
+    # script's time), as the rolling and speculative points
     _, plain_outs = timed_phase("pinned serving", serving_pinned, card,
-                                cache_bytes=DENSE_CACHE_BYTES)
+                                warm=False, cache_bytes=DENSE_CACHE_BYTES)
     launches["serving"] = dict(fa.LAUNCHES)
-    timed_phase("rolling check", rolling_check)
     fa.reset_launches()
-    # 16 requests (the pinned point's 32 halved) after a two-instance
-    # warm-up (not the pinned point's 31 requests): the script's time
+    # 16 requests (the pinned point's 32 halved): the script's time
     timed_phase("rolling pinned", serving_pinned, card, tag="rolling pinned",
                 requests=ROLLING_REQUESTS, warm=False,
                 cache_bytes=ROLLING_CACHE_BYTES,
                 attention_window=ROLLING_WINDOW, rolling_kv_cache=True)
     launches["rolling"] = dict(fa.LAUNCHES)
-    timed_phase("speculative check", speculative_check)
     fa.reset_launches()
     spec, spec_outs = timed_phase(
         "speculative pinned", serving_pinned, card, tag="speculative pinned",
@@ -5394,32 +5971,43 @@ def main() -> int:
     print("speculative pinned witness: " + timed_phase(
         "speculative witness", near_tie_witness, spec_outs,
         plain_outs[:SPEC_REQUESTS]), flush=True)
-    print("speculative pinned f32: " + timed_phase(
-        "speculative pinned f32", speculative_pinned_f32), flush=True)
-    fa.reset_launches()
-    timed_phase("router", router_phase)
-    launches["router"] = dict(fa.LAUNCHES)
-    for name in ("rolling", "speculative", "router", "serving",
-                 "serve_checkpoint"):
-        if any(launches[name].values()):
-            fail(f"the {name} path launched flash kernels "
-                 f"{launches[name]}: decode attends by bmm over the cache")
-    # the classification models: ResNet-50 through the launcher (its
-    # counts from the launcher's log line), against the CPU, behind the
-    # server, then ViT-B/16 and BERT-base; none reaches a flash kernel
-    cls_root = _build.build_dir() / "chip_smoke_classify"
-    shutil.rmtree(cls_root, ignore_errors=True)
-    cls_root.mkdir(parents=True)
+    # ResNet-50 through the launcher, alone (its images/s are a
+    # measurement; its counts from the launcher's log line). Then the
+    # checks whose times nothing reads here: the serving checks and
+    # ResNet-50 against the CPU and behind the server; on a lane
+    # beside them the classifiers on meshes (its one-process ViT serves
+    # in this process and reaches no flash kernel either)
+    roots = [fresh(n) for n in ("chip_smoke_classify",
+                                "chip_smoke_mesh_classify")]
+    cls_root, cls_mesh_root = roots
     try:
         launches["resnet50"] = timed_phase(
             "resnet50 launcher", resnet_launcher_phase, cls_root)["launches"]
-        fa.reset_launches()
-        timed_phase("resnet50 card vs cpu", resnet_card_vs_cpu_phase)
-        timed_phase("classifier server", classifier_server_phase,
-                    str(cls_root / "resnet50_ckpt"))
-        launches["classifier"] = dict(fa.LAUNCHES)
+        with Lane(phase_s, "mesh classifiers", mesh_classifier_phase,
+                  cls_mesh_root) as lane:
+            timed_phase("serving check", serving_check)
+            timed_phase("rolling check", rolling_check)
+            timed_phase("speculative check", speculative_check)
+            print("speculative pinned f32: " + timed_phase(
+                "speculative pinned f32", speculative_pinned_f32),
+                flush=True)
+            fa.reset_launches()
+            timed_phase("resnet50 card vs cpu", resnet_card_vs_cpu_phase)
+            timed_phase("classifier server", classifier_server_phase,
+                        str(cls_root / "resnet50_ckpt"))
+            launches["classifier"] = dict(fa.LAUNCHES)
+        vit = lane.result
+        launches["mesh_serving"] = {k: lm[k] + vit[k] for k in lm}
     finally:
-        shutil.rmtree(cls_root, ignore_errors=True)
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
+    for name in ("rolling", "speculative", "router", "serving",
+                 "serve_checkpoint", "services", "moe_serving"):
+        if any(launches[name].values()):
+            fail(f"the {name} path launched flash kernels in the script "
+                 f"{launches[name]}: decode attends by bmm over the cache")
+    # the classification models (ResNet-50 above), then ViT-B/16 and
+    # BERT-base; none reaches a flash kernel
     timed_phase("profile resnet50", profile_phase, resnet_yaml_config(),
                 "resnet50")
     for name in ENCODERS:
@@ -5429,54 +6017,41 @@ def main() -> int:
         if any(launches[name].values()):
             fail(f"the {name} path launched flash kernels {launches[name]}"
                  ": the reference's classifiers reach no Pallas kernel")
-    # the world on one card: launcher subprocesses (their counts from each
-    # rank's log), then NCCL at one rank
-    world_root = _build.build_dir() / "chip_smoke_world"
-    shutil.rmtree(world_root, ignore_errors=True)
-    world_root.mkdir(parents=True)
+    # The world on one card (launcher subprocesses, their counts from
+    # each rank's log); on a lane beside it the control plane's job path
+    # with phase 36's user path beside that (the port's controllers,
+    # scheduler and kubelet run the gang and the StudyJob's two trials,
+    # their counts from each rank's log; no check holds the times of
+    # either). Then NCCL at one rank.
+    roots = [fresh(n) for n in ("chip_smoke_world", "chip_smoke_job",
+                                "chip_smoke_user")]
+    world_root, job_root, user_root = roots
     try:
-        launches.update(timed_phase("world on one card", world_phase,
-                                    world_root))
+        with Lane(phase_s, "job and user paths", beside,
+                  (job_path_phase, job_root, card),
+                  (user_path_phase, user_root, card)) as lane:
+            launches.update(timed_phase("world on one card", world_phase,
+                                        world_root))
+        launches.update(lane.result)
     finally:
-        shutil.rmtree(world_root, ignore_errors=True)
+        for root in roots:
+            shutil.rmtree(root, ignore_errors=True)
     timed_phase("nccl", nccl_phase)
-    # mixture-of-experts, sequence and pipeline parallelism at one rank
+    # mixture-of-experts training at one rank (its checks ran above),
+    # then expert parallelism
     launches["moe_train"] = timed_phase("moe train", moe_train_phase, fa,
                                         _build)
     # one profiled step (the pinned config's three): the script's time
     timed_phase("profile moe", profile_phase, MOE_TRAIN, MOE_MODEL, steps=1)
-    timed_phase("moe block", moe_block_phase)
-    timed_phase("moe card vs cpu", moe_card_vs_cpu_phase)
-    fa.reset_launches()
-    timed_phase("moe serving", moe_serving_phase)
-    launches["moe_serving"] = dict(fa.LAUNCHES)
-    if any(launches["moe_serving"].values()):
-        fail(f"the moe serving path launched flash kernels "
-             f"{launches['moe_serving']}: decode attends by bmm")
-    launches.update(timed_phase("long context", longctx_phase, fa, _build))
-    ep_root = _build.build_dir() / "chip_smoke_expert"
-    shutil.rmtree(ep_root, ignore_errors=True)
-    ep_root.mkdir(parents=True)
+    ep_root = fresh("chip_smoke_expert")
     try:
         launches.update(timed_phase("expert 2 on one card",
                                     expert_world_phase, ep_root))
     finally:
         shutil.rmtree(ep_root, ignore_errors=True)
-    mesh_root = _build.build_dir() / "chip_smoke_mesh"
-    shutil.rmtree(mesh_root, ignore_errors=True)
-    mesh_root.mkdir(parents=True)
-    try:
-        lm = timed_phase("mesh serving", mesh_serving_phase, mesh_root)
-        vit = timed_phase("mesh classifiers", mesh_classifier_phase,
-                          mesh_root)
-        launches["mesh_serving"] = {k: lm[k] + vit[k] for k in lm}
-    finally:
-        shutil.rmtree(mesh_root, ignore_errors=True)
     # the seq axis with local attention (and the owed Ulysses check), then
     # whole-forward remat for the classifiers
-    seq_root = _build.build_dir() / "chip_smoke_seq"
-    shutil.rmtree(seq_root, ignore_errors=True)
-    seq_root.mkdir(parents=True)
+    seq_root = fresh("chip_smoke_seq")
     try:
         launches.update(timed_phase("seq on one card", seq_world_phase,
                                     seq_root))
@@ -5485,31 +6060,6 @@ def main() -> int:
     fa.reset_launches()
     timed_phase("classifier remat", classifier_remat_phase)
     launches["classifier_remat"] = dict(fa.LAUNCHES)
-    # the control plane's job path: the port's controller, scheduler and
-    # kubelet run the gang (their counts from each rank's log)
-    job_root = _build.build_dir() / "chip_smoke_job"
-    shutil.rmtree(job_root, ignore_errors=True)
-    job_root.mkdir(parents=True)
-    try:
-        launches.update(timed_phase("job path", job_path_phase, job_root,
-                                    card))
-    finally:
-        shutil.rmtree(job_root, ignore_errors=True)
-    # the control plane's services path: the scheduler process, the
-    # JAXService controller, two replica servers and the router
-    svc_root = _build.build_dir() / "chip_smoke_services"
-    shutil.rmtree(svc_root, ignore_errors=True)
-    svc_root.mkdir(parents=True)
-    fa.reset_launches()
-    try:
-        timed_phase("services path", services_phase, svc_root, card)
-    finally:
-        shutil.rmtree(svc_root, ignore_errors=True)
-    # this process's count (the replicas' processes keep their own)
-    launches["services"] = dict(fa.LAUNCHES)
-    if any(launches["services"].values()):
-        fail(f"the services path launched flash kernels in the script "
-             f"{launches['services']}: decode attends by bmm")
     # the launches of each instantiation that a path runs, counted by
     # instantiation: the bf16 head_dim 64 ones on the pinned main path, the
     # f32 head_dim 64 SIMT ones on phase 32's f32 rank 0, the bf16 head_dim

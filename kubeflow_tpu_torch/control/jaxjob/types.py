@@ -120,6 +120,9 @@ DEFAULT_COMMAND = ("python", "-m", "kubeflow_tpu_torch.runtime.launcher")
 # The JAXService replicas' default image (the JAX package's
 # kubeflow-tpu/platform:latest); their command is the port's server
 SERVING_IMAGE = "kubeflow-tpu-torch/platform:latest"
+# The Notebook servers' default image (the JAX package's
+# kubeflow-tpu/jax-notebook images): Jupyter over the port and CUDA
+NOTEBOOK_IMAGE = "kubeflow-tpu-torch/torch-notebook:latest"
 
 DEFAULT_COORDINATOR_PORT = 8476
 RESTART_GANG = "GangOnFailure"

@@ -78,6 +78,7 @@ _KINDS: dict[str, tuple[str, bool]] = {
     "Lease": ("leases", False),
     "VirtualService": ("virtualservices", False),
     "Gateway": ("gateways", False),
+    "AuthorizationPolicy": ("authorizationpolicies", False),
     # kubeflow_tpu CRDs (the port keeps their kinds and plurals)
     "JAXJob": ("jaxjobs", False),
     "JAXService": ("jaxservices", False),

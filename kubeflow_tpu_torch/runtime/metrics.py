@@ -157,12 +157,30 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._metrics: dict[str, tuple[str, str, dict[tuple, object]]] = {}
+        self._collectors: list = []
 
     def _set(self, kind: str, name: str, help_: str, value: float, labels: dict | None):
         key = tuple(sorted((labels or {}).items()))
         with self._lock:
             _, _, series = self._metrics.setdefault(name, (kind, help_, {}))
             series[key] = value
+
+    def add_collector(self, fn) -> None:
+        """Run ``fn(registry)`` at every render(), before the exposition
+        is built (prometheus_client's custom collectors): a gauge read
+        from live state at scrape time, written with set_series."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def set_series(self, name: str, kind: str, help_: str,
+                   samples: list[tuple[dict, float]]) -> None:
+        """Replace every sample of one metric: a label set absent from
+        ``samples`` is gone from the exposition, as a collector's family
+        holds only what it yielded."""
+        with self._lock:
+            self._metrics[name] = (kind, help_, {
+                tuple(sorted(labels.items())): float(value)
+                for labels, value in samples})
 
     def gauge(self, name: str, value: float, help_: str = "", **labels) -> None:
         self._set("gauge", name, help_, value, labels)
@@ -224,6 +242,10 @@ class MetricsRegistry:
                     if not isinstance(value, _Histogram)]
 
     def render(self) -> str:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            fn(self)
         out = []
         with self._lock:
             for name, (kind, help_, series) in sorted(self._metrics.items()):

@@ -30,6 +30,8 @@ class HttpReq:
     query: dict[str, list[str]]
     headers: dict[str, str]
     body: bytes = b""
+    # set by an auth middleware (the identity a trusted proxy asserted)
+    user: str | None = None
 
     def json(self) -> Any:
         return json.loads(self.body or b"null")
