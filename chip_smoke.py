@@ -397,14 +397,40 @@
    It runs on a thread beside phase 34, whose times no check holds
    (`beside`: the script's time); its own seconds, and phase 34's,
    are printed.
+37. The platform's deploy path: `tpctl`'s Coordinator applies a TpuDef
+   with platform gke-gpu (the card's product in GKE's spelling, a pool
+   of its one GPU) through `GkeGpuPlatform`, whose runner is a stateful
+   gcloud double (the card's machine has no gcloud): one create of
+   a3-highgpu-8g with `--accelerator=type=<product>,count=8`, one node,
+   the product and node-pool labels; a second apply creates nothing and
+   writes no object; TpuDefAvailable; every rendered object stored;
+   every rendered `python -m kubeflow_tpu_torch....` of a ported
+   component found, those of the five not yet ported absent. The node
+   added for the card carries the create's labels. The PodDefault
+   webhook's own `serve()` (plain HTTP: TLS is held on the CPU, and
+   nothing here imports `utils/tlscerts`) answers the cluster's
+   admission hook, which applies its JSONPatch; a PodDefault injects
+   KFTPU_TRACE_FILE under a Tensorboard's logspath into the pods of a
+   JAXJob of 1 replica of 1 GPU whose default command (the port's
+   launcher) trains phase 36's config (gpt-125m at full width and depth,
+   seq 1024, batch 16, bf16, flash, full remat, adamw, 3 steps) with a
+   profiler window over steps [1, 3) under the logspath. Holds the bound
+   pod's GPU claim, selectors, injected env and annotation, Succeeded,
+   the span dump at the injected path (3 train.step spans), 72 / 36 / 36
+   launches, a Tensorboard's Deployment with `--logdir` that logspath
+   and the trace under it holding 48 / 24 / 24 flash kernel events (the
+   launches of its two steps); then the job, the Tensorboard and the
+   deployment are deleted (the double's pool gone) and every process
+   reaped (`deploy_path_phase`). It runs on a lane beside phase 31.
 The order, for the script's time (a `Lane` runs phases on a thread
 beside the script's own; no check holds the times of a phase that
 shares the card, and each pair fits the card's 80 GB at its measured
 peaks): phases 1-8 and 11 alone; phase 15 on a lane beside phases 30
 and 35, then 24-27 and 14 (checks whose times nothing reads), then
 phase 16 alone; the serving points (10, 12b, 13b and its witness)
-alone; phase 17 alone; phase 31 on a lane beside the checks 9, 12a,
-13a, 13c, 18 and 19; the ResNet-50 profile and phase 20
+alone; phase 17 alone; phase 31 with phase 37 beside it on a lane
+beside the checks 9, 12a, 13a, 13c, 18 and 19; the ResNet-50 profile
+and phase 20
 alone; phase 21 beside a lane of phase 34 with phase 36 beside it; then
 phases 22, 23, 28, 29, 32 and 33 alone, in that order (phase 29's and
 32's worlds each fill the card).
@@ -445,8 +471,9 @@ phase 31's training worlds are held at none too), `seq_f32_rank0/1`,
 `uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks),
 `classifier_remat` (none), `job_rank0/1` (phase 34's ranks, both
 incarnations), `services` (phase 35, this process: none; the
-replicas decode by bmm in processes of their own) and
-`study_trial0/1` (phase 36's trials); the bf16 flash forward's row also holds its
+replicas decode by bmm in processes of their own),
+`study_trial0/1` (phase 36's trials) and `deploy_trial` (phase 37's
+trial); the bf16 flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
 `{"ok": true, "device": {...}}`. Needs one CUDA GPU, `nvcc`, `g++` and
 no network.
@@ -5703,6 +5730,457 @@ def user_path_phase(root, card: str) -> dict:
     return launches
 
 
+# -- phase 37: the platform's deploy path --------------------------------------
+
+DEPLOY_NAME = "kubeflow"           # the TpuDef; its node pool is kubeflow-gpu
+DEPLOY_NS = "default"              # the job's, the PodDefault's, the board's
+DEPLOY_JOB = "train"
+DEPLOY_TIMEOUT = 300               # seconds any one wait of the phase may take
+DEPLOY_PROFILE = (1, 2)            # the trial's profiler window: steps [1, 3)
+
+
+class GcloudDouble:
+    """gcloud's `container node-pools` describe, create and delete as an
+    in-process runner for `GkeGpuPlatform` (the card's machine has no
+    gcloud): stateful as tests/test_torch_tpctl_gcloud.py's double,
+    describing a pool's machine, accelerators, labels and node count
+    from its create flags; every argv kept in `calls`."""
+
+    def __init__(self):
+        self.pools: dict[str, dict] = {}
+        self.calls: list[list[str]] = []
+
+    @staticmethod
+    def labels(flags: dict) -> dict[str, str]:
+        return dict(kv.split("=", 1) for kv in
+                    flags.get("--node-labels", "").split(",") if kv)
+
+    def __call__(self, cmd, check=False, capture_output=True, text=True):
+        self.calls.append(list(cmd))
+
+        def done(rc: int, out: str = "", err: str = ""):
+            return subprocess.CompletedProcess(cmd, rc, out, err)
+
+        flags = dict(a.split("=", 1) if "=" in a else (a, True)
+                     for a in cmd[5:])
+        if cmd[:3] != ["gcloud", "container", "node-pools"] or any(
+                f not in flags for f in ("--project", "--zone", "--cluster")):
+            return done(2, err=f"unsupported: {' '.join(cmd)}")
+        verb, name = cmd[3], cmd[4]
+        if verb == "describe":
+            if name not in self.pools:
+                return done(1, err=f"ERROR: Not found: nodePools/{name}")
+            f = self.pools[name]
+            acc = dict(kv.split("=", 1) for kv in f["--accelerator"].split(","))
+            return done(0, json.dumps({
+                "name": name, "initialNodeCount": int(f["--num-nodes"]),
+                "config": {"machineType": f["--machine-type"],
+                           "labels": self.labels(f),
+                           "accelerators": [{
+                               "acceleratorType": acc["type"],
+                               "acceleratorCount": acc["count"]}]}}))
+        if verb == "create":
+            if name in self.pools:
+                return done(1, err=f"ERROR: Already exists: {name}")
+            self.pools[name] = flags
+            return done(0)
+        if verb == "delete" and flags.get("--quiet") is True:
+            if name not in self.pools:
+                return done(1, err=f"ERROR: Not found: nodePools/{name}")
+            del self.pools[name]
+            return done(0)
+        return done(2, err=f"unsupported: {' '.join(cmd)}")
+
+
+class _PodDefaultInformer:
+    """The webhook's client: the cluster's PodDefaults from a watch,
+    drained at each lookup. A pod's admission holds the cluster's lock
+    while it waits for the webhook's answer (as an apiserver waits on its
+    webhooks), so the webhook reads a watch-fed view, as a webhook reads
+    its informer cache, never the store."""
+
+    def __init__(self, cluster):
+        from kubeflow_tpu_torch.control.poddefault import webhook as PW
+
+        self._watch = cluster.watch(PW.API_VERSION, PW.KIND)
+        self._objs: dict[tuple, dict] = {}
+
+    def list(self, api_version: str, kind: str, namespace=None, **kw):
+        while (ev := self._watch.poll()) is not None:
+            m = ev.object["metadata"]
+            key = (m.get("namespace"), m["name"])
+            if ev.type == "DELETED":
+                self._objs.pop(key, None)
+            else:
+                self._objs[key] = ev.object
+        return [o for (ns, _), o in sorted(self._objs.items())
+                if namespace in (None, ns)]
+
+    def stop(self) -> None:
+        self._watch.stop()
+
+
+def deploy_config(logspath: Path) -> dict:
+    """The trial's launcher config: phase 36's (examples/gpt-125m.yaml's
+    model at full width and depth, seq 1024, global batch 16, bf16,
+    flash, full remat, STUDY_STEPS steps, one process) with adamw and a
+    profiler window over DEPLOY_PROFILE, its Chrome trace under the
+    Tensorboard's logspath where TensorBoard's profile plugin looks."""
+    cfg = study_config("adamw")
+    cfg.update(profile_dir=str(logspath / "plugins" / "profile" / DEPLOY_JOB),
+               profile_start_step=DEPLOY_PROFILE[0],
+               profile_steps=DEPLOY_PROFILE[1])
+    return cfg
+
+
+def _trace_kernel_events(path: Path) -> dict:
+    """Each flash kernel's events in a Chrome trace (a seam: a rehearsal
+    off the card, where no kernel runs, replaces it)."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    events = json.loads(path.read_text())["traceEvents"]
+    return {n: sum(1 for e in events if e.get("cat") == "kernel"
+                   and f"{n}_kernel" in e.get("name", ""))
+            for n in fa.SM90}
+
+
+def _deploy_apply(cluster, card_product: str) -> dict:
+    """Phase 37 (1): the TpuDef through `Coordinator.apply` twice, its
+    holds; returns what the later steps need."""
+    import importlib.util
+
+    from kubeflow_tpu_torch.control.jaxjob import types as JT
+    from kubeflow_tpu_torch.control.k8s import objects as ob
+    from kubeflow_tpu_torch.runtime.metrics import MetricsRegistry
+    from kubeflow_tpu_torch.tpctl import manifests
+    from kubeflow_tpu_torch.tpctl.apply import Coordinator, GkeGpuPlatform
+    from kubeflow_tpu_torch.tpctl.tpudef import COND_AVAILABLE, TpuDef
+
+    gcloud = GcloudDouble()
+    provider = GkeGpuPlatform(runner=gcloud)
+    coord = Coordinator(cluster, provider=provider,
+                        registry=MetricsRegistry())
+    cfg = TpuDef(name=DEPLOY_NAME, platform="gke-gpu", project="card",
+                 zone="local", accelerator=card_product, gpus=1)
+    pool = provider.pool_name(cfg)
+    t = time.perf_counter()
+    stored = coord.apply(cfg)
+    available_s = time.perf_counter() - t
+    machine, per_node = provider.MACHINE_TYPES[card_product]
+    want = {"--project": "card", "--zone": "local", "--cluster": DEPLOY_NAME,
+            "--machine-type": machine,
+            "--accelerator": f"type={card_product},count={per_node}",
+            "--num-nodes": "1",
+            "--node-labels": f"{JT.NODESELECTOR_ACCEL}={card_product},"
+                             f"{JT.NODESELECTOR_POOL}={pool}"}
+    creates = [c for c in gcloud.calls if c[3] == "create"]
+    if len(creates) != 1 or gcloud.pools.get(pool) != want:
+        fail(f"deploy path: create commands {creates}, want one for pool "
+             f"{pool} with {want}")
+    if not ob.cond_is_true(stored, COND_AVAILABLE):
+        fail(f"deploy path: TpuDef status {stored.get('status')}")
+    rendered = manifests.render(cfg)
+
+    def stored_objects() -> dict:
+        return {(o["kind"], o["metadata"]["name"]):
+                o["metadata"]["resourceVersion"] for o in cluster.dump()
+                if o["kind"] != "TpuDef"}
+
+    before = stored_objects()
+    if set(before) != {(o["kind"], o["metadata"]["name"]) for o in rendered}:
+        fail(f"deploy path: stored {sorted(before)}, rendered "
+             f"{sorted((o['kind'], o['metadata']['name']) for o in rendered)}")
+    again = coord.apply(cfg)
+    if [c[3] for c in gcloud.calls].count("create") != 1 or \
+            not ob.cond_is_true(again, COND_AVAILABLE) or \
+            stored_objects() != before:
+        fail("deploy path: the second apply created a pool or wrote an "
+             "object")
+    launched = manifests.launched_modules(rendered)
+    unported = {manifests.MODULES[n] for n in manifests.UNPORTED}
+    wrong = {m: found for m in launched
+             if (found := importlib.util.find_spec(m) is not None)
+             == (m in unported)}
+    if wrong:
+        fail(f"deploy path: modules against their port status (True: found "
+             f"though listed unported): {wrong}")
+    return {"coord": coord, "cfg": cfg, "gcloud": gcloud, "pool": pool,
+            "rendered": rendered, "available_s": available_s,
+            "machine": f"{machine}, {card_product} x {per_node} a node",
+            "modules": (len(launched) - len(unported), len(unported))}
+
+
+def deploy_path_phase(root, card: str) -> dict:
+    """Phase 37: the platform's deploy path on the port's FakeCluster, in
+    this process, its one launcher through `Spawned`. (1) Deploy
+    (`_deploy_apply`): `Coordinator.apply` of a TpuDef with platform
+    gke-gpu, the card's product in GKE's spelling and a pool of its one
+    GPU, the provider's runner a GcloudDouble: one create command with
+    the machine type, accelerator, node count and labels; a second apply
+    creates nothing and writes no object; TpuDefAvailable True; every
+    rendered object stored; every rendered `python -m
+    kubeflow_tpu_torch....` of a ported component resolves (`find_spec`)
+    and those of the unported ones (`manifests.UNPORTED`) do not. The
+    node the phase then adds for the card carries the labels the create
+    command set. (2) Admit: the PodDefault webhook's own `serve()` on
+    127.0.0.1 (plain HTTP: TLS is held on the CPU, and nothing here
+    imports `utils/tlscerts`) behind a cluster admission hook that
+    posts each pod's AdmissionReview and applies the JSONPatch it
+    answers; a PodDefault selecting the job's pods injects
+    KFTPU_TRACE_FILE under the Tensorboard's logspath. (3) Train: a
+    JAXJob of 1 replica of 1 GPU, the default command (the port's
+    launcher) on `deploy_config`, run by the JAXJob controller, the gang
+    scheduler and the LocalPodExecutor: the bound pod claims
+    nvidia.com/gpu: 1 with the product and node-pool selectors and
+    carries the PodDefault's env and annotation; the job ends Succeeded;
+    the span dump is at the injected path with one train.step span a
+    step; the launcher logs phase 36's count of each flash kernel. (4)
+    Inspect: a Tensorboard CR on that logspath; its controller renders a
+    Deployment of TENSORBOARD_IMAGE whose --logdir is the logspath; the
+    one Chrome trace under it holds each flash kernel's events for the
+    profiled steps' launches. (5) Reap: the job and the Tensorboard (their
+    children go with them), then `Coordinator.delete` (the double's pool
+    gone, every rendered object and the TpuDef with it); every process
+    reaped. Prints the seconds from apply to Available, launch to first
+    step, the step time and the phase's seconds; returns the trial's
+    launches."""
+    import base64
+    import datetime
+    import os
+    import urllib.request
+
+    import torch
+
+    from kubeflow_tpu_torch.control.jaxjob import types as JT
+    from kubeflow_tpu_torch.control.jaxjob.controller import (
+        build_controller as build_jobs, worker_name)
+    from kubeflow_tpu_torch.control.k8s import objects as ob
+    from kubeflow_tpu_torch.control.k8s.fake import FakeCluster
+    from kubeflow_tpu_torch.control.poddefault import webhook as PW
+    from kubeflow_tpu_torch.control.runtime import seed_controller
+    from kubeflow_tpu_torch.control.scheduler.nodes import new_gpu_node
+    from kubeflow_tpu_torch.control.scheduler.scheduler import build_scheduler
+    from kubeflow_tpu_torch.control.tensorboard import controller as TB
+    from kubeflow_tpu_torch.obs import trace as obs_trace
+
+    t_phase = time.perf_counter()
+    product = gke_product(torch.cuda.get_device_name(0))
+    cluster = FakeCluster()
+
+    # (1) deploy: the pool through the double, the manifests, Available
+    dep = _deploy_apply(cluster, product)
+    pool, gcloud = dep["pool"], dep["gcloud"]
+    labels = GcloudDouble.labels(gcloud.pools[pool])
+    node = cluster.create(new_gpu_node("gpu-node-0", product=product,
+                                       node_pool=pool, gpus=1, labels=labels))
+    if {k: ob.labels_of(node).get(k) for k in labels} != labels:
+        fail(f"deploy path: node labels {ob.labels_of(node)}, the create "
+             f"set {labels}")
+
+    # (2) admit: the webhook over HTTP as the cluster's admission hook
+    root = Path(root)
+    logspath = root / "logs"          # the board's volume: it exists
+    logspath.mkdir()
+    trace_file = logspath / f"{DEPLOY_JOB}.spans.jsonl"
+    cfg_path = root / "train.json"
+    cfg_path.write_text(json.dumps(deploy_config(logspath)))
+    informer = _PodDefaultInformer(cluster)
+    webhook = PW.PodDefaultMutator(informer).serve(
+        host="127.0.0.1", port=0).serve_background()
+    admitted: list[str] = []
+
+    def admit(verb: str, obj: dict) -> dict:
+        if verb != "CREATE" or obj.get("kind") != "Pod":
+            return obj
+        review = {"apiVersion": "admission.k8s.io/v1",
+                  "kind": "AdmissionReview",
+                  "request": {"uid": obj["metadata"]["name"],
+                              "namespace": obj["metadata"].get(
+                                  "namespace", DEPLOY_NS),
+                              "object": obj}}
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{webhook.port}/apply-poddefault",
+            data=json.dumps(review).encode(), method="POST",
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            answer = json.loads(resp.read())["response"]
+        if not answer.get("allowed"):
+            raise ob.Invalid(f"admission refused {obj['metadata']['name']}")
+        if answer.get("patch"):
+            obj = ob.json_patch(obj, json.loads(base64.b64decode(
+                answer["patch"])))
+        admitted.append(obj["metadata"]["name"])
+        return obj
+
+    cluster.add_admission_hook(admit)
+    cluster.create(PW.new_poddefault(
+        "trace-to-logs", DEPLOY_NS,
+        selector={"matchLabels": {JT.LABEL_JOB_NAME: DEPLOY_JOB}},
+        desc="span dumps under the Tensorboard's logspath",
+        env=[{"name": "KFTPU_TRACE_FILE", "value": str(trace_file)}]))
+
+    # (3) train: the JAXJob through the controller, scheduler and kubelet
+    ctls = (seed_controller(build_jobs(cluster)),
+            seed_controller(build_scheduler(cluster, record_events=False)),
+            seed_controller(TB.build_controller(cluster)))
+
+    def env_hook(pod, env):
+        env.update(JAXRT_METRICS_PORT="0",
+                   OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
+        return env
+
+    job = JT.new_jaxjob(DEPLOY_JOB, DEPLOY_NS, replicas=1, product=product,
+                        node_pool=pool, gpus_per_worker=1, gang_schedule=True)
+    job["spec"]["template"]["spec"]["containers"][0]["args"] = [
+        "--config", str(cfg_path)]
+    pod_name = worker_name(DEPLOY_JOB, 0)
+    seq: list[str] = []
+    state: dict[str, str] = {}
+    with Spawned() as spawned:
+        kubelet = _services_kubelet(cluster, spawned, root, env_hook=env_hook)
+        try:
+            def pump():
+                for ctl in ctls:
+                    ctl.run_until_idle(advance_delayed=True)
+                kubelet.poll_once()
+                got = cluster.get_or_none(JT.API_VERSION, JT.KIND,
+                                          DEPLOY_JOB, DEPLOY_NS)
+                for kind, now in _conditions(got or {}).items():
+                    if state.get(kind) != now:
+                        state[kind] = now
+                        seq.append(f"{kind}={now}")
+                return got
+
+            def wait(what: str, cond):
+                deadline = time.monotonic() + DEPLOY_TIMEOUT
+                while not (out := cond(pump())):
+                    if time.monotonic() > deadline:
+                        for e in kubelet.logs:
+                            print(f"--- {e['name']} rc {e.get('rc')}\n"
+                                  + Path(e["path"]).read_text(
+                                      errors="replace")[-4000:], flush=True)
+                        fail(f"deploy path: no {what} within "
+                             f"{DEPLOY_TIMEOUT} s; job conditions {seq}")
+                    time.sleep(0.1)
+                return out
+
+            def bound(_):
+                p = cluster.get_or_none("v1", "Pod", pod_name, DEPLOY_NS)
+                return p if p and p["spec"].get("nodeName") and not \
+                    p["spec"].get("schedulingGates") else None
+
+            cluster.create(job)
+            pod = wait("bound pod", bound)
+            c0 = pod["spec"]["containers"][0]
+            env = {e["name"]: e.get("value") for e in c0.get("env") or []}
+            if not (c0["resources"]["limits"] == {JT.RESOURCE_GPU: 1}
+                    and pod["spec"]["nodeSelector"] == {
+                        JT.NODESELECTOR_ACCEL: product,
+                        JT.NODESELECTOR_POOL: pool}
+                    and pod["spec"]["nodeName"] == "gpu-node-0"
+                    and c0["command"] == list(JT.DEFAULT_COMMAND)
+                    and env.get("KFTPU_TRACE_FILE") == str(trace_file)
+                    and f"{PW.ANNOTATION_PREFIX}/poddefault-trace-to-logs"
+                    in ob.annotations_of(pod) and admitted == [pod_name]):
+                fail(f"deploy path: the bound pod {json.dumps(pod)[:2000]}; "
+                     f"admitted {admitted}")
+            done = wait("the job's end", lambda j: j and (
+                ob.cond_is_true(j, JT.COND_SUCCEEDED)
+                or ob.cond_is_true(j, JT.COND_FAILED)) and j)
+            runs = [e for e in kubelet.logs if e["name"] == pod_name]
+            out = Path(runs[-1]["path"]).read_text(errors="replace") \
+                if runs else ""
+            if not ob.cond_is_true(done, JT.COND_SUCCEEDED) or \
+                    [e.get("rc") for e in runs] != [0]:
+                print(out[-6000:], flush=True)
+                fail(f"deploy path: the job did not succeed: {seq}; runs "
+                     f"{[e.get('rc') for e in runs]}")
+            summaries = [ln for ln in out.splitlines()
+                         if ln.startswith('{"summary"')]
+            summary = json.loads(summaries[-1])["summary"] if summaries \
+                else {}
+            loss = (summary.get("final") or {}).get("loss")
+            first = re.search(r"^(\S+ \S+) .*first step \(incl\. kernel "
+                              r"build\)", out, re.M)
+            if loss is None or not math.isfinite(loss) or first is None:
+                print(out[-6000:], flush=True)
+                fail(f"deploy path: final loss {loss}, first step logged "
+                     f"{first is not None}")
+            to_first = datetime.datetime.strptime(
+                first.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp() - \
+                runs[0]["started"]
+            launches = _world_launches({"launches": _logged_launches(out)[0]},
+                                       STUDY_STEPS, "deploy path trial")
+            if not trace_file.exists():
+                fail(f"deploy path: no span dump at {trace_file}")
+            steps = sum(1 for s in obs_trace.read_jsonl(str(trace_file))
+                        if s.name == "train.step")
+            if steps != STUDY_STEPS:
+                fail(f"deploy path: the span dump holds {steps} train.step "
+                     f"spans, want {STUDY_STEPS}")
+
+            # (4) inspect: a Tensorboard on the logspath, its trace
+            cluster.create(TB.new_tensorboard("profiles", DEPLOY_NS,
+                                              str(logspath)))
+            board = wait("the Tensorboard's Deployment", lambda j:
+                         cluster.get_or_none("apps/v1", "Deployment",
+                                             "profiles", DEPLOY_NS))
+            c_board = board["spec"]["template"]["spec"]["containers"][0]
+            if f"--logdir={logspath}" not in c_board["command"] or \
+                    c_board["image"] != JT.TENSORBOARD_IMAGE:
+                fail(f"deploy path: the Tensorboard's container {c_board}")
+            traces = sorted(logspath.rglob("trace_*.json"))
+            window = re.search(r"profiler: tracing steps \[(\d+), (\d+)\)",
+                               out)
+            if len(traces) != 1 or window is None:
+                fail(f"deploy path: traces under the logspath {traces}, "
+                     f"window logged {window is not None}")
+            profiled = min(int(window.group(2)), STUDY_STEPS) - \
+                int(window.group(1))
+            events = _trace_kernel_events(traces[0])
+            want = {n: launches[n] // STUDY_STEPS * profiled for n in events}
+            if events != want or profiled != DEPLOY_PROFILE[1]:
+                fail(f"deploy path: the trace's flash kernel events "
+                     f"{events}, want {want} over {profiled} profiled steps")
+
+            # (5) reap: the job and the board, their children with them
+            cluster.delete(JT.API_VERSION, JT.KIND, DEPLOY_JOB, DEPLOY_NS)
+            cluster.delete(TB.API_VERSION, TB.KIND, "profiles", DEPLOY_NS)
+            wait("the job's pod and the board's Deployment gone", lambda j:
+                 j is None and not cluster.list("v1", "Pod",
+                                                namespace=DEPLOY_NS)
+                 and cluster.get_or_none("apps/v1", "Deployment", "profiles",
+                                         DEPLOY_NS) is None)
+        finally:
+            kubelet.shutdown()
+            webhook.shutdown()
+            informer.stop()
+    coord, cfg = dep["coord"], dep["cfg"]
+    coord.delete(cfg)
+    left = [(o["kind"], o["metadata"]["name"]) for o in dep["rendered"]
+            if cluster.get_or_none(o["apiVersion"], o["kind"],
+                                   o["metadata"]["name"],
+                                   o["metadata"].get("namespace"))]
+    if gcloud.pools or coord.status(DEPLOY_NAME) is not None or left:
+        fail(f"deploy path: after the delete, pools {list(gcloud.pools)}, "
+             f"TpuDef {coord.status(DEPLOY_NAME) is not None}, rendered "
+             f"objects left {left}")
+    print(f"deploy path ({card}): TpuDef {DEPLOY_NAME} on gke-gpu, pool "
+          f"{pool} ({dep['machine']}, 1 node) through the gcloud double; "
+          f"apply to Available {dep['available_s']:.3f} s, "
+          f"{len(dep['rendered'])} objects, the second apply a no-op; "
+          f"rendered modules {dep['modules'][0]} found, {dep['modules'][1]} "
+          f"unported and absent; job {DEPLOY_JOB} conditions "
+          f"{' -> '.join(seq)}, admitted with KFTPU_TRACE_FILE by the "
+          f"webhook over HTTP; launch to first step {to_first:.2f} s; step "
+          f"{1e3 * summary['step_time_s']:.1f} ms; final loss {loss}; "
+          f"launches {launches}; {steps} train.step spans in the dump; the "
+          f"Tensorboard's trace holds {events} kernel events over "
+          f"{profiled} profiled steps (launches {want}); deleted, the pool "
+          f"gone; {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"deploy_trial": launches}
+
+
 def beside(main: tuple, other: tuple) -> dict:
     """Run `other` (a function and its arguments) on a thread while
     `main` runs here; print each one's seconds and return both results
@@ -5976,15 +6454,19 @@ def main() -> int:
     # checks whose times nothing reads here: the serving checks and
     # ResNet-50 against the CPU and behind the server; on a lane
     # beside them the classifiers on meshes (its one-process ViT serves
-    # in this process and reaches no flash kernel either)
+    # in this process and reaches no flash kernel either) with the
+    # platform's deploy path beside it (its one trial's counts from its
+    # launcher's log line)
     roots = [fresh(n) for n in ("chip_smoke_classify",
-                                "chip_smoke_mesh_classify")]
-    cls_root, cls_mesh_root = roots
+                                "chip_smoke_mesh_classify",
+                                "chip_smoke_deploy")]
+    cls_root, cls_mesh_root, deploy_root = roots
     try:
         launches["resnet50"] = timed_phase(
             "resnet50 launcher", resnet_launcher_phase, cls_root)["launches"]
-        with Lane(phase_s, "mesh classifiers", mesh_classifier_phase,
-                  cls_mesh_root) as lane:
+        with Lane(phase_s, "mesh classifiers and deploy path", beside,
+                  (mesh_classifier_phase, cls_mesh_root),
+                  (deploy_path_phase, deploy_root, card)) as lane:
             timed_phase("serving check", serving_check)
             timed_phase("rolling check", rolling_check)
             timed_phase("speculative check", speculative_check)
@@ -5997,6 +6479,7 @@ def main() -> int:
                         str(cls_root / "resnet50_ckpt"))
             launches["classifier"] = dict(fa.LAUNCHES)
         vit = lane.result
+        launches["deploy_trial"] = vit.pop("deploy_trial")
         launches["mesh_serving"] = {k: lm[k] + vit[k] for k in lm}
     finally:
         for root in roots:

@@ -123,6 +123,10 @@ SERVING_IMAGE = "kubeflow-tpu-torch/platform:latest"
 # The Notebook servers' default image (the JAX package's
 # kubeflow-tpu/jax-notebook images): Jupyter over the port and CUDA
 NOTEBOOK_IMAGE = "kubeflow-tpu-torch/torch-notebook:latest"
+# The Tensorboard servers' default image (the JAX package's
+# kubeflow-tpu/tensorboard:latest): TensorBoard with its profile plugin,
+# which opens the Chrome traces the port's profiler writes
+TENSORBOARD_IMAGE = "kubeflow-tpu-torch/tensorboard:latest"
 
 DEFAULT_COORDINATOR_PORT = 8476
 RESTART_GANG = "GangOnFailure"

@@ -19,6 +19,8 @@ import os
 import signal
 import threading
 
+from kubeflow_tpu_torch.utils.envflags import env_flag
+
 log = logging.getLogger("kubeflow_tpu_torch.mains")
 
 
@@ -34,8 +36,7 @@ def run_controller(name: str, build, *, extra_args=None,
     p.add_argument("--apiserver", default="", help="override in-cluster config")
     p.add_argument(
         "--enable-leader-election", action="store_true",
-        default=os.environ.get("ENABLE_LEADER_ELECTION", "false") in (
-            "true", "True", "TRUE"),
+        default=env_flag("ENABLE_LEADER_ELECTION", "false"),
         help="Enable leader election for controller manager. Enabling this "
              "will ensure there is only one active controller manager.")
     if extra_args:

@@ -7,7 +7,7 @@ prometheus_client). Reconcile mirrors notebook_controller.go:85-279;
 generators mirror generateStatefulSet :282-348, generateService
 :349-380, generateVirtualService :382-443. Env knobs kept: USE_ISTIO,
 ISTIO_GATEWAY, CLUSTER_DOMAIN, ADD_FSGROUP (a boolean knob is on when it
-reads true, True or TRUE, as control/mains.py's). Status is derived from
+reads "true" in any case, `utils/envflags.py`). Status is derived from
 the pod's container state (:200-231), and namespace Events involving the
 notebook's pod are re-emitted onto the Notebook (:565-613) so JWA can
 show them. A GPU notebook's pod template carries its `nvidia.com/gpu`
@@ -26,6 +26,7 @@ from kubeflow_tpu_torch.control.notebook import culler
 from kubeflow_tpu_torch.control.notebook import types as T
 from kubeflow_tpu_torch.control.runtime import Controller, Reconciler, Request, Result
 from kubeflow_tpu_torch.runtime.metrics import REGISTRY, MetricsRegistry
+from kubeflow_tpu_torch.utils.envflags import env_flag
 
 log = logging.getLogger("kubeflow_tpu_torch.notebook")
 
@@ -85,12 +86,8 @@ class RunningNotebooksCollector:
         return self
 
 
-def _on(name: str, default: str) -> bool:
-    return os.environ.get(name, default) in culler.TRUE
-
-
 def use_istio() -> bool:
-    return _on("USE_ISTIO", "false")
+    return env_flag("USE_ISTIO", "false")
 
 
 def istio_gateway() -> str:
@@ -143,7 +140,7 @@ class NotebookReconciler(Reconciler):
         if not any(e.get("name") == T.ENV_NB_PREFIX for e in env):
             env.append({"name": T.ENV_NB_PREFIX,
                         "value": f"/notebook/{m['namespace']}/{m['name']}"})  # :329-332
-        if _on("ADD_FSGROUP", "true"):
+        if env_flag("ADD_FSGROUP", "true"):
             pod_spec.setdefault("securityContext", {}).setdefault("fsGroup", 100)  # :338-345
 
         labels = tmpl.setdefault("metadata", {}).setdefault("labels", {})

@@ -26,18 +26,16 @@ from typing import Callable
 
 from kubeflow_tpu_torch.control.k8s import objects as ob
 from kubeflow_tpu_torch.control.notebook import types as T
+from kubeflow_tpu_torch.utils.envflags import env_flag
 
 log = logging.getLogger("kubeflow_tpu_torch.culler")
 
 TIME_FMT = "%Y-%m-%dT%H:%M:%SZ"
 PROBE_TIMEOUT_S = 5.0
-# the spellings of an enabled boolean env knob (control/mains.py's; the
-# control plane lower-cases no string itself)
-TRUE = ("true", "True", "TRUE")
 
 
 def enabled() -> bool:
-    return os.environ.get("ENABLE_CULLING", "false") in TRUE
+    return env_flag("ENABLE_CULLING", "false")
 
 
 def idle_time_minutes() -> float:

@@ -150,9 +150,14 @@ def add_health_routes(router: Router) -> None:
 
 class HttpService:
     """ThreadingHTTPServer wrapper; serve_background() for tests and
-    embedding, port 0 picks a free port."""
+    embedding, port 0 picks a free port.
 
-    def __init__(self, router: Router, host: str = "0.0.0.0", port: int = 0):
+    Pass ``tls`` (an ``ssl.SSLContext``, e.g. ``tlscerts.server_context``)
+    to serve HTTPS: a kube apiserver calls admission webhooks over
+    verified HTTPS only."""
+
+    def __init__(self, router: Router, host: str = "0.0.0.0", port: int = 0,
+                 tls: "ssl.SSLContext | None" = None):
         self.router = router
         router_ref = router
 
@@ -183,6 +188,10 @@ class HttpService:
                 log.debug("%s %s", self.address_string(), fmt % args)
 
         self._server = ThreadingHTTPServer((host, port), _Handler)
+        if tls is not None:
+            self._server.socket = tls.wrap_socket(
+                self._server.socket, server_side=True)
+        self.tls = tls is not None
         self.port = self._server.server_address[1]
         self._thread: threading.Thread | None = None
 

@@ -19,3 +19,8 @@ def load(path: str) -> Any:
 
 def dumps(obj: Any) -> str:
     return yaml.safe_dump(obj, sort_keys=False)
+
+
+def dump_all(docs: list[Any]) -> str:
+    """Documents as one multi-document YAML stream (`tpctl generate`)."""
+    return yaml.safe_dump_all(docs, sort_keys=False)
