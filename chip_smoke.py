@@ -405,7 +405,10 @@
    the product and node-pool labels; a second apply creates nothing and
    writes no object; TpuDefAvailable; every rendered object stored;
    every rendered `python -m kubeflow_tpu_torch....` of a ported
-   component found, those of the five not yet ported absent. The node
+   component found (kfam, the gatekeeper and the metric collector
+   among them since phase 38's slice), those of the two not yet ported
+   (`manifests.UNPORTED`: the dashboard, the Tensorboards web app)
+   absent. The node
    added for the card carries the create's labels. The PodDefault
    webhook's own `serve()` (plain HTTP: TLS is held on the CPU, and
    nothing here imports `utils/tlscerts`) answers the cluster's
@@ -422,11 +425,44 @@
    launches of its two steps); then the job, the Tensorboard and the
    deployment are deleted (the double's pool gone) and every process
    reaped (`deploy_path_phase`). It runs on a lane beside phase 31.
+38. The observability plane over a paged replica: the port's
+   FakeCluster holds a JAXService `chat` (min 1, max 2) whose one
+   replica pod, made by a reconcile of the port's JAXService
+   controller, runs as `python -m kubeflow_tpu_torch.serving` through
+   `Spawned`: gpt-125m at full width and depth, seeded weights, bf16,
+   continuous batching with 16 slots, prompts of 512 and 64 new tokens,
+   a paged KV cache of 64-token pages, 72 usable (8 requests of 9
+   pages reserved at admission) plus the trash page, no prefix cache;
+   the next reconcile publishes its address in the endpoints
+   annotation (targetReplicas 1). The port's router in-process in front
+   of it, an AvailabilityProber on its /healthz, and a FleetPlane on a
+   virtual clock (15 s a tick) discovering it through
+   `jaxservice_targets(cluster)`, scraping the router's and the
+   prober's registries, with `default_rule_pack()` and a
+   RemediationEngine over `default_remediations(client=cluster)`.
+   Holds: before load up 1, 72 free pages, availability 1; 16
+   concurrent requests of exactly 512 tokens through the router, a tick
+   reading 0 free pages while more than 8 requests are inside the
+   replica, and the ticks at +15 s and +45 s taking KVPagesExhausted
+   pending -> firing (service chat, namespace default); one executed
+   jaxservice-scale-up decision, the nudge annotation "2", and a
+   reconcile leaving targetReplicas 2 with the annotation cleared and no
+   second process; every request 200 with 64 tokens, and the next tick
+   resolving the alert; `ServingSLO.from_store` counting what
+   `from_registry` counted since the first tick (16 requests) and the
+   slo:router_p95:short series; SIGTERM to the replica, then up 0, no
+   instant serving_kv_pages_free (the staleness markers) and
+   availability 0; a TsdbPersister snapshot restored into a fresh store
+   answering the phase's queries alike; no flash kernel launched in the
+   script's process. Prints the replica's launch to serving, the scrape
+   and rule-pass ms on the host clock (not held) and the virtual
+   seconds from first exhaustion to firing (`obs_plane_phase`). It runs
+   beside the resume lane, after phase 35.
 The order, for the script's time (a `Lane` runs phases on a thread
 beside the script's own; no check holds the times of a phase that
 shares the card, and each pair fits the card's 80 GB at its measured
-peaks): phases 1-8 and 11 alone; phase 15 on a lane beside phases 30
-and 35, then 24-27 and 14 (checks whose times nothing reads), then
+peaks): phases 1-8 and 11 alone; phase 15 on a lane beside phases 30,
+35 and 38, then 24-27 and 14 (checks whose times nothing reads), then
 phase 16 alone; the serving points (10, 12b, 13b and its witness)
 alone; phase 17 alone; phase 31 with phase 37 beside it on a lane
 beside the checks 9, 12a, 13a, 13c, 18 and 19; the ResNet-50 profile
@@ -471,7 +507,8 @@ phase 31's training worlds are held at none too), `seq_f32_rank0/1`,
 `uly_f32_rank0/1` and `seq_bf16_rank0/1` (phase 32's ranks),
 `classifier_remat` (none), `job_rank0/1` (phase 34's ranks, both
 incarnations), `services` (phase 35, this process: none; the
-replicas decode by bmm in processes of their own),
+replicas decode by bmm in processes of their own), `obs_plane` (phase
+38, this process: none; the replica decodes in its own),
 `study_trial0/1` (phase 36's trials) and `deploy_trial` (phase 37's
 trial); the bf16 flash forward's row also holds its
 figures at the entry shape) and the card; the last line is
@@ -6181,6 +6218,436 @@ def deploy_path_phase(root, card: str) -> dict:
     return {"deploy_trial": launches}
 
 
+# -- phase 38: the observability plane over a paged replica ------------------
+
+# The replica: SERVICE_REF at full width and depth with seeded weights,
+# bf16, 16 decode slots, prompts of exactly 512 and 64 new tokens, and a
+# paged KV cache of pages of 64 tokens sized to hold "held" requests at
+# once: admission reserves a request's ceil((512 + 64) / 64) = 9
+# pages up front (serving/continuous.py `_admit_paged`), so 8 x 9 = 72
+# usable pages (plus the trash page) read 0 free while requests wait.
+OBS = {"ref": SERVICE_REF, "vocab": SERVICE_VOCAB, "prompt": 512, "new": 64,
+       "slots": 16, "page": 64, "held": 8, "requests": 16,
+       "dtype": "bfloat16"}
+OBS_TICK = 15.0                 # the plane's scrape interval, virtual s
+OBS_FOR = 30.0                  # KVPagesExhausted's for-duration
+OBS_TIMEOUT = 240               # seconds any one wait of the phase may take
+OBS_POLL = 0.05                 # real seconds between ticks under load
+
+
+class _VirtualClock:
+    """The plane's clock: the phase sets ``t``."""
+
+    t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _on_this_host(url: str) -> str:
+    """A replica address as the controller publishes it
+    (`http://<pod>.<service>.<namespace>.svc:<port>`) resolved to this
+    host: the phase's stand-in for the cluster's DNS, as phase 35's
+    router transport is."""
+    from urllib.parse import urlsplit, urlunsplit
+
+    parts = urlsplit(url)
+    return urlunsplit(parts._replace(netloc=f"127.0.0.1:{parts.port}"))
+
+
+def obs_plane_phase(root, card: str, cfg: dict = OBS) -> None:
+    """Phase 38: the observability plane over a paged serving replica on
+    the card. The port's FakeCluster holds a JAXService `chat` (min 1,
+    max 2 replicas); one reconcile of the port's JAXService controller
+    makes its replica pod, whose command (`python -m
+    kubeflow_tpu_torch.serving` with the spec's model, prompt, tokens,
+    slots and dtype) the phase runs through `Spawned` with the paged
+    cache's flags added (`--kv-pages`, `--kv-page-size`, no prefix
+    cache); once it answers /readyz the pod reads Running, and the next
+    reconcile publishes its address in the endpoints annotation with
+    status.targetReplicas 1. The port's router runs in-process in front
+    of it (its own MetricsRegistry), an AvailabilityProber probes its
+    /healthz into a registry of its own before every tick, and a
+    FleetPlane on a virtual clock (OBS_TICK a tick) discovers the
+    replica through `jaxservice_targets(cluster)` (`_on_this_host`
+    resolving the published name), scrapes the router's and the
+    prober's registries, runs `default_rule_pack()` and a
+    RemediationEngine over `default_remediations(client=cluster)`.
+    Holds, before load (after one warm-up request through the router):
+    up 1, serving_kv_pages_free the usable pages, kubeflow_availability
+    1. Under load (cfg["requests"] prompts of exactly cfg["prompt"]
+    tokens, distinct by seed, through the router at once): once the
+    replica's own /metrics reads the cache exhausted while requests
+    wait, a tick at t0 reads free 0 while more requests are inside the
+    replica than the cache holds, and the ticks at t0 + 15 s and + 45 s
+    take KVPagesExhausted pending -> firing with service "chat" and
+    namespace "default" (an attempt whose three ticks do not all read 0
+    is retried while requests are queued, after a tick that clears the
+    pending alert it left); one executed jaxservice-scale-up decision in
+    the audit, the nudge annotation "2", and one reconcile leaves
+    status.targetReplicas 2 and the annotation cleared, with no second
+    process started. After load: every request 200 with cfg["new"]
+    tokens in range, and the next tick resolves the alert;
+    `ServingSLO.from_store` over the load's window counts what
+    `from_registry` counted on the router's registry since the first
+    tick (the warm-up is in both registry reads: the router's latency
+    histogram is born at its first observation, so the plane's first
+    sample of it is 1, not 0), fast and total, total cfg["requests"];
+    the slo:router_p95:short series exists. SIGTERM to the replica: the
+    next tick reads up 0, no instant serving_kv_pages_free (the
+    staleness markers) and kubeflow_availability 0. A TsdbPersister
+    snapshot restored into a fresh store answers the phase's queries at
+    each held instant as the plane did. The script's process launches no
+    flash kernel (the replica decodes in its own). Prints the replica's
+    launch to serving, the scrape and rule-pass ms on the host clock
+    (not held), the virtual seconds from first exhaustion to firing and
+    the phase's seconds."""
+    import concurrent.futures as cf
+    import signal
+    import statistics
+    import urllib.request
+
+    from kubeflow_tpu_torch.control.jaxservice import types as T
+    from kubeflow_tpu_torch.control.jaxservice.controller import (
+        build_controller)
+    from kubeflow_tpu_torch.control.k8s import objects as ob
+    from kubeflow_tpu_torch.control.k8s.fake import FakeCluster
+    from kubeflow_tpu_torch.control.runtime import seed_controller
+    from kubeflow_tpu_torch.metric_collector.prober import AvailabilityProber
+    from kubeflow_tpu_torch.obs import expofmt
+    from kubeflow_tpu_torch.obs import goodput as gp
+    from kubeflow_tpu_torch.obs.events import EventRecorder
+    from kubeflow_tpu_torch.obs.persist import TsdbPersister
+    from kubeflow_tpu_torch.obs.plane import FleetPlane
+    from kubeflow_tpu_torch.obs.remediate import (RemediationEngine,
+                                                  default_remediations)
+    from kubeflow_tpu_torch.obs.rules import Evaluator
+    from kubeflow_tpu_torch.obs.trace import TraceCollector
+    from kubeflow_tpu_torch.obs.tsdb import (RegistryTarget, TimeSeriesStore,
+                                             jaxservice_targets)
+    from kubeflow_tpu_torch.runtime.metrics import MetricsRegistry
+    from kubeflow_tpu_torch.serving import router as R
+
+    t_phase = time.perf_counter()
+    ns, name = "default", "chat"
+    replica = T.replica_name(name, 0)
+    instance = f"{ns}/{replica}"
+    # pages reserved at admission, for every request the cache holds
+    usable = cfg["held"] * -(-(cfg["prompt"] + cfg["new"]) // cfg["page"])
+    # the phase's reads: what each tick holds and what the restored
+    # store must answer alike
+    queries = {
+        "up": f'up{{instance="{instance}"}}',
+        "free": f'serving_kv_pages_free{{instance="{instance}"}}',
+        "queue": f'serving_queue_depth{{instance="{instance}"}}',
+        "availability": f'kubeflow_availability{{target="{replica}"}}',
+        "alerts": 'ALERTS{alertname="KVPagesExhausted"}',
+        "p95": 'slo:router_p95:short{service="chat"}',
+        "requests": 'sum(router_requests_total{outcome="completed"})',
+    }
+    port = _free_port()
+    cluster = FakeCluster()
+    svc = T.new_jaxservice(name, ns, model=cfg["ref"], model_name=name,
+                           min_replicas=1, max_replicas=2, port=port)
+    svc["spec"]["model"].update(
+        promptLen=cfg["prompt"], maxNewTokens=cfg["new"],
+        decodeSlots=cfg["slots"], continuousBatching=True,
+        paramDtype=cfg["dtype"])
+    cluster.create(svc)
+    ctl = seed_controller(build_controller(cluster,
+                                           registry=MetricsRegistry()))
+    ctl.run_until_idle()
+    pod = cluster.get("v1", "Pod", replica, ns)
+    cmd = list(pod["spec"]["containers"][0]["command"])
+    if cmd[:3] != ["python", "-m", "kubeflow_tpu_torch.serving"] or \
+            cmd[cmd.index("--port") + 1] != str(port):
+        fail(f"obs plane: the replica pod's command {cmd}")
+    cmd[0] = sys.executable
+    cmd += ["--kv-pages", str(usable + 1), "--kv-page-size",
+            str(cfg["page"]), "--no-prefix-cache", "--host", "127.0.0.1"]
+    vclock = _VirtualClock()
+    router_reg, prober_reg, plane_reg = (MetricsRegistry(),
+                                         MetricsRegistry(), MetricsRegistry())
+    ms = {"scrape": [], "rules": []}
+    fsvc = None
+    ticks: list[dict] = []
+
+    def discover():
+        targets = jaxservice_targets(cluster)
+        for t in targets:
+            t.url = _on_this_host(t.url)
+        return targets
+
+    with Spawned() as spawned, open(root / "replica.log", "wb") as log:
+        t_launch = time.perf_counter()
+        proc = spawned.start(_replica_args(cmd), cwd=str(
+            Path(__file__).resolve().parent), stdout=log,
+            stderr=subprocess.STDOUT)
+
+        def wait(what: str, cond, timeout: float = OBS_TIMEOUT,
+                 alive: bool = True):
+            deadline = time.monotonic() + timeout
+            while not (out := cond()):
+                if alive and proc.poll() is not None:
+                    fail(f"obs plane: the replica exited {proc.returncode} "
+                         f"waiting for {what}: " + (root / "replica.log")
+                         .read_text(errors="replace")[-3000:])
+                if time.monotonic() > deadline:
+                    fail(f"obs plane: no {what} within {timeout} s: "
+                         + (root / "replica.log").read_text(
+                             errors="replace")[-3000:])
+                time.sleep(0.05)
+            return out
+
+        wait("replica serving", lambda: _readyz(port))
+        to_serving = time.perf_counter() - t_launch
+        pod = cluster.get("v1", "Pod", replica, ns)
+        pod["status"] = {"phase": "Running"}
+        cluster.update_status(pod)
+        ctl.run_until_idle()
+        svc = cluster.get(T.API_VERSION, T.KIND, name, ns)
+        eps = R.parse_endpoints(svc)
+        addr = f"http://{replica}.{name}.{ns}.svc:{port}"
+        if [(e["name"], e["addr"], e["state"]) for e in eps] != [
+                (replica, addr, R.STATE_ACTIVE)] or \
+                svc["status"].get("targetReplicas") != 1 or \
+                not ob.cond_is_true(svc, T.COND_READY):
+            fail(f"obs plane: the JAXService after the replica ran: "
+                 f"endpoints {eps}, status {json.dumps(svc['status'])[:600]}")
+        router = R.TokenRouter(service=name, namespace=ns,
+                               registry=router_reg)
+        router.sync_from_object(svc, transport_factory=lambda ep: (
+            R.HttpTransport(_on_this_host(ep["addr"]))))
+        front = R.RouterFrontend(router, max_new_tokens=cfg["new"])
+        prober = AvailabilityProber(
+            {replica: f"http://127.0.0.1:{port}/healthz"},
+            registry=prober_reg)
+        recorder = EventRecorder(cluster, component="obs-plane")
+        remediator = RemediationEngine(default_remediations(client=cluster),
+                                       recorder=recorder, registry=plane_reg,
+                                       clock=vclock)
+        plane = FleetPlane(
+            registry=plane_reg, recorder=recorder,
+            targets=[RegistryTarget("router", router_reg,
+                                    labels={"job": "router"}),
+                     RegistryTarget("prober", prober_reg,
+                                    labels={"job": "prober"})],
+            discover=discover, interval_s=OBS_TICK, clock=vclock,
+            collector=TraceCollector(), remediator=remediator)
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                ms[key].append(1e3 * (time.perf_counter() - t))
+                return out
+            return run
+
+        plane.scraper.scrape_once = timed(plane.scraper.scrape_once, "scrape")
+        plane.engine.evaluate_once = timed(plane.engine.evaluate_once,
+                                           "rules")
+
+        def tick(at: float) -> dict:
+            vclock.t = at
+            prober.probe_once()
+            out = plane.tick(at=at)
+            out["reads"] = {k: plane.query(q, at=at)["result"]
+                            for k, q in queries.items()}
+            ticks.append(out)
+            return out
+
+        def one(out: dict, key: str):
+            """The one value a tick read for ``key``, else None."""
+            vals = [r["value"] for r in out["reads"][key]]
+            return vals[0] if len(vals) == 1 else None
+
+        rng = random.Random(38)
+        prompts = [[rng.randrange(1, cfg["vocab"])
+                    for _ in range(cfg["prompt"])]
+                   for _ in range(cfg["requests"] + 1)]
+        fsvc = front.serve(host="127.0.0.1", port=0).serve_background()
+
+        def post(prompt: list[int]) -> tuple[int, list[int]]:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{fsvc.port}/v1/models/{name}:predict",
+                data=json.dumps({"instances": [{"tokens": prompt}]}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=OBS_TIMEOUT) as resp:
+                return resp.status, json.loads(resp.read())["predictions"][0]
+
+        def held_answers(outs, what):
+            bad = [(code, len(toks)) for code, toks in outs
+                   if code != 200 or len(toks) != cfg["new"]
+                   or not all(0 <= t < cfg["vocab"] for t in toks)]
+            if bad:
+                fail(f"obs plane: {what}: answers (status, tokens) "
+                     f"{bad[:4]}, want 200 and {cfg['new']} ids in range")
+
+        # before load: one warm-up request, then the first tick
+        held_answers([post(prompts[-1])], "the warm-up")
+        before = tick(OBS_TICK)
+        reg_before = gp.ServingSLO().from_registry(router_reg, ns, name)
+        got = (one(before, "up"), one(before, "free"),
+               one(before, "availability"))
+        if got != (1.0, float(usable), 1.0) or \
+                before["scrape"]["failed"] != 0:
+            fail(f"obs plane: before load up, free pages, availability "
+                 f"{got}, want (1, {usable}, 1); scrape {before['scrape']}")
+        # under load: read the replica's own /metrics until the cache is
+        # exhausted while requests wait, then tick at t0, +15 s, +45 s;
+        # an attempt whose ticks do not all read 0 free pages is retried
+        # (after a tick that clears a pending alert it left) while
+        # requests are still queued
+        def replica_reads() -> tuple[float, float]:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+                    body = r.read().decode()
+            except OSError:
+                return -1.0, 0.0
+            got = {s.name: s.value for s in expofmt.parse(body)
+                   if s.name in ("serving_kv_pages_free",
+                                 "serving_queue_depth")}
+            return (got.get("serving_kv_pages_free", -1.0),
+                    got.get("serving_queue_depth", 0.0))
+
+        def kv_alert_active() -> bool:
+            return any(a["alert"] == "KVPagesExhausted"
+                       for a in plane.engine.active_alerts())
+
+        t_load = time.perf_counter()
+        attempts, t0, fired = 0, None, None
+        with cf.ThreadPoolExecutor(cfg["requests"]) as pool:
+            futs = [pool.submit(post, p) for p in prompts[:cfg["requests"]]]
+            deadline = time.monotonic() + OBS_TIMEOUT
+            while fired is None and not all(f.done() for f in futs):
+                if time.monotonic() > deadline:
+                    fail(f"obs plane: no exhaustion within {OBS_TIMEOUT} s")
+                free, queue = replica_reads()
+                if kv_alert_active():
+                    if free != 0.0:
+                        tick(vclock.t + OBS_TICK)
+                    time.sleep(OBS_POLL)
+                    continue
+                if not (free == 0.0 and queue > cfg["held"]):
+                    time.sleep(OBS_POLL)
+                    continue
+                attempts += 1
+                t0 = vclock.t + OBS_TICK
+                run = [tick(t0)]
+                if not (one(run[0], "free") == 0.0
+                        and (one(run[0], "queue") or 0) > cfg["held"]):
+                    continue
+                run += [tick(t0 + OBS_TICK), tick(t0 + OBS_TICK + OBS_FOR)]
+                if [one(o, "free") for o in run] != [0.0, 0.0, 0.0]:
+                    continue
+                trs = [[(t["alert"], t["to"], t["labels"].get("service"),
+                         t["labels"].get("namespace"))
+                        for t in o["transitions"]
+                        if t["alert"] == "KVPagesExhausted"] for o in run]
+                want = [[("KVPagesExhausted", "pending", name, ns)], [],
+                        [("KVPagesExhausted", "firing", name, ns)]]
+                if trs != want:
+                    fail(f"obs plane: KVPagesExhausted transitions {trs} at "
+                         f"{t0} / +15 / +45 s, want {want}")
+                fired = run[2]
+            outs = [f.result() for f in futs]
+        load_s = time.perf_counter() - t_load
+        if fired is None:
+            fail(f"obs plane: the load ended ({load_s:.2f} s, {attempts} "
+                 "exhausted reads) before three ticks read 0 free pages "
+                 "in a row")
+        held_answers(outs, f"{cfg['requests']} requests under load")
+        decisions = [(d["action"], d["result"])
+                     for d in plane.remediation_audit()["audit"]]
+        if decisions != [("jaxservice-scale-up", "executed")] or \
+                [(d["action"], d["result"]) for d in fired["remediations"]] \
+                != decisions:
+            fail(f"obs plane: remediation audit {decisions}, want one "
+                 "executed jaxservice-scale-up at the firing tick")
+        svc = cluster.get(T.API_VERSION, T.KIND, name, ns)
+        nudge = ob.annotations_of(svc).get(T.ANNOTATION_SCALE_NUDGE)
+        if nudge != "2":
+            fail(f"obs plane: the scale nudge annotation {nudge!r}, want "
+                 "'2'")
+        reconciles = ctl.run_until_idle()
+        svc = cluster.get(T.API_VERSION, T.KIND, name, ns)
+        if svc["status"].get("targetReplicas") != 2 or \
+                T.ANNOTATION_SCALE_NUDGE in ob.annotations_of(svc):
+            fail(f"obs plane: after {reconciles} reconciles targetReplicas "
+                 f"{svc['status'].get('targetReplicas')}, annotations "
+                 f"{ob.annotations_of(svc)}")
+        if len(spawned.procs) != 1:
+            fail(f"obs plane: {len(spawned.procs)} processes started")
+        # after load: the alert resolves; the SLO over the load's window
+        after = tick(vclock.t + OBS_TICK)
+        if ("KVPagesExhausted", "resolved") not in [
+                (t["alert"], t["to"]) for t in after["transitions"]]:
+            fail(f"obs plane: after load, transitions "
+                 f"{after['transitions']} (free {one(after, 'free')})")
+        reg_after = gp.ServingSLO().from_registry(router_reg, ns, name)
+        window = vclock.t - OBS_TICK + 1.0      # back past the first tick
+        store_slo = gp.ServingSLO().from_store(plane.store, vclock.t, window,
+                                               service=name)
+
+        def fast(s):
+            return round(s["attainment"] * s["requests"])
+
+        got = (fast(store_slo), store_slo["requests"])
+        want = (fast(reg_after) - fast(reg_before),
+                reg_after["requests"] - reg_before["requests"])
+        if got != want or want[1] != cfg["requests"]:
+            fail(f"obs plane: from_store (fast, total) {got}, from_registry "
+                 f"since the first tick {want}, want total "
+                 f"{cfg['requests']}")
+        if plane.store.series_count("slo:router_p95:short") == 0:
+            fail("obs plane: no slo:router_p95:short series")
+        p95 = one(after, "p95")
+        # the replica stops: up 0, its series stale, the prober reads 0
+        proc.send_signal(signal.SIGTERM)
+        wait("the replica's exit", lambda: proc.poll() is not None, 30,
+             alive=False)
+        stopped = tick(vclock.t + OBS_TICK)
+        got = (one(stopped, "up"), stopped["reads"]["free"],
+               one(stopped, "availability"))
+        if got != (0.0, [], 0.0):
+            fail(f"obs plane: after SIGTERM up, free pages, availability "
+                 f"{got}, want (0, [], 0); the replica exited "
+                 f"{proc.returncode}")
+        # persistence: a snapshot restored answers the same
+        persisted = TsdbPersister(plane.store, str(root / "tsdb"),
+                                  clock=vclock).snapshot_now()
+        fresh = TimeSeriesStore(max_points=plane.store.max_points,
+                                max_series=plane.store.max_series)
+        TsdbPersister(fresh, str(root / "tsdb")).restore()
+        ev = Evaluator(fresh, lookback_s=plane.engine.evaluator.lookback_s)
+        for out in (before, fired, after, stopped):
+            at = out["scrape"]["at"]
+            for q in queries.values():
+                if ev.query(q, at) != plane.engine.query(q, at=at):
+                    fail(f"obs plane: the restored store answers {q} at "
+                         f"{at} with {ev.query(q, at)}, the plane with "
+                         f"{plane.engine.query(q, at=at)}")
+    if fsvc is not None:
+        fsvc.shutdown()
+    print(f"obs plane ({card}): replica {cfg['ref']} ({cfg['dtype']}, "
+          f"{cfg['slots']} slots, {usable} usable pages of {cfg['page']}) "
+          f"launch to serving {to_serving:.2f} s; {len(ticks)} ticks, "
+          f"scrape ms median {statistics.median(ms['scrape']):.2f} max "
+          f"{max(ms['scrape']):.2f}, rule pass ms median "
+          f"{statistics.median(ms['rules']):.2f} max {max(ms['rules']):.2f} "
+          f"(host clock, not held); first exhaustion at {t0:.0f} virtual "
+          f"s ({attempts} exhausted read(s)), firing "
+          f"{fired['scrape']['at'] - t0:.0f} virtual s later; "
+          f"{cfg['requests']} requests in {load_s:.2f} s "
+          f"({cfg['requests'] * cfg['new'] / load_s:.1f} tokens/s, not "
+          f"held); nudge consumed in {reconciles} reconcile(s), "
+          f"targetReplicas 2; resolved; SLO from the store {store_slo}, "
+          f"p95 {p95}; stale on stop; snapshot of "
+          f"{persisted['samples']} samples restored equal; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def beside(main: tuple, other: tuple) -> dict:
     """Run `other` (a function and its arguments) on a thread while
     `main` runs here; print each one's seconds and return both results
@@ -6376,14 +6843,15 @@ def main() -> int:
     # each launcher's log) on a lane, beside the LM over a serving mesh,
     # the control plane's services path (the scheduler process, the
     # JAXService controller, two replica servers and the router), then
-    # the MoE checks, long-context dispatch and the router; the lane's
+    # the observability plane over a paged replica, then the MoE checks,
+    # long-context dispatch and the router; the lane's
     # in-process part reaches no flash kernel, so this process's counts
     # over each of these are that path's. Then
     # serving from the resumed checkpoint, alone: its bf16 witness reads
     # the admission order of four concurrent requests.
     roots = [fresh(n) for n in ("chip_smoke_resume", "chip_smoke_mesh",
-                                "chip_smoke_services")]
-    resume_root, mesh_root, svc_root = roots
+                                "chip_smoke_services", "chip_smoke_obs")]
+    resume_root, mesh_root, svc_root, obs_root = roots
     try:
         with Lane(phase_s, "resume", resume_phase, card, step_s["pinned"],
                   resume_root) as lane:
@@ -6391,6 +6859,11 @@ def main() -> int:
             fa.reset_launches()
             timed_phase("services path", services_phase, svc_root, card)
             launches["services"] = dict(fa.LAUNCHES)
+            # the observability plane over a paged replica (its decode in
+            # a process of its own): a check whose times nothing reads
+            fa.reset_launches()
+            timed_phase("obs plane", obs_plane_phase, obs_root, card)
+            launches["obs_plane"] = dict(fa.LAUNCHES)
             # checks whose times nothing reads, while phase 15 runs on
             timed_phase("moe block", moe_block_phase)
             timed_phase("moe card vs cpu", moe_card_vs_cpu_phase)
@@ -6485,7 +6958,7 @@ def main() -> int:
         for root in roots:
             shutil.rmtree(root, ignore_errors=True)
     for name in ("rolling", "speculative", "router", "serving",
-                 "serve_checkpoint", "services", "moe_serving"):
+                 "serve_checkpoint", "services", "obs_plane", "moe_serving"):
         if any(launches[name].values()):
             fail(f"the {name} path launched flash kernels in the script "
                  f"{launches[name]}: decode attends by bmm over the cache")

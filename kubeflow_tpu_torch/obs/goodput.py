@@ -46,10 +46,7 @@ GPUs, so ``chip_seconds_lost`` counts GPU-seconds; the env variable that
 sizes it (``TPU_GOODPUT_CHIPS``) and the exported series
 (``goodput_ratio``, ``goodput_wall_seconds``,
 ``goodput_bucket_seconds``, ``goodput_chip_seconds_lost``) keep the JAX
-package's names, which dashboards and alerts read. Left out:
-``ServingSLO.from_store``, which reads the fleet TSDB through
-``obs/rules.py``, a module the port does not have
-(``ServingSLO.from_registry`` is kept).
+package's names, which dashboards and alerts read.
 """
 
 from __future__ import annotations
@@ -385,6 +382,33 @@ class ServingSLO:
                 fast += s.value
             elif s.name == "router_request_seconds_count":
                 total += s.value
+        return self._status(fast, total)
+
+    def from_store(self, store, at: float, window_s: float = 300.0,
+                   service: str | None = None,
+                   tenant: str | None = None) -> dict:
+        """Windowed attainment from the fleet TSDB: increase() of the
+        fast bucket vs the count over the last ``window_s``. ``tenant``
+        narrows to one billing tenant's series (the chargeback cut)."""
+        from kubeflow_tpu_torch.obs.rules import Evaluator
+
+        ev = Evaluator(store)
+        sel = []
+        if service:
+            sel.append(f'service="{service}"')
+        if tenant:
+            sel.append(f'tenant="{tenant}"')
+        le_sel = 'le="%s"' % self.le
+        match = f"{{{','.join(sel)}}}" if sel else ""
+        lematch = f"{{{','.join([le_sel] + sel)}}}"
+        # rounded, floored at 1s: bare int() truncation turned a
+        # fractional window into "[0s]" — an empty window that reported
+        # a burning service as trivially meeting its SLO
+        win = f"[{max(1, round(window_s))}s]"
+        fast = sum(v for _, v in ev.query(
+            f"increase(router_request_seconds_bucket{lematch}{win})", at))
+        total = sum(v for _, v in ev.query(
+            f"increase(router_request_seconds_count{match}{win})", at))
         return self._status(fast, total)
 
 

@@ -11,11 +11,10 @@ StudyJob), launches the port's modules (`python -m
 kubeflow_tpu_torch....`) and names images under the port's prefix.
 
 `MODULES` holds every module a rendered Deployment launches. The web
-apps and services not yet ported (`UNPORTED`: kfam, gatekeeper, the
-dashboard, the Tensorboards web app, the metric collector) are named by
-the module the port will give them; until it exists, `find_spec` finds
-no such module and a pod of it would fail at start: nothing here runs
-one, and ROADMAP.md lists each.
+apps not yet ported (`UNPORTED`: the dashboard and the Tensorboards web
+app) are named by the module the port will give them; until it exists,
+`find_spec` finds no such module and a pod of it would fail at start:
+nothing here runs one, and ROADMAP.md lists each.
 """
 
 from __future__ import annotations
@@ -42,10 +41,9 @@ MODULES = {
     "metric-collector": "kubeflow_tpu_torch.metric_collector",
 }
 # the components whose module the port does not have yet (ROADMAP
-# Queue 1 items 2-4): rendered, so a deployment's shape is whole, and
-# run by nothing until they exist
-UNPORTED = frozenset({"kfam", "gatekeeper", "centraldashboard",
-                      "tensorboards-web-app", "metric-collector"})
+# Queue 1 item 4): rendered, so a deployment's shape is whole, and run
+# by nothing until they exist
+UNPORTED = frozenset({"centraldashboard", "tensorboards-web-app"})
 CONTROLLERS = ("jaxjob-controller", "gang-scheduler", "jaxservice-controller",
                "notebook-controller", "profile-controller",
                "tensorboard-controller")

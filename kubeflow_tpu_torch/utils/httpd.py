@@ -208,3 +208,29 @@ class HttpService:
     def shutdown(self) -> None:
         self._server.shutdown()
         self._server.server_close()
+
+
+def serve_until_signalled(svc: HttpService, banner: str,
+                          period_s: float = 1.0,
+                          each_period: Callable[[], None] | None = None
+                          ) -> int:
+    """A service's main: with ``svc`` serving on its thread, print
+    ``banner``, call ``each_period`` (if any) every ``period_s`` until
+    SIGTERM or SIGINT, then stop the server and return 0, as the
+    controller mains (`control/mains.py`) do. Call it from the main
+    thread."""
+    import signal
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    signal.signal(signal.SIGINT, lambda *a: stop.set())
+    print(banner, flush=True)
+    try:
+        while True:
+            if each_period is not None:
+                each_period()
+            if stop.wait(period_s):
+                break
+    finally:
+        svc.shutdown()
+    return 0

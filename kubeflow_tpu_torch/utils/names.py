@@ -33,3 +33,10 @@ def sanitize_dns1123(raw: str, fallback: str = "user") -> str:
     into a valid name — for server-derived defaults, never user input."""
     s = re.sub(r"[^a-z0-9-]", "-", raw.lower()).strip("-")[:63].strip("-")
     return s if is_dns1123(s) else fallback
+
+
+def dns_label_of(raw: str) -> str:
+    """``raw`` lower-cased, each character outside [a-z0-9] a '-', and
+    the ends stripped of '-': the user part of a KFAM binding's name
+    (access-management bindings.go)."""
+    return re.sub(r"[^a-z0-9]", "-", raw.lower()).strip("-")

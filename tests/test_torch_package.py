@@ -264,3 +264,41 @@ def test_control_plane_imports_without_torch_jax_or_prometheus():
     assert out.returncode == 0, out.stderr[-2000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"gate": False, "torch": []}
+
+
+def test_access_and_observability_modules_import_without_torch():
+    """KFAM, the gatekeeper, the observability plane and the prober are
+    in the scans above, and import with jax, triton, prometheus_client,
+    requests and the JAX package unimportable, pulling in no torch."""
+    mods = ["kubeflow_tpu_torch.control.kfam",
+            "kubeflow_tpu_torch.control.kfam.service",
+            "kubeflow_tpu_torch.control.kfam.__main__",
+            "kubeflow_tpu_torch.control.gatekeeper",
+            "kubeflow_tpu_torch.control.gatekeeper.auth",
+            "kubeflow_tpu_torch.control.gatekeeper.__main__",
+            "kubeflow_tpu_torch.obs", "kubeflow_tpu_torch.obs.tsdb",
+            "kubeflow_tpu_torch.obs.rules", "kubeflow_tpu_torch.obs.persist",
+            "kubeflow_tpu_torch.obs.remediate",
+            "kubeflow_tpu_torch.obs.plane", "kubeflow_tpu_torch.obs.goodput",
+            "kubeflow_tpu_torch.metric_collector",
+            "kubeflow_tpu_torch.metric_collector.prober",
+            "kubeflow_tpu_torch.metric_collector.__main__"]
+    scanned = set(_modules())
+    assert set(mods) <= scanned, sorted(set(mods) - scanned)
+    code = (
+        "import importlib, importlib.abc, json, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'triton',\n"
+        "                                  'prometheus_client', 'requests',\n"
+        "                                  'kubeflow_tpu', 'torch'):\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "from kubeflow_tpu_torch.obs.goodput import ServingSLO\n"
+        "print(json.dumps(hasattr(ServingSLO, 'from_store')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1]) is True

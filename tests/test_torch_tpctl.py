@@ -258,27 +258,27 @@ def test_yaml_lite_multi_document_dump_equals_pyyaml():
     assert list(yaml.safe_load_all(yaml_lite.dump_all(objs))) == objs
 
 
-def _roadmap_queue1_items_2_to_4() -> str:
+def _roadmap_queue1_item_4() -> str:
     text = (ROOT / "ROADMAP.md").read_text()
     queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
-    return queue[queue.index("\n2. **"):queue.index("\n5. **")]
+    return queue[queue.index("\n4. **"):queue.index("\n5. **")]
 
 
 def test_unresolved_launched_modules_are_roadmap_queue1():
     """Every rendered `python -m kubeflow_tpu_torch....` that names no
-    module of the port is one that ROADMAP Queue 1 items 2-4 still list
-    to port, and every such module they name is rendered; the rest
-    resolve."""
+    module of the port is one that ROADMAP Queue 1 item 4 still lists
+    to port (items 2-3, KFAM, the gatekeeper and the metric collector,
+    are ported and resolve), and every such module it names is
+    rendered; the rest resolve."""
     launched = PM.launched_modules(PM.render(PDef()))
     assert launched == [PM.MODULES[n] for n in PDef().applications
                         if n in PM.MODULES]
     missing = {m for m in launched if importlib.util.find_spec(m) is None}
     listed = set(re.findall(r"`(kubeflow_tpu_torch(?:\.\w+)+)`",
-                            _roadmap_queue1_items_2_to_4()))
+                            _roadmap_queue1_item_4()))
     assert missing == listed
     assert missing == {PM.MODULES[n] for n in PM.UNPORTED}
-    assert missing == {"kubeflow_tpu_torch.control.kfam",
-                       "kubeflow_tpu_torch.control.gatekeeper",
-                       "kubeflow_tpu_torch.webapps.dashboard_main",
-                       "kubeflow_tpu_torch.webapps.tensorboards_main",
-                       "kubeflow_tpu_torch.metric_collector"}
+    assert missing == {"kubeflow_tpu_torch.webapps.dashboard_main",
+                       "kubeflow_tpu_torch.webapps.tensorboards_main"}
+    for name in ("kfam", "gatekeeper", "metric-collector"):
+        assert importlib.util.find_spec(PM.MODULES[name]) is not None
